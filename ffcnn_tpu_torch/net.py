@@ -1,0 +1,237 @@
+"""ffcnn-shaped public API on PyTorch: ``Net.load(cfg, weights)`` ->
+``net.detect(images)``, the port of ``ffcnn_tpu/net.py``.
+
+    net_load    -> Net.load   (parse cfg, fold BN, params to the device)
+    net_input   -> detect     (letterbox on the device)
+    net_forward -> detect     (forward, YOLO decode, NMS, batched)
+    net_dump    -> Net.dump   (byte-identical layer table)
+
+Modes:
+  * ``parity``: float32 with TF32 off for convs and matmuls (the JAX
+    package's ``Precision.HIGHEST``); no fused kernels.
+  * ``fast``: bfloat16 blobs with float32 accumulation; BGR swap and
+    normalize folded into conv-1; the fused inverted-residual runs go
+    through the block kernel at every batch size.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import typing
+import warnings
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ffcnn_tpu.darknet import cfg as cfg_mod
+from ffcnn_tpu.darknet import weights as weights_mod
+from ffcnn_tpu.darknet.ir import LayerType, NetIR
+
+from .graph.build import (fold_input_transform, forward_features,
+                          params_from_numpy)
+from .kernels.block_fused import block_params, plan_runs
+from .ops.nms import NMSResult, nms
+from .ops.preprocess import letterbox, letterbox_params, letterbox_uint8
+from .ops.yolo import (apply_arena_cap, arena_capacity, concat_heads,
+                       decode_head)
+
+# Demo defaults (ffcnn.c:556-557)
+DEFAULT_MEAN = (0.0, 0.0, 0.0)
+DEFAULT_NORM = (1 / 255.0, 1 / 255.0, 1 / 255.0)
+NMS_THRESHOLD = 0.5          # hardcoded in the reference (ffcnn.c:519)
+
+
+class Detection(typing.NamedTuple):
+    """One detection in original-image pixel coords (reference BBOX,
+    ffcnn.h:29-32)."""
+    score: float
+    class_id: int
+    x1: float
+    y1: float
+    x2: float
+    y2: float
+
+
+@contextlib.contextmanager
+def _tf32(allow: bool):
+    """Set cuDNN's and cuBLAS's TF32 switches for the block, then restore
+    them (they are process-wide)."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+class Net:
+    def __init__(self, ir: NetIR, params: Dict, *, mode: str = "fast",
+                 topk: int = 128, device="cpu"):
+        if mode == "int8":
+            raise NotImplementedError("int8 mode is not ported yet")
+        if mode not in ("fast", "parity"):
+            raise ValueError(f"mode must be 'fast' or 'parity', got {mode!r}")
+        if any(l.type == LayerType.YOLOV8 for l in ir.layers):
+            raise NotImplementedError("[yolov8] heads are not ported yet")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but CUDA is not available")
+        self.ir = ir
+        self.mode = mode
+        self.topk = topk
+        self.params = params_from_numpy(params, self.device)
+        self._dtype = torch.float32 if mode == "parity" else torch.bfloat16
+        # parity mode runs no fused kernel, for parity with the reference
+        self._fused_runs = plan_runs(ir) if mode == "fast" else []
+        self._fused_params = {r.start: [block_params(ir, self.params, b)
+                                        for b in r.blocks]
+                              for r in self._fused_runs}
+        self._folded: Dict[tuple, Dict] = {}
+
+    # ------------------------------------------------------------------ load
+    @classmethod
+    def load(cls, cfg_path: str, weights=None, input_w: int = 0,
+             input_h: int = 0, *, mode: str = "fast", topk: int = 128,
+             allow_missing_weights: bool = False, device="cpu") -> "Net":
+        """Parse cfg + weights (a path or the file's bytes).  ``input_w/h``
+        override the [net] dims with ALIGN(dim, 32) like net_load
+        (ffcnn.c:133-134)."""
+        ir = cfg_mod.parse_cfg(cfg_path, input_w, input_h)
+        if weights is None:
+            if not allow_missing_weights:
+                raise ValueError("weights required "
+                                 "(or pass allow_missing_weights=True)")
+            params = weights_mod.zero_weights(ir)
+        else:
+            params, _ = weights_mod.load_weights(ir, weights)
+        return cls(ir, params, mode=mode, topk=topk, device=device)
+
+    def dump(self) -> str:
+        """net_dump-compatible layer table (ffcnn.c:522-548)."""
+        return cfg_mod.dump(self.ir)
+
+    # ------------------------------------------------------------- pipeline
+    def _can_fold_input(self) -> bool:
+        first = self.ir.layers[0]
+        return (self.mode == "fast" and first.type == LayerType.CONV
+                and first.groups == 1)
+
+    def _folded_params(self, mean, norm):
+        """Conv-1 with the input transform folded in, cached per
+        (mean, norm)."""
+        key = (mean, norm)
+        if key not in self._folded:
+            self._folded[key] = fold_input_transform(self.ir, self.params,
+                                                     mean, norm)
+        return self._folded[key]
+
+    def _max_candidates(self) -> int:
+        """Most head candidates the model can emit at its input size,
+        clamped by the reference's bbox arena (ffcnn.c:243)."""
+        total = sum(self.ir.blobs[li].w * self.ir.blobs[li].h * 3
+                    for li, l in enumerate(self.ir.layers)
+                    if l.type == LayerType.YOLO)
+        b0 = self.ir.blobs[0]
+        return min(total, arena_capacity(b0.w, b0.h, b0.c))
+
+    def forward_heads(self, batch: torch.Tensor, mean=DEFAULT_MEAN,
+                      norm=DEFAULT_NORM) -> List[torch.Tensor]:
+        """uint8 (N, H, W, 3) BGR on the net's device -> the raw yolo head
+        maps, after the same letterbox and forward that detect runs."""
+        ir = self.ir
+        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
+        mean = tuple(float(v) for v in np.asarray(mean).reshape(3))
+        norm = tuple(float(v) for v in np.asarray(norm).reshape(3))
+        with _tf32(self.mode == "fast"):
+            if self._can_fold_input() and mean == DEFAULT_MEAN:
+                params = self._folded_params(mean, norm)
+                x = letterbox_uint8(batch, net_w, net_h)
+            else:
+                params = self.params
+                x = letterbox(batch, net_w, net_h, mean, norm,
+                              dtype=self._dtype)
+            return forward_features(ir, params, x, input_dtype=self._dtype,
+                                    fused_runs=self._fused_runs,
+                                    fused_params=self._fused_params)
+
+    def detect_device(self, batch, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
+                      topk: Optional[int] = None) -> NMSResult:
+        """Device-level entry: uint8 (N, H, W, 3) BGR (numpy or a tensor) ->
+        NMSResult tensors on the net's device (no host sync)."""
+        batch = torch.as_tensor(np.asarray(batch) if not isinstance(
+            batch, torch.Tensor) else batch).to(self.device)
+        n, h, w, _ = batch.shape
+        ir = self.ir
+        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
+        _, _, s1, s2 = letterbox_params(w, h, net_w, net_h)
+        feats = self.forward_heads(batch, mean, norm)
+        heads = [l for l in ir.layers if l.type == LayerType.YOLO]
+        decoded = concat_heads([decode_head(f, l, net_w, net_h)
+                                for f, l in zip(feats, heads)])
+        decoded = apply_arena_cap(decoded,
+                                  arena_capacity(net_w, net_h, ir.blobs[0].c))
+        return nms(decoded.boxes, decoded.scores, decoded.classes,
+                   k=self.topk if topk is None else topk,
+                   threshold=NMS_THRESHOLD, scale1=s1, scale2=s2,
+                   iou_kind="min")
+
+    # ----------------------------------------------------------------- detect
+    def detect(self, images, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
+               ) -> Union[List[Detection], List[List[Detection]]]:
+        """Run detection.  ``images``: one (H, W, 3) uint8 BGR array or a
+        batch (N, H, W, 3).  Returns a Detection list (single image) or a
+        list of lists (batch)."""
+        single = isinstance(images, np.ndarray) and images.ndim == 3
+        batch = np.asarray(images)[None] if single else np.asarray(images)
+        if batch.ndim != 4 or batch.shape[-1] != 3:
+            raise ValueError(f"expected (N, H, W, 3) uint8, got {batch.shape}")
+        res = self.detect_device(batch, mean, norm)
+        out = self._finish(res, batch, mean, norm)
+        return out[0] if single else out
+
+    def _finish(self, res: NMSResult, batch, mean, norm
+                ) -> List[List[Detection]]:
+        """Resolve a result to Detection lists.  If a frame had more
+        above-threshold candidates than topk, top-k truncated before
+        suppression: parity mode grows K and retries until the census fits;
+        fast mode warns."""
+        max_k = self._max_candidates()
+        k = min(self.topk, max_k)
+        while bool(res.saturated.any()) and k < max_k:
+            k = min(max_k, k * 4)
+            if self.mode != "parity":
+                warnings.warn(
+                    f"NMS top-k saturated (k={self.topk}); some candidates "
+                    f"were dropped pre-suppression. Raise topk (model max "
+                    f"{max_k}) for crowded scenes.", RuntimeWarning,
+                    stacklevel=3)
+                break
+            res = self.detect_device(batch, mean, norm, topk=k)
+        return self._to_detections(res)
+
+    @staticmethod
+    def _to_detections(res: NMSResult) -> List[List[Detection]]:
+        scores = res.scores.cpu().numpy()
+        ii, jj = np.nonzero(scores > 0)
+        sel_scores = scores[ii, jj].astype(float)
+        sel_classes = res.classes.cpu().numpy()[ii, jj]
+        sel_boxes = res.boxes.cpu().numpy()[ii, jj].astype(float)
+        counts = res.count.cpu().numpy()
+        out: List[List[Detection]] = [[] for _ in range(scores.shape[0])]
+        for i, s, c, (x1, y1, x2, y2) in zip(
+                ii.tolist(), sel_scores.tolist(), sel_classes.tolist(),
+                sel_boxes.tolist()):
+            out[i].append(Detection(s, int(c), x1, y1, x2, y2))
+        if any(len(d) != n for d, n in zip(out, counts.tolist())):
+            raise RuntimeError("NMS count disagrees with its score mask")
+        return out
+
+
+def load(cfg_path: str, weights=None, *, input_w: int = 0, input_h: int = 0,
+         mode: str = "fast", **kw) -> Net:
+    """Module-level convenience mirroring ``net_load`` (ffcnn.h:48)."""
+    return Net.load(cfg_path, weights, input_w, input_h, mode=mode, **kw)
