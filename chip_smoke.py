@@ -5,20 +5,24 @@ card.  Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card and the CUDA toolkit (``nvcc``; ``CUDA_HOME``
-defaults to /usr/local/cuda).  Phases, each of which exits non-zero on
-failure:
+defaults to /usr/local/cuda).  Two fast-mode paths are driven on
+yolo-fastest-xl at 320x320 with synthesized weights (seed 42): the default
+(13 stride-1 blocks through K1) and the region configuration
+(``FFCNN_FUSED_DOWN=1 FFCNN_FUSED_MINC=8 FFCNN_CONV0_PALLAS=1
+FFCNN_FUSED_HEADS=1``: the uint8 stem K6, 20 K1 and 4 stride-2 K3 blocks,
+the head chain K7).  Phases, each of which exits non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi)
-  2. build the kernels from ffcnn_tpu_torch/csrc/ with nvcc
+  2. build every kernel from ffcnn_tpu_torch/csrc/ (one nvcc per source,
+     all started together)
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it
-  4. the main path: yolo-fastest-xl at 320x320 with synthesized weights
-     (seed 42), fast mode, ``detect`` on a batch of 64 frames and on one
-     640x448 frame; kernel launch counts; heads and detections against the
-     same Net on the CPU
+     shapes the two paths give it, batch 64
+  4. each path: ``detect`` on a batch of 64 frames and on one 640x448
+     frame, with every kernel launch count read around the call; heads and
+     detections against the same Net on the CPU
   5. parity mode on the card against parity mode on the CPU
   6. timings with CUDA events: kernels against their plain versions, the
-     fused runs against the unfused cuDNN chain, fast-mode img/s
+     whole forward (unfused, default fused, region), img/s of both paths
 
 The last line of standard output is one JSON object with the device.
 """
@@ -39,13 +43,16 @@ BMP = os.path.join(REPO, "tests", "fixtures", "test320.bmp")
 SEED = 42
 BATCH = 64
 NMS_KS = (128, 1500)        # fast mode's top-k, and xl's candidate count
+REGION_FLAGS = {"FFCNN_FUSED_DOWN": "1", "FFCNN_FUSED_MINC": "8",
+                "FFCNN_CONV0_PALLAS": "1", "FFCNN_FUSED_HEADS": "1"}
 
-# Tolerances of a kernel against its plain version on the same inputs.
-# float32: the same sums in another order (<= 448 terms): 2e-5 of the
-# output's range.  bfloat16: one rounding of those sums at the store, so a
-# value an f32 ulp from a rounding edge may land one bf16 ulp (2^-8
-# relative) away; allow two.
-K1_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
+# Tolerances of a kernel against its plain version on the same inputs, for
+# every kernel but K2 (K1, K3, K6, K7: float32 math inside).  float32: the
+# same sums in another order (<= 448 terms): 2e-5 of the output's range.
+# bfloat16: one rounding of those sums at the store, so a value an f32 ulp
+# from a rounding edge may land one bf16 ulp (2^-8 relative) away; allow
+# two.
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
 # The whole fast forward on the card against the CPU: every bf16 blob may
 # carry such one-ulp flips from the previous layers (the CPU test of the
 # port against JAX holds the same bounds).
@@ -93,6 +100,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns(kernel, plain, iters: int = 20):
+    """Kernel and plain timed in the order kernel, plain, plain, kernel."""
+    a, b = cuda_ms(kernel, iters), cuda_ms(plain, iters)
+    c, d = cuda_ms(plain, iters), cuda_ms(kernel, iters)
+    return (a, d), (b, c)
+
+
 def nms_candidates(n: int, k: int, seed: int):
     """Sorted candidates with equal scores, touching and degenerate boxes
     and five classes (coordinates on a coarse integer grid)."""
@@ -125,6 +139,79 @@ def match_fraction(dets, boxes, scores, classes, px: float,
     return hits / len(dets)
 
 
+def check_kernel(label: str, got, want) -> float:
+    """Hold a kernel's output against its plain version's on the same
+    inputs (KERNEL_TOL of the output's range); returns max |err|."""
+    import torch
+    torch.cuda.synchronize()
+    dtype = str(want.dtype).split(".")[-1]
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = KERNEL_TOL[dtype] * want.abs().max().item()
+    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) \
+        and err <= tol
+    log(f"[3] {label} batch {got.shape[0]} {dtype}: max|err| {err:.3e} "
+        f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def counted(counters, fn):
+    """Run ``fn`` with every launch counter set to 0 just before it; return
+    its result and the counts read just after it."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
+    """The card's heads and detections against the same Net on the CPU,
+    on the first four frames (``dets``: the card's detections of all)."""
+    import torch
+    import ffcnn_tpu_torch as pt
+    from ffcnn_tpu_torch.ops.yolo import concat_heads, decode_head
+    few = frames[:4]
+    hg = net.forward_heads(torch.from_numpy(few).to("cuda"))
+    hc = cpu_net.forward_heads(torch.from_numpy(few))
+    for i, (g, c) in enumerate(zip(hg, hc)):
+        g, c = g.float().cpu(), c.float()
+        scale = c.abs().max().item()
+        err = (g - c).abs()
+        ok = bool(torch.isfinite(g).all()) and \
+            err.max().item() <= HEAD_MAX_TOL * scale and \
+            err.mean().item() <= HEAD_MEAN_TOL * scale
+        log(f"[4] {tag} head {i} {tuple(g.shape)} card vs CPU: max|err| "
+            f"{err.max().item():.3e} mean {err.mean().item():.3e} (scale "
+            f"{scale:.2f}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} heads disagree with the CPU")
+    dc = cpu_net.detect(few)
+    heads = [l for l in net.ir.layers if l.type == pt.LayerType.YOLO]
+    cands = [concat_heads([decode_head(h.float().cpu(), l, 320, 320)
+                           for h, l in zip(hs, heads)]) for hs in (hg, hc)]
+    for i in range(len(few)):
+        fr = [match_fraction(d[i], *(t[i].numpy() for t in c), DET_MATCH_PX,
+                             DET_MATCH_SCORE)
+              for d, c in ((dets, cands[1]), (dc, cands[0]))]
+        ok = min(fr) >= DET_MATCH_FRAC
+        log(f"[4] {tag} image {i}: card {len(dets[i])} CPU {len(dc[i])} "
+            f"detections; among the other side's candidates: card "
+            f"{fr[0]:.3f}, CPU {fr[1]:.3f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} detections disagree with the CPU")
+
+
+def check_dets(tag: str, dets) -> None:
+    for d in (x for img in dets for x in img):
+        if not (0 < d.score <= 1 and 0 <= d.class_id < 80
+                and all(np.isfinite(d[2:]))):
+            raise AssertionError(f"{tag}: bad detection {d}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -134,9 +221,11 @@ def main() -> int:
     try:
         import ffcnn_tpu_torch as pt
         from ffcnn_tpu_torch.graph.build import forward_features
+        from ffcnn_tpu_torch.kernels import _build
         from ffcnn_tpu_torch.kernels import block_fused as bf
+        from ffcnn_tpu_torch.kernels import conv0_fused as c0
+        from ffcnn_tpu_torch.kernels import head_fused as hf
         from ffcnn_tpu_torch.kernels import nms as knms
-        from ffcnn_tpu_torch.ops.yolo import concat_heads, decode_head
     except ImportError as e:
         print(f"chip_smoke: the repository is not here ({e})",
               file=sys.stderr)
@@ -144,54 +233,100 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = {"K1": bf.fused_block, "K2": knms.nms_keep_mask,
+                "K3": bf.fused_down_block, "K6": c0.conv0_cs,
+                "K7": hf.apply_head_run}
 
     # 1. the card
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
-    # 2. build (0 s where the library was already built from these sources)
-    seconds = {}
-    for name, build in (("K1 block_fused", bf.build), ("K2 nms", knms.build)):
-        t0 = time.perf_counter()
-        build()
-        seconds[name] = time.perf_counter() - t0
-    log(f"[2] kernels built in {sum(seconds.values()):.1f} s ("
-        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    # 2. build: every source at once (0 s where already built), then load
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    for load in (bf.build, bf.build_down, c0.build, hf.build, knms.build):
+        load()
+    log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
+        f"parallel: {', '.join(_build.sources())}")
 
-    # the model and its params (the same weights on the card and the CPU)
+    # the two nets and their params (the same weights on the card and CPU)
     wbytes = pt.synth_weights_bytes(pt.parse_cfg(CFG), seed=SEED,
                                     obj_bias=2.0)
     net = pt.load(CFG, wbytes, mode="fast", device="cuda")
     ir, runs = net.ir, net._fused_runs
     if [(r.start, r.end, len(r.blocks)) for r in runs] != \
-            [(38, 57, 4), (61, 80, 4), (84, 108, 5)]:
-        raise AssertionError(f"unexpected fused plan {runs}")
+            [(38, 57, 4), (61, 80, 4), (84, 108, 5)] or net._head_runs:
+        raise AssertionError(f"unexpected default plan {runs}")
+    saved = {k: os.environ.get(k) for k in REGION_FLAGS}
+    os.environ.update(REGION_FLAGS)
+    try:
+        rnet = pt.load(CFG, wbytes, mode="fast", device="cuda")
+        rcpu = pt.load(CFG, wbytes, mode="fast", device="cpu")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rruns = rnet._fused_runs
+    if [(r.start, r.end, len(r.blocks)) for r in rruns] != \
+            [(1, 80, 18), (81, 108, 6)] or \
+            [(r.start, r.end) for r in rnet._head_runs] != [(116, 120)]:
+        raise AssertionError(f"unexpected region plan {rruns} "
+                             f"{rnet._head_runs}")
+    rfolded, rc0 = rnet._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
+    hrun = rnet._head_runs[0]
+    hps = rnet._head_params[hrun.start]
     gen = torch.Generator().manual_seed(SEED)
 
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
     # 3. kernels against their plain versions
-    k1_err = 0.0
-    for r in runs:
-        b = ir.blobs[r.start]
-        bp = net._fused_params[r.start][0]
-        for dtype in ("float32", "bfloat16"):
-            x = torch.randn((BATCH, b.h, b.w, b.c), generator=gen)
-            x = x.to(dev, getattr(torch, dtype))
-            got = bf.fused_block(x, bp).float()
-            want = bf.block_plain(x, bp).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and \
-                err <= K1_TOL[dtype] * scale
-            log(f"[3] K1 block {b.h}x{b.w} C{b.c} E{bp.w1.shape[1]} "
-                f"P{bp.w2.shape[1]} batch {BATCH} {dtype}: max|err| {err:.3e}"
-                f" (tol {K1_TOL[dtype] * scale:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("K1 disagrees with its plain version")
-            if dtype == "bfloat16":
-                k1_err = max(k1_err, err)
-    k2_err = 0.0
+    errs = {k: 0.0 for k in counters}
+    dtypes = (torch.float32, torch.bfloat16)
+    # K1 at the default path's three geometries, then at the region path's
+    # new ones (160x160 C16/E16/P8 and C8/E16/P8 residual, 80x80 C16/E64,
+    # 40x40 C16/E96 -> P16 and -> P32); K3 at its four
+    k1_blocks = [(ir.blobs[r.start], net._fused_params[r.start][0])
+                 for r in runs]
+    k3_blocks = []
+    for r in rruns:
+        for b, bp in zip(r.blocks, rnet._fused_params[r.start]):
+            if b.down:
+                k3_blocks.append((b.start, ir.blobs[b.start], bp))
+            elif b.start in (1, 4, 12, 25, 35):
+                k1_blocks.append((ir.blobs[b.start], bp))
+    for blob, bp in k1_blocks:
+        for dt in dtypes:
+            x = rand((BATCH, blob.h, blob.w, blob.c), dt)
+            errs["K1"] = max(errs["K1"], check_kernel(
+                f"K1 block {blob.h}x{blob.w} C{blob.c} E{bp.w1.shape[1]} "
+                f"P{bp.w2.shape[1]}", bf.fused_block(x, bp),
+                bf.block_plain(x, bp)))
+    for start, blob, bp in k3_blocks:
+        for dt in dtypes:
+            x = rand((BATCH, blob.h, blob.w, blob.c), dt)
+            errs["K3"] = max(errs["K3"], check_kernel(
+                f"K3 block {start} {blob.h}x{blob.w} C{blob.c} "
+                f"E{bp.w1.shape[1]} -> {blob.h // 2}x{blob.w // 2} "
+                f"P{bp.w2.shape[1]}", bf.fused_down_block(x, bp),
+                bf.block_down_plain(x, bp)))
+    xu8 = torch.randint(0, 256, (BATCH, 320, 320, 3), generator=gen,
+                        dtype=torch.uint8).to(dev)
+    for dt in dtypes:
+        errs["K6"] = max(errs["K6"], check_kernel(
+            f"K6 stem u8 320x320x3 -> 160x160x{rc0.wm.shape[1]}",
+            c0.conv0_cs(xu8, rc0, dt), c0.conv0_plain(xu8, rc0, dt)))
+    hb = ir.blobs[hrun.start]
+    for dt in dtypes:
+        x = rand((BATCH, hb.h, hb.w, hb.c), dt)
+        errs["K7"] = max(errs["K7"], check_kernel(
+            f"K7 head chain {hrun.start}-{hrun.end} {hb.h}x{hb.w}x{hb.c} "
+            f"({hf.smem_bytes(hps)} B shared)",
+            hf.apply_head_run(x, hrun, hps), hf.head_plain(x, hps)))
     for k in NMS_KS:
         for kind in ("min", "union"):
             cand = nms_candidates(BATCH, k, seed=k)
@@ -203,8 +338,8 @@ def main() -> int:
                 *(torch.from_numpy(a) for a in cand), 0.5, kind)
             same = torch.equal(got, want) and \
                 torch.equal(got.cpu(), want_cpu)
-            k2_err = max(k2_err, (got.float() - want.float()).abs().max()
-                         .item())
+            errs["K2"] = max(errs["K2"], (got.float() - want.float()).abs()
+                             .max().item())
             log(f"[3] K2 nms K={k} batch {BATCH} iou={kind}: kept "
                 f"{int(got.sum())}/{int((ts > 0).sum())}, mismatches "
                 f"{int((got != want).sum())} "
@@ -212,66 +347,37 @@ def main() -> int:
             if not same:
                 raise AssertionError("K2 keep mask differs from plain")
 
-    # 4. the main path
+    # 4. the two paths, each with its launch counts read around the call
     rng = np.random.RandomState(SEED)
     frames = np.concatenate([pt.bmp_load(BMP)[None], rng.randint(
         0, 256, (BATCH - 1, 320, 320, 3), dtype=np.uint8)])
-    bf.fused_block.launches = 0
-    knms.nms_keep_mask.launches = 0
-    dets = net.detect(frames)
-    torch.cuda.synchronize()
-    k1_launches = bf.fused_block.launches
-    k2_launches = knms.nms_keep_mask.launches
-    log(f"[4] fast detect batch {BATCH}: {sum(map(len, dets))} detections "
-        f"({len(dets[0])} on test320.bmp); launches K1 {k1_launches} "
-        f"K2 {k2_launches}")
-    if k1_launches != 13 or k2_launches < 1:
-        raise AssertionError("the main path did not run its kernels")
-    for d in (x for img in dets for x in img):
-        if not (0 < d.score <= 1 and 0 <= d.class_id < 80
-                and all(np.isfinite(d[2:]))):
-            raise AssertionError(f"bad detection {d}")
     wide = rng.randint(0, 256, (448, 640, 3), dtype=np.uint8)
-    bf.fused_block.launches = 0
-    d640 = net.detect(wide)
-    log(f"[4] fast detect 640x448: {len(d640)} detections, K1 launches "
-        f"{bf.fused_block.launches}")
-    if bf.fused_block.launches != 13 or not all(
-            0 < d.score <= 1 and np.isfinite(d[2:]).all() for d in d640):
-        raise AssertionError("640x448 detect failed")
-
+    want_counts = {
+        "default": {"K1": 13, "K3": 0, "K6": 0, "K7": 0},
+        "region": {"K1": 20, "K3": 4, "K6": 1, "K7": 1}}
     cpu_net = pt.load(CFG, wbytes, mode="fast", device="cpu")
-    few = frames[:4]
-    hg = net.forward_heads(torch.from_numpy(few).to(dev))
-    hc = cpu_net.forward_heads(torch.from_numpy(few))
-    for i, (g, c) in enumerate(zip(hg, hc)):
-        g, c = g.float().cpu(), c.float()
-        scale = c.abs().max().item()
-        err = (g - c).abs()
-        ok = bool(torch.isfinite(g).all()) and \
-            err.max().item() <= HEAD_MAX_TOL * scale and \
-            err.mean().item() <= HEAD_MEAN_TOL * scale
-        log(f"[4] head {i} {tuple(g.shape)} card vs CPU: max|err| "
-            f"{err.max().item():.3e} mean {err.mean().item():.3e} (scale "
-            f"{scale:.2f}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("fast heads disagree with the CPU")
-    dc = cpu_net.detect(few)
-    heads = [l for l in ir.layers if l.type == pt.LayerType.YOLO]
-    cands = [concat_heads([decode_head(h.float().cpu(), l, 320, 320)
-                           for h, l in zip(hs, heads)]) for hs in (hg, hc)]
-    for i in range(len(few)):
-        fr = [match_fraction(d[i], *(t[i].numpy() for t in c), DET_MATCH_PX,
-                             DET_MATCH_SCORE)
-              for d, c in ((dets, cands[1]), (dc, cands[0]))]
-        ok = min(fr) >= DET_MATCH_FRAC
-        log(f"[4] image {i}: card {len(dets[i])} CPU {len(dc[i])} "
-            f"detections; among the other side's candidates: card "
-            f"{fr[0]:.3f}, CPU {fr[1]:.3f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("fast detections disagree with the CPU")
+    main_counts = {}
+    for tag, n, cn in (("default", net, cpu_net), ("region", rnet, rcpu)):
+        dets, counts = counted(counters, lambda: n.detect(frames))
+        log(f"[4] {tag} fast detect batch {BATCH}: {sum(map(len, dets))} "
+            f"detections ({len(dets[0])} on test320.bmp); launches "
+            + " ".join(f"{k} {v}" for k, v in counts.items()))
+        if any(counts[k] != v for k, v in want_counts[tag].items()) \
+                or counts["K2"] < 1:
+            raise AssertionError(f"the {tag} path did not run its kernels")
+        check_dets(tag, dets)
+        main_counts[tag] = counts
+        d640, counts = counted(counters, lambda: n.detect(wide))
+        log(f"[4] {tag} fast detect 640x448: {len(d640)} detections, "
+            f"launches " + " ".join(f"{k} {v}" for k, v in counts.items()))
+        if any(counts[k] != v for k, v in want_counts[tag].items()) \
+                or not all(0 < d.score <= 1 and np.isfinite(d[2:]).all()
+                           for d in d640):
+            raise AssertionError(f"{tag} 640x448 detect failed")
+        check_against_cpu(tag, n, cn, frames, dets)
 
     # 5. parity mode, card against CPU
+    few = frames[:4]
     pg = pt.load(CFG, wbytes, mode="parity", device="cuda").detect(few)
     pc = pt.load(CFG, wbytes, mode="parity", device="cpu").detect(few)
     flips = worst = 0
@@ -295,20 +401,16 @@ def main() -> int:
         f"(class, integer box), max |score diff| {worst:.2e}, integer "
         f"flips within {PARITY_BOX_NOISE} px: {flips}")
 
-    # 6. timings (device time by CUDA events)
-    x_runs = {r.start: torch.randn(
-        (BATCH,) + ir.blobs[r.start].nhwc, generator=gen).to(
-            dev, torch.bfloat16) for r in runs}
+    # 6. timings (device time by CUDA events), bf16 as on the main paths
+    bf16 = torch.bfloat16
+    x_runs = {r.start: rand((BATCH,) + ir.blobs[r.start].nhwc, bf16)
+              for r in runs}
 
-    def k1_all():
-        for r in runs:
-            bf.apply_run(x_runs[r.start], r, net._fused_params[r.start])
-
-    def k1_plain():
+    def k1_default(kernel):
         for r in runs:
             x = x_runs[r.start]
             for bp in net._fused_params[r.start]:
-                x = bf.block_plain(x, bp)
+                x = bf.fused_block(x, bp) if kernel else bf.block_plain(x, bp)
 
     for r in runs:
         b = ir.blobs[r.start]
@@ -320,11 +422,62 @@ def main() -> int:
         log(f"[6] K1 one block {b.h}x{b.w} C{b.c} E{bps[0].w1.shape[1]} "
             f"bf16 batch {BATCH}: kernel {ms:.4f} ms ({flop / ms:.1f} "
             f"TFLOP/s useful), plain {pms:.4f} ms")
-    k1_ms, k1_pms = cuda_ms(k1_all), cuda_ms(k1_plain)
-    k1_pms2 = cuda_ms(k1_plain)
-    k1_ms2 = cuda_ms(k1_all)
-    log(f"[6] K1 all 13 blocks bf16 batch {BATCH}: kernel {k1_ms:.4f} / "
-        f"{k1_ms2:.4f} ms, plain {k1_pms:.4f} / {k1_pms2:.4f} ms")
+    (k1_ms, k1_ms2), (k1_pms, k1_pms2) = turns(lambda: k1_default(True),
+                                               lambda: k1_default(False))
+    log(f"[6] K1 the default path's 13 blocks bf16 batch {BATCH}: kernel "
+        f"{k1_ms:.4f} / {k1_ms2:.4f} ms, plain {k1_pms:.4f} / "
+        f"{k1_pms2:.4f} ms")
+
+    # the region path's blocks, each on its own input at its own shape
+    rblocks = [(b, bp, rand((BATCH,) + ir.blobs[b.start].nhwc, bf16))
+               for r in rruns
+               for b, bp in zip(r.blocks, rnet._fused_params[r.start])]
+
+    def region_blocks(down, kernel):
+        for b, bp, x in rblocks:
+            if b.down == down:
+                if down:
+                    (bf.fused_down_block if kernel
+                     else bf.block_down_plain)(x, bp)
+                else:
+                    (bf.fused_block if kernel else bf.block_plain)(x, bp)
+
+    (rk1_ms, rk1_ms2), (rk1_pms, rk1_pms2) = turns(
+        lambda: region_blocks(False, True), lambda: region_blocks(False,
+                                                                  False))
+    log(f"[6] K1 the region path's 20 blocks bf16 batch {BATCH}: kernel "
+        f"{rk1_ms:.4f} / {rk1_ms2:.4f} ms, plain {rk1_pms:.4f} / "
+        f"{rk1_pms2:.4f} ms")
+    for b, bp, x in rblocks:
+        if b.down:
+            blob = ir.blobs[b.start]
+            ms = cuda_ms(lambda: bf.fused_down_block(x, bp))
+            pms = cuda_ms(lambda: bf.block_down_plain(x, bp))
+            e, p = bp.w1.shape[1], bp.w2.shape[1]
+            # expand over the input map, dw and project over the output map
+            flop = 2 * BATCH * e * (blob.h * blob.w * blob.c
+                                    + blob.h * blob.w // 4 * (9 + p)) / 1e9
+            log(f"[6] K3 block {b.start} {blob.h}x{blob.w} C{blob.c} "
+                f"E{bp.w1.shape[1]} bf16 batch {BATCH}: kernel {ms:.4f} ms "
+                f"({flop / ms:.1f} TFLOP/s useful), plain {pms:.4f} ms")
+    (k3_ms, k3_ms2), (k3_pms, k3_pms2) = turns(
+        lambda: region_blocks(True, True), lambda: region_blocks(True, False))
+    log(f"[6] K3 all 4 stride-2 blocks bf16 batch {BATCH}: kernel "
+        f"{k3_ms:.4f} / {k3_ms2:.4f} ms, plain {k3_pms:.4f} / "
+        f"{k3_pms2:.4f} ms")
+    (k6_ms, k6_ms2), (k6_pms, k6_pms2) = turns(
+        lambda: c0.conv0_cs(xu8, rc0, bf16),
+        lambda: c0.conv0_plain(xu8, rc0, bf16))
+    log(f"[6] K6 stem u8 320x320 -> bf16 batch {BATCH}: kernel "
+        f"{k6_ms:.4f} / {k6_ms2:.4f} ms, plain {k6_pms:.4f} / "
+        f"{k6_pms2:.4f} ms")
+    xh = rand((BATCH, hb.h, hb.w, hb.c), bf16)
+    (k7_ms, k7_ms2), (k7_pms, k7_pms2) = turns(
+        lambda: hf.apply_head_run(xh, hrun, hps),
+        lambda: hf.head_plain(xh, hps))
+    log(f"[6] K7 head chain 10x10x192 bf16 batch {BATCH}: kernel "
+        f"{k7_ms:.4f} / {k7_ms2:.4f} ms, plain {k7_pms:.4f} / "
+        f"{k7_pms2:.4f} ms")
 
     nms_ms = {}
     for k in NMS_KS:
@@ -337,57 +490,81 @@ def main() -> int:
         log(f"[6] K2 nms K={k} batch {BATCH}: kernel {ms:.4f} ms, plain "
             f"{pms:.4f} ms")
 
-    # the fused runs against the unfused cuDNN chain, whole forward
+    # the whole fast forward: unfused cuDNN chain, the default fused runs,
+    # the region configuration
     xb = torch.from_numpy(frames).to(dev)
-    folded = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
-
+    folded = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[0]
     torch.backends.cudnn.allow_tf32 = True   # fast mode: exact on bf16 values
 
-    def fwd(fused):
-        forward_features(ir, folded, xb, input_dtype=torch.bfloat16,
-                         fused_runs=runs if fused else None,
-                         fused_params=net._fused_params)
-    f_unf, f_fus = cuda_ms(lambda: fwd(False), 10), cuda_ms(lambda: fwd(True),
-                                                            10)
-    f_fus2, f_unf2 = cuda_ms(lambda: fwd(True), 10), cuda_ms(
-        lambda: fwd(False), 10)
-    log(f"[6] fast forward batch {BATCH}: unfused cuDNN {f_unf:.3f} / "
-        f"{f_unf2:.3f} ms, fused runs {f_fus:.3f} / {f_fus2:.3f} ms")
+    def fwd(kind):
+        if kind == "region":
+            return forward_features(
+                ir, rfolded, xb, input_dtype=bf16, fused_runs=rruns,
+                fused_params=rnet._fused_params, head_runs=rnet._head_runs,
+                head_params=rnet._head_params, conv0_pallas=True,
+                conv0_params=rc0)
+        return forward_features(ir, folded, xb, input_dtype=bf16,
+                                fused_runs=runs if kind == "fused" else None,
+                                fused_params=net._fused_params)
+    order = ("unfused", "fused", "region", "region", "fused", "unfused")
+    fwd_ms = {k: [] for k in order[:3]}
+    for kind in order:
+        fwd_ms[kind].append(cuda_ms(lambda: fwd(kind), 10))
+    log(f"[6] fast forward batch {BATCH} (two turns): " + ", ".join(
+        f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in fwd_ms.items()))
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        net.detect_device(xb)
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=12, max_name_column_width=48)
-    log(f"[6] profile of one fast detect_device, batch {BATCH}:")
-    for line in table.splitlines():
-        log("    " + line)
+    for tag, n in (("default", net), ("region", rnet)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            n.detect_device(xb)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=12,
+                                          max_name_column_width=48)
+        log(f"[6] profile of one {tag} fast detect_device, batch {BATCH}:")
+        for line in table.splitlines():
+            log("    " + line)
 
-    ladder = {}
-    for n, iters in ((1, 50), (64, 20), (256, 8)):
-        batch = torch.from_numpy(np.resize(frames, (n, 320, 320, 3))).to(dev)
-        ms = cuda_ms(lambda: net.detect_device(batch), iters=iters)
-        ladder[n] = n / ms * 1e3
-        log(f"[6] fast detect_device batch {n}: {ms:.3f} ms/batch, "
-            f"{ladder[n]:.1f} img/s (pixels on the card; decode+NMS "
-            f"included)")
+    for tag, n in (("default", net), ("region", rnet)):
+        for nb, iters in ((1, 50), (64, 20), (256, 8)):
+            batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
+                                     ).to(dev)
+            ms = cuda_ms(lambda: n.detect_device(batch), iters=iters)
+            log(f"[6] {tag} fast detect_device batch {nb}: {ms:.3f} "
+                f"ms/batch, {nb / ms * 1e3:.1f} img/s (pixels on the card; "
+                f"decode+NMS included)")
     torch.cuda.synchronize()
-    log(f"[6] peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
-        f" MiB")
+    log(f"[6] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
+    launches = main_counts["region"]
     kernels = [
         {"name": "block_fused_s1", "route": "cuda",
          "source": "ffcnn_tpu_torch/csrc/block_fused.cu",
          "replaces": "ffcnn_tpu/kernels/block_fused.py:206",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_pms},
+         "launches": launches["K1"], "max_abs_err": errs["K1"],
+         "ms": rk1_ms, "plain_ms": rk1_pms},
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "ffcnn_tpu_torch/csrc/nms.cu",
          "replaces": "ffcnn_tpu/kernels/nms_pallas.py:26",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": nms_ms[128][0], "plain_ms": nms_ms[128][1]},
+        {"name": "block_fused_s2", "route": "cuda",
+         "source": "ffcnn_tpu_torch/csrc/block_down.cu",
+         "replaces": "ffcnn_tpu/kernels/block_fused.py:299",
+         "launches": launches["K3"], "max_abs_err": errs["K3"],
+         "ms": k3_ms, "plain_ms": k3_pms},
+        {"name": "conv0_fused", "route": "cuda",
+         "source": "ffcnn_tpu_torch/csrc/conv0_fused.cu",
+         "replaces": "ffcnn_tpu/kernels/conv0_fused.py:37",
+         "launches": launches["K6"], "max_abs_err": errs["K6"],
+         "ms": k6_ms, "plain_ms": k6_pms},
+        {"name": "head_fused", "route": "cuda",
+         "source": "ffcnn_tpu_torch/csrc/head_fused.cu",
+         "replaces": "ffcnn_tpu/kernels/head_fused.py:119",
+         "launches": launches["K7"], "max_abs_err": errs["K7"],
+         "ms": k7_ms, "plain_ms": k7_pms},
     ]
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -4,8 +4,10 @@
 The reference walks its layer array with a refcount memory manager
 (net_forward, ffcnn.c:476-520); here the layer loop runs eagerly and the
 caching allocator reuses blob memory.  Fused runs of inverted-residual
-blocks go through ``kernels/block_fused.py`` (one launch per block); every
-other layer is a plain PyTorch op.
+blocks go through ``kernels/block_fused.py`` (one launch per block), fused
+head chains through ``kernels/head_fused.py`` (one launch per chain), and
+the uint8 stem through ``kernels/conv0_fused.py``; every other layer is a
+plain PyTorch op.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from ffcnn_tpu.darknet.ir import LayerType, NetIR
 
 from ..kernels.block_fused import apply_run
+from ..kernels.conv0_fused import conv0_cs
+from ..kernels.head_fused import apply_head_run
 from ..ops.activations import activate
 from ..ops.conv import conv2d_fused
 from ..ops.pool import avgpool2d, maxpool2d, upsample_nearest
@@ -68,12 +72,14 @@ def fold_input_transform(ir: NetIR, params: Params, mean, norm) -> Params:
 
 def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
                      input_dtype: Optional[torch.dtype] = None,
-                     blob_hook=None, fused_runs=None,
-                     fused_params=None) -> List[torch.Tensor]:
+                     blob_hook=None, fused_runs=None, fused_params=None,
+                     head_runs=None, head_params=None,
+                     conv0_pallas: bool = False,
+                     conv0_params=None) -> List[torch.Tensor]:
     """Run the graph body.  ``x``: (N, H, W, C) net input; a non-float ``x``
-    (raw uint8 pixels on the folded fast path) is cast to ``input_dtype``.
-    Returns the raw (N, h, w, 3*(5+classes)) map feeding each yolo layer, in
-    graph order.
+    (raw uint8 pixels on the folded fast path) is cast to ``input_dtype``,
+    unless the stem kernel takes it as it is.  Returns the raw
+    (N, h, w, 3*(5+classes)) map feeding each yolo layer, in graph order.
 
     ``blob_hook(blob_index, value)``: called with every blob materialised,
     NHWC, as the JAX package's hook is.
@@ -81,10 +87,36 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
     ``fused_runs``: ``kernels.block_fused.FusedRun`` list; each run's layers
     execute as fused blocks and their interior blobs never materialise.
     ``fused_params``: ``{run.start: [BlockParams, ...]}`` for every run,
-    prepared once by the caller with ``block_params``."""
-    if not torch.is_floating_point(x):
-        x = x.to(input_dtype or torch.float32)
-    float_dtype = x.dtype
+    prepared once by the caller with ``block_params``.
+
+    ``head_runs``: ``kernels.head_fused.HeadRun`` list; each chain feeding a
+    yolo layer executes as one launch.  ``head_params``:
+    ``{run.start: HeadParams}``, prepared once with ``head_params``.
+
+    ``conv0_pallas``: run the stem (K6, ``kernels/conv0_fused.py``) straight
+    off uint8 ``x`` and hand its output to the fused run that starts at
+    layer 1, where the JAX package's guard allows it (``x`` uint8, a
+    3x3/s2/pad-1 dense stem over even sizes, a run at layer 1, blob 1 read
+    by no route or shortcut); otherwise the normal path runs.
+    ``conv0_params``: the stem's ``Conv0Params``, from the same (folded)
+    ``params``."""
+    run_map = {r.start: r for r in (fused_runs or [])}
+    head_map = {r.start: r for r in (head_runs or [])}
+    l0 = ir.layers[0]
+    use_c0p = (conv0_pallas and x.dtype == torch.uint8 and 1 in run_map
+               and l0.type == LayerType.CONV and l0.groups == 1
+               and l0.fs == 3 and l0.stride == 2 and l0.pad == 1
+               and ir.blobs[0].w % 2 == 0 and ir.blobs[0].h % 2 == 0
+               and not any(1 in (d + 1 for d in l.depends)
+                           for l in ir.layers
+                           if l.type in (LayerType.ROUTE,
+                                         LayerType.SHORTCUT)))
+    if use_c0p:
+        float_dtype = input_dtype or torch.float32
+    else:
+        if not torch.is_floating_point(x):
+            x = x.to(input_dtype or torch.float32)
+        float_dtype = x.dtype
     blobs: List[Optional[torch.Tensor]] = [None] * (len(ir.layers) + 1)
     blobs[0] = x
     heads: List[torch.Tensor] = []
@@ -122,18 +154,31 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
             raise NotImplementedError("[yolov8] heads are not ported yet")
         raise ValueError(f"unsupported layer type {t}")
 
-    run_map = {r.start: r for r in (fused_runs or [])}
+    def finish_run(end, y):
+        blobs[end + 1] = y.to(float_dtype)
+        if blob_hook is not None:
+            blob_hook(end + 1, blobs[end + 1])
+        return end + 1
+
     skip_until = -1
     for li, layer in enumerate(ir.layers):
         if li < skip_until:
             continue
+        if li == 0 and use_c0p:
+            # the stem's output (blob 1) goes straight into the run at 1
+            r = run_map[1]
+            y0 = conv0_cs(x, conv0_params, float_dtype)
+            skip_until = finish_run(r.end, apply_run(y0, r, fused_params[1]))
+            continue
+        if li in head_map:
+            r = head_map[li]
+            skip_until = finish_run(r.end, apply_head_run(
+                blobs[li], r, head_params[li]))
+            continue
         if li in run_map:
             r = run_map[li]
-            y = apply_run(blobs[li], r, fused_params[li])
-            blobs[r.end + 1] = y.to(float_dtype)
-            skip_until = r.end + 1
-            if blob_hook is not None:
-                blob_hook(r.end + 1, blobs[r.end + 1])
+            skip_until = finish_run(r.end, apply_run(blobs[li], r,
+                                                     fused_params[li]))
             continue
         blobs[li + 1] = run_layer(li, layer, blobs[li])
         if blob_hook is not None and blobs[li + 1] is not None:

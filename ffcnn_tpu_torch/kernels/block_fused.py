@@ -1,20 +1,28 @@
-"""Fused inverted-residual block (K1): pw-expand -> dw3x3 -> pw-project
+"""Fused inverted-residual blocks: pw-expand -> dw3x3 -> pw-project
 (+ residual) in one launch per block, the expand tensor never in device
-memory.  Holds the planner (pure IR code), the CUDA kernel's wrapper and
-its plain PyTorch version.
+memory.  Holds the planner (pure IR code), the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
-Replaces ``ffcnn_tpu/kernels/block_fused.py::_make_kernel`` (launched once
-per block by ``_cs_block``).  The expand tensor is E/C times the block's
-input (6x on yolo-fastest-xl), so materialising it dominates the block's
-device-memory traffic; the kernel (``csrc/block_fused.cu``) keeps it in
-shared memory instead.  A CTA owns a tile of output pixels of one image and
-walks E in chunks: it expands the tile's halo into shared memory, applies
-the depthwise 3x3 and adds the chunk's share of the projection to float32
-accumulators in registers.  Expand and project are float32 FMAs on the
-CUDA cores; moving them onto the tensor cores is later work.
+Two kernels, one template (``csrc/block_fused.cuh``):
+
+* K1 (``fused_block``, ``csrc/block_fused.cu``) replaces
+  ``ffcnn_tpu/kernels/block_fused.py::_make_kernel``, the stride-1 block
+  launched once per block by ``_cs_block``.
+* K3 (``fused_down_block``, ``csrc/block_down.cu``) replaces
+  ``_make_down_kernel``, the stride-2 stage-transition block launched by
+  ``_cs_down_block``: H and W halve, no residual.
+
+The expand tensor is E/C times the block's input (3-6x on yolo-fastest-xl),
+so materialising it dominates the block's device-memory traffic; the
+kernels keep it in shared memory instead.  A CTA owns a tile of output
+pixels of one image and walks E in chunks: it expands the tile's input halo
+into shared memory, applies the depthwise 3x3 and adds the chunk's share of
+the projection to float32 accumulators in registers.  Expand and project are
+float32 FMAs on the CUDA cores; moving them onto the tensor cores is later
+work.
 
 The TPU gates ``BATCH_QUANTUM`` and ``runs_usable`` do not apply here: on
-the card fast mode takes the kernel at every batch size.
+the card fast mode takes the kernels at every batch size.
 """
 
 from __future__ import annotations
@@ -22,11 +30,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ffcnn_tpu.darknet.ir import LayerType, NetIR
+from ffcnn_tpu.tuning import get_flag
 
 from ..ops.activations import activate
 from . import _build
@@ -107,15 +116,24 @@ def find_fused_blocks(ir: NetIR) -> Dict[int, FusedBlock]:
     return out
 
 
-def plan_runs(ir: NetIR, min_channels: int = MIN_CHANNELS) -> List[FusedRun]:
-    """Group the stride-1 blocks whose input has >= ``min_channels``
-    channels into maximal runs.  Two adjacent blocks chain when the blob
-    between them is read only inside the second block (its own residual).
-    Stride-2 blocks (K3, not yet ported) never join, as with the JAX
-    package's default ``FFCNN_FUSED_DOWN=0``."""
+def plan_runs(ir: NetIR, min_channels: Optional[int] = None,
+              allow_down: Optional[bool] = None) -> List[FusedRun]:
+    """Group the blocks whose input has >= ``min_channels`` channels into
+    maximal runs.  Two adjacent blocks chain when the blob between them is
+    read only inside the second block (its own residual).  Stride-2 blocks
+    join only with ``allow_down``, so that runs span whole backbone regions.
+
+    Unset arguments resolve as the JAX package's ``plan_runs`` does:
+    ``FFCNN_FUSED_MINC`` (default ``MIN_CHANNELS``) and ``FFCNN_FUSED_DOWN``
+    (default off), through ``ffcnn_tpu.tuning.get_flag``."""
+    if min_channels is None:
+        min_channels = int(get_flag("FFCNN_FUSED_MINC", str(MIN_CHANNELS)))
+    if allow_down is None:
+        allow_down = get_flag("FFCNN_FUSED_DOWN", "0") == "1"
     blocks = find_fused_blocks(ir)
     eligible = [b for _, b in sorted(blocks.items())
-                if ir.blobs[b.start].c >= min_channels and not b.down]
+                if ir.blobs[b.start].c >= min_channels
+                and (allow_down or not b.down)]
     ref_layers: Dict[int, List[int]] = {}
     for li, l in enumerate(ir.layers):
         if l.type in (LayerType.ROUTE, LayerType.SHORTCUT):
@@ -178,20 +196,25 @@ def block_params(ir: NetIR, params, b: FusedBlock) -> BlockParams:
         residual=b.residual, res_act=b.res_act)
 
 
-def block_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
-    """The block in plain PyTorch, float32 inside, NHWC in and out:
-    what ``_make_kernel`` computes."""
+def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int
+               ) -> torch.Tensor:
+    """The block in plain PyTorch, float32 inside, NHWC in and out."""
     xf = x.float()
     n, h, w, _ = x.shape
+    ho, wo = h // stride, w // stride
     a = activate(torch.matmul(xf, bp.w1) * bp.s1 + bp.b1, bp.acts[0])
     # the dw zero padding applies to the expand OUTPUT (pw of a zero row is
     # act(b1), not 0)
     a = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros((n, h, w, a.shape[-1]), dtype=torch.float32,
+    acc = torch.zeros((n, ho, wo, a.shape[-1]), dtype=torch.float32,
                       device=x.device)
     for dy in range(3):
         for dx in range(3):
-            acc = acc + a[:, dy:dy + h, dx:dx + w] * bp.kdw[:, dy * 3 + dx]
+            # output row r reads padded rows stride*r + dy, i.e. input rows
+            # stride*r - 1 .. stride*r + 1 (likewise columns)
+            acc = acc + (a[:, dy:dy + stride * ho:stride,
+                           dx:dx + stride * wo:stride]
+                         * bp.kdw[:, dy * 3 + dx])
     h2 = activate(acc * bp.s2 + bp.b2, bp.acts[1])
     y = activate(torch.matmul(h2, bp.w2) * bp.s3 + bp.b3, bp.acts[2])
     if bp.residual:
@@ -199,39 +222,57 @@ def block_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-# Output tiles the kernel accepts (csrc/block_fused.cu kMaxPix, kMaxHalo):
-# at most 64 pixels, halo at most 104.
-_TILE_MAX_PIX, _TILE_MAX_HALO = 64, 104
+def block_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+    """The stride-1 block in plain PyTorch, float32 inside, NHWC in and
+    out: what ``_make_kernel`` computes."""
+    return _block_f32(x, bp, 1)
+
+
+def block_down_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+    """The stride-2 block in plain PyTorch, float32 inside, NHWC (N, H, W,
+    C) -> (N, H/2, W/2, P) for even H and W: what ``_make_down_kernel``
+    computes (no residual)."""
+    if bp.residual:
+        raise ValueError("a stride-2 block has no residual")
+    return _block_f32(x, bp, 2)
+
+
+# Output tiles the kernels accept (csrc/block_fused.cuh kMaxPix,
+# max_halo<S>): at most 64 output pixels, and an input halo of at most 104
+# pixels at stride 1, 160 at stride 2.
+_TILE_MAX_PIX = 64
+_TILE_MAX_HALO = {1: 104, 2: 160}
 
 
 @functools.cache
-def pick_tile(h: int, w: int) -> Tuple[int, int]:
-    """The (TH, TW) output tile that expands the fewest halo pixels over
-    the map (ties go to the larger tile).  Cached: every launch asks."""
+def pick_tile(h: int, w: int, stride: int = 1) -> Tuple[int, int]:
+    """The (TH, TW) tile of an (h, w) OUTPUT map that expands the fewest
+    halo pixels over the map (ties go to the larger tile).  A tile's halo
+    is (stride*TH + 3 - stride) x (stride*TW + 3 - stride) input pixels.
+    Cached: every launch asks."""
     best = None
     for th in range(1, min(h, _TILE_MAX_PIX) + 1):
         for tw in range(1, min(w, _TILE_MAX_PIX // th) + 1):
-            if (th + 2) * (tw + 2) > _TILE_MAX_HALO:
+            halo = ((stride * th + 3 - stride)
+                    * (stride * tw + 3 - stride))
+            if halo > _TILE_MAX_HALO[stride]:
                 continue
-            cost = -(-h // th) * -(-w // tw) * (th + 2) * (tw + 2)
+            cost = -(-h // th) * -(-w // tw) * halo
             key = (cost, -th * tw)
             if best is None or key < best[0]:
                 best = (key, (th, tw))
     return best[1]
 
 
-def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
-    """One stride-1 block, NHWC (N, H, W, C) -> (N, H, W, P) in x's dtype.
-
-    CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return block_plain(x, bp)
-    n, h, w, c = x.shape
+def _check(x: torch.Tensor, bp: BlockParams) -> None:
+    """Raise on what the kernels do not take."""
+    c = x.shape[-1]
     e, p = bp.w1.shape[1], bp.w2.shape[1]
-    if x.device.type != "cuda" or not x.is_contiguous() \
+    if x.device.type != "cuda" or x.dim() != 4 or not x.is_contiguous() \
             or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be a contiguous float32/bfloat16 CUDA "
-                         f"tensor, got {x.dtype} on {x.device}")
+        raise ValueError(f"x must be a contiguous NHWC float32/bfloat16 CUDA "
+                         f"tensor, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
     shapes = {"w1": (c, e), "s1": (e,), "b1": (e,), "kdw": (e, 9),
               "s2": (e,), "b2": (e,), "w2": (e, p), "s3": (p,), "b3": (p,)}
     for name, shape in shapes.items():
@@ -241,6 +282,24 @@ def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
                              f"{x.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+
+
+def _params_ptrs(bp: BlockParams):
+    return (bp.w1.data_ptr(), bp.s1.data_ptr(), bp.b1.data_ptr(),
+            bp.kdw.data_ptr(), bp.s2.data_ptr(), bp.b2.data_ptr(),
+            bp.w2.data_ptr(), bp.s3.data_ptr(), bp.b3.data_ptr())
+
+
+def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+    """One stride-1 block (K1), NHWC (N, H, W, C) -> (N, H, W, P) in x's
+    dtype.
+
+    CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return block_plain(x, bp)
+    _check(x, bp)
+    n, h, w, c = x.shape
+    e, p = bp.w1.shape[1], bp.w2.shape[1]
     if bp.residual and p != c:
         raise ValueError(f"residual block needs P == C, got {p} != {c}")
     th, tw = pick_tile(h, w)
@@ -248,11 +307,8 @@ def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
     lib = build()
     err = lib.ffcnn_block_s1(
         x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-        bp.w1.data_ptr(), bp.s1.data_ptr(), bp.b1.data_ptr(),
-        bp.kdw.data_ptr(), bp.s2.data_ptr(), bp.b2.data_ptr(),
-        bp.w2.data_ptr(), bp.s3.data_ptr(), bp.b3.data_ptr(),
-        n, h, w, c, e, p, *bp.acts, int(bp.residual), bp.res_act, th, tw,
-        _build.stream_ptr())
+        *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, int(bp.residual),
+        bp.res_act, th, tw, _build.stream_ptr())
     fused_block.launches += 1
     if err:
         raise RuntimeError("fused block launch failed: "
@@ -263,33 +319,74 @@ def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
 fused_block.launches = 0
 
 
+def fused_down_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+    """One stride-2 block (K3), NHWC (N, H, W, C) -> (N, H/2, W/2, P) in
+    x's dtype; H and W must be even.
+
+    CPU tensors take ``block_down_plain``; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return block_down_plain(x, bp)
+    _check(x, bp)
+    n, h, w, c = x.shape
+    e, p = bp.w1.shape[1], bp.w2.shape[1]
+    if h % 2 or w % 2 or bp.residual:
+        raise ValueError(f"a stride-2 block needs even H and W and no "
+                         f"residual, got {h}x{w}, residual={bp.residual}")
+    th, tw = pick_tile(h // 2, w // 2, 2)
+    y = torch.empty((n, h // 2, w // 2, p), dtype=x.dtype, device=x.device)
+    lib = build_down()
+    err = lib.ffcnn_block_s2(
+        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+        *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, th, tw,
+        _build.stream_ptr())
+    fused_down_block.launches += 1
+    if err:
+        raise RuntimeError("fused stride-2 block launch failed: "
+                           + lib.ffcnn_down_error_string(err).decode())
+    return y
+
+
+fused_down_block.launches = 0
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
 @functools.cache
 def build() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel's library."""
+    """Build (if needed) and load K1's library."""
     lib = _build.load_library("block_fused")
-    fn = lib.ffcnn_block_s1
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.ffcnn_block_error_string.argtypes = [ctypes.c_int]
+    lib.ffcnn_block_s1.argtypes = ([_PTR, _PTR, _INT] + [_PTR] * 9
+                                   + [_INT] * 13 + [_PTR])
+    lib.ffcnn_block_s1.restype = _INT
+    lib.ffcnn_block_error_string.argtypes = [_INT]
     lib.ffcnn_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def build_down() -> ctypes.CDLL:
+    """Build (if needed) and load K3's library."""
+    lib = _build.load_library("block_down")
+    lib.ffcnn_block_s2.argtypes = ([_PTR, _PTR, _INT] + [_PTR] * 9
+                                   + [_INT] * 11 + [_PTR])
+    lib.ffcnn_block_s2.restype = _INT
+    lib.ffcnn_down_error_string.argtypes = [_INT]
+    lib.ffcnn_down_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def apply_run(x: torch.Tensor, run: FusedRun,
               bps: List[BlockParams]) -> torch.Tensor:
-    """Run a chain of fused stride-1 blocks on an NHWC blob: one launch per
-    block, each block boundary stored in x's dtype (the JAX package's
-    default boundary storage).  ``bps``: the run's ``block_params``, one per
-    block, prepared once (the JAX ``apply_run(x, ir, params, run)`` gathers
-    them inside its trace; eagerly that would cost copies every forward)."""
+    """Run a chain of fused blocks on an NHWC blob: one launch per block
+    (K1 for stride 1, K3 for stride 2), each block boundary stored in x's
+    dtype (the JAX package's default boundary storage).  ``bps``: the run's
+    ``block_params``, one per block, prepared once (the JAX
+    ``apply_run(x, ir, params, run)`` gathers them inside its trace;
+    eagerly that would cost copies every forward)."""
     if len(bps) != len(run.blocks):
         raise ValueError(f"{len(bps)} block params for {len(run.blocks)} "
                          f"blocks")
     for b, bp in zip(run.blocks, bps):
-        if b.down:
-            raise NotImplementedError("stride-2 fused blocks (K3) are not "
-                                      "ported yet")
-        x = fused_block(x, bp)
+        x = fused_down_block(x, bp) if b.down else fused_block(x, bp)
     return x

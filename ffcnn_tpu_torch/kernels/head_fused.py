@@ -1,0 +1,254 @@
+"""Fused yolo-head chains (K7): the stride-1 [dw, pw, ...] conv chain that
+feeds a yolo layer, in one launch, every interior map kept on chip.  Holds
+the planner (pure IR code), the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces ``ffcnn_tpu/kernels/head_fused.py::_make_kernel`` (launched by
+``apply_head_run``).  The kernel (``csrc/head_fused.cu``) gives one CTA one
+image's whole chain, with two float32 stage buffers in shared memory; a
+chain whose buffers do not fit in a CTA's 227 KB cannot run on the card, and
+``check_fits`` says so when a CUDA ``Net`` is built.  On yolo-fastest-xl at
+320x320 the planned chain (116-120, 10x10, up to 192 channels) needs
+186 KB.
+
+The TPU's batch chunk (``CHUNK``, ``nc``) and its batch and backend gate
+(``head_runs_usable``) do not apply: the kernel takes every batch size.  The
+planner keeps the TPU's VMEM test (``_fits``) only so that both packages
+plan the same runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import List, Tuple
+
+import torch
+
+from ffcnn_tpu.darknet.ir import LayerType, NetIR
+
+from ..ops.activations import activate
+from . import _build
+
+# The JAX planner's per-chunk VMEM test, kept so both packages plan the same
+# runs (images per chunk it tries, and its f32 budget).
+_TPU_CHUNKS = (128, 64)
+_TPU_VMEM_BUDGET = 72 << 20
+# A CTA's shared memory on sm_90 (csrc/head_fused.cu kMaxSmem).
+MAX_SMEM = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadRun:
+    """Fused chain of conv layers ``start..end`` (inclusive); layer
+    ``end + 1`` is the consuming yolo layer.  Interior blobs
+    ``start+1..end`` never materialise."""
+    start: int
+    end: int
+
+
+def plan_head_runs(ir: NetIR) -> List[HeadRun]:
+    """Walk back from each yolo layer over stride-1 pw (groups 1) and
+    depthwise (fs 3 or 5) convs until a blob with outside consumers, as
+    ``ffcnn_tpu/kernels/head_fused.py::plan_head_runs`` does; chains of at
+    least two layers that pass the TPU's VMEM test become runs."""
+    referenced = set()
+    for l in ir.layers:
+        if l.type in (LayerType.ROUTE, LayerType.SHORTCUT):
+            referenced.update(d + 1 for d in l.depends)
+
+    runs: List[HeadRun] = []
+    for yli, yl in enumerate(ir.layers):
+        if yl.type != LayerType.YOLO:
+            continue
+        end = yli - 1
+        li = end
+        while li >= 0:
+            l = ir.layers[li]
+            blob_in = ir.blobs[li]
+            pw = (l.type == LayerType.CONV and l.fs == 1 and l.stride == 1
+                  and l.groups == 1 and l.pad == 0)
+            dw = (l.type == LayerType.CONV and l.fs in (3, 5)
+                  and l.stride == 1 and l.groups == l.fn
+                  and l.groups == blob_in.c and l.pad == l.fs // 2)
+            if not (pw or dw):
+                break
+            if li != end and li + 1 in referenced:
+                # this layer's output blob is read elsewhere: it must
+                # materialise, so the chain starts no earlier than li + 1
+                break
+            li -= 1
+        start = li + 1
+        if end - start + 1 >= 2:
+            h, w = ir.blobs[start].h, ir.blobs[start].w
+            if any(_fits(ir, start, end, h, w, nc) for nc in _TPU_CHUNKS):
+                runs.append(HeadRun(start=start, end=end))
+    return runs
+
+
+def _fits(ir: NetIR, start: int, end: int, h: int, w: int, nc: int) -> bool:
+    """The JAX planner's VMEM estimate for ``nc`` images per grid step: the
+    worst consecutive (c_in + c_out) stage pair in float32 plus the bf16 in
+    and out blocks."""
+    pair = max(ir.blobs[li].c + ir.blobs[li + 1].c
+               for li in range(start, end + 1))
+    s = w * nc
+    need = h * (s + 4 * nc) * 4 * pair \
+        + h * s * 2 * (ir.blobs[start].c + ir.blobs[end + 1].c)
+    return need <= _TPU_VMEM_BUDGET
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadStage:
+    """One conv of a chain in the kernel's float32 layouts."""
+    kind: str             # "pw" or "dw"
+    fs: int
+    act: int
+    w: torch.Tensor       # pw (Cin, Cout); dw (C, fs*fs) taps row-major
+    scale: torch.Tensor   # (Cout,)
+    bias: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadParams:
+    """A chain's stages, in order, and its map size."""
+    stages: Tuple[HeadStage, ...]
+    h: int
+    w: int
+
+
+def head_params(ir: NetIR, params, run: HeadRun) -> HeadParams:
+    """Gather ``run``'s convs from a port params dict (OIHW weights,
+    ``graph.build.params_from_numpy``)."""
+    stages = []
+    for li in range(run.start, run.end + 1):
+        l, p = ir.layers[li], params[li]
+        w = p["weights"].float()
+        if l.fs == 1:
+            kind, wk = "pw", w.reshape(w.shape[0], w.shape[1]).t()
+        else:
+            kind, wk = "dw", w.reshape(w.shape[0], l.fs * l.fs)
+        stages.append(HeadStage(kind, l.fs, l.activation, wk.contiguous(),
+                                p["scale"].float().contiguous(),
+                                p["bias"].float().contiguous()))
+    b = ir.blobs[run.start]
+    return HeadParams(tuple(stages), b.h, b.w)
+
+
+def _meta(hp: HeadParams) -> List[int]:
+    """5 ints per stage (kind 0 pw / 1 dw, fs, act, cin, cout), the
+    kernel's description of the chain."""
+    out = []
+    for st in hp.stages:
+        if st.kind == "pw":
+            cin, cout = st.w.shape
+            out += [0, 1, st.act, cin, cout]
+        else:
+            out += [1, st.fs, st.act, st.w.shape[0], st.w.shape[0]]
+    return out
+
+
+def smem_bytes(hp: HeadParams) -> int:
+    """Shared memory the kernel needs for the chain (two float32 stage
+    buffers of the widest map it holds, and the largest weight chunk), as
+    ``ffcnn_head_smem`` in ``csrc/head_fused.cu`` computes it."""
+    meta = _meta(hp)
+    cbuf = max([meta[3]] + meta[4:-5:5])
+    wmax = max(32 * m[4] if m[0] == 0 else m[3] * m[1] * m[1]
+               for m in (meta[i:i + 5] for i in range(0, len(meta), 5)))
+    return 4 * (2 * hp.h * hp.w * cbuf + wmax)
+
+
+def check_fits(hp: HeadParams) -> None:
+    """Raise if the kernel cannot hold the chain in a CTA's shared
+    memory (``Net`` asks once, when it is built on the card; the kernel's
+    C entry refuses such a chain at launch too)."""
+    need = smem_bytes(hp)
+    if need > MAX_SMEM:
+        raise ValueError(f"head chain at {hp.h}x{hp.w} needs {need} bytes of "
+                         f"shared memory, more than the {MAX_SMEM} a CTA "
+                         f"has on sm_90")
+
+
+def head_plain(x: torch.Tensor, hp: HeadParams) -> torch.Tensor:
+    """The chain in plain PyTorch, NHWC in and out, float32 inside with
+    float32 weights and one cast at the end: what ``_make_kernel``
+    computes."""
+    y = x.float()
+    for st in hp.stages:
+        if st.kind == "pw":
+            y = torch.matmul(y, st.w)
+        else:
+            n, h, w, _ = y.shape
+            r = st.fs // 2
+            yp = torch.nn.functional.pad(y, (0, 0, r, r, r, r))
+            acc = torch.zeros_like(y)
+            for dy in range(st.fs):
+                for dx in range(st.fs):
+                    acc = acc + (yp[:, dy:dy + h, dx:dx + w]
+                                 * st.w[:, dy * st.fs + dx])
+            y = acc
+        y = activate(y * st.scale + st.bias, st.act)
+    return y.to(x.dtype)
+
+
+def apply_head_run(x: torch.Tensor, run: HeadRun,
+                   hp: HeadParams) -> torch.Tensor:
+    """NHWC input blob of layer ``run.start`` -> NHWC head tensor of blob
+    ``run.end + 1``, in x's dtype.  ``hp``: the run's ``head_params``,
+    prepared once.
+
+    CPU tensors take ``head_plain``; CUDA tensors launch the kernel."""
+    if len(hp.stages) != run.end - run.start + 1:
+        raise ValueError(f"{len(hp.stages)} stages for run {run}")
+    if x.device.type == "cpu":
+        return head_plain(x, hp)
+    meta = _meta(hp)
+    if (x.device.type != "cuda" or x.dim() != 4 or not x.is_contiguous()
+            or x.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(x.shape[1:]) != (hp.h, hp.w, meta[3])):
+        raise ValueError(f"x must be a contiguous (N, {hp.h}, {hp.w}, "
+                         f"{meta[3]}) float32/bfloat16 CUDA tensor, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    for st in hp.stages:
+        for t in (st.w, st.scale, st.bias):
+            if t.device != x.device or t.dtype != torch.float32 \
+                    or not t.is_contiguous():
+                raise ValueError(f"head weights must be contiguous float32 "
+                                 f"on {x.device}, got {t.dtype} on "
+                                 f"{t.device}")
+    n, ns = x.shape[0], len(hp.stages)
+    y = torch.empty((n, hp.h, hp.w, meta[-1]), dtype=x.dtype,
+                    device=x.device)
+    ptrs = [(ctypes.c_void_p * ns)(*(getattr(st, name).data_ptr()
+                                     for st in hp.stages))
+            for name in ("w", "scale", "bias")]
+    lib = build()
+    err = lib.ffcnn_head(x.data_ptr(), y.data_ptr(),
+                         int(x.dtype == torch.bfloat16), n, hp.h, hp.w, ns,
+                         (ctypes.c_int * len(meta))(*meta), *ptrs,
+                         _build.stream_ptr())
+    apply_head_run.launches += 1
+    if err:
+        raise RuntimeError("head chain launch failed: "
+                           + lib.ffcnn_head_error_string(err).decode())
+    return y
+
+
+apply_head_run.launches = 0
+
+
+@functools.cache
+def build() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel's library."""
+    lib = _build.load_library("head_fused")
+    lib.ffcnn_head.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                               + [ctypes.c_int] * 5
+                               + [ctypes.POINTER(ctypes.c_int)]
+                               + [ctypes.POINTER(ctypes.c_void_p)] * 3
+                               + [ctypes.c_void_p])
+    lib.ffcnn_head.restype = ctypes.c_int
+    lib.ffcnn_head_error_string.argtypes = [ctypes.c_int]
+    lib.ffcnn_head_error_string.restype = ctypes.c_char_p
+    return lib

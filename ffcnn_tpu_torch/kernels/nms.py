@@ -18,9 +18,6 @@ import torch
 
 from . import _build
 
-_LIB = "nms"
-_FLAGS = ("-fmad=false",)
-
 
 def _iou(box: torch.Tensor, others: torch.Tensor, kind: str) -> torch.Tensor:
     """IoU of ``box`` (N, 4) against ``others`` (N, K, 4) -> (N, K)."""
@@ -94,7 +91,7 @@ nms_keep_mask.launches = 0
 @functools.cache
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the kernel's library."""
-    lib = _build.load_library(_LIB, _FLAGS)
+    lib = _build.load_library("nms")
     fn = lib.ffcnn_nms_keep
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_int,

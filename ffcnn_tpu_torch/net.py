@@ -11,12 +11,20 @@ Modes:
     package's ``Precision.HIGHEST``); no fused kernels.
   * ``fast``: bfloat16 blobs with float32 accumulation; BGR swap and
     normalize folded into conv-1; the fused inverted-residual runs go
-    through the block kernel at every batch size.
+    through the block kernels at every batch size.
+
+Fast mode reads the JAX package's fusion flags once, when the Net is built:
+``FFCNN_FUSED_MINC`` and ``FFCNN_FUSED_DOWN`` (the planned runs; with
+``DOWN=1, MINC=8`` they span whole backbone regions, stride-2 blocks
+included), ``FFCNN_CONV0_PALLAS`` (the uint8 stem kernel, feeding a run at
+layer 1) and ``FFCNN_FUSED_HEADS`` (the fused yolo-head chains).  All four
+set is the region configuration; none set plans the default runs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import typing
 import warnings
 from typing import Dict, List, Optional, Union
@@ -27,10 +35,13 @@ import torch
 from ffcnn_tpu.darknet import cfg as cfg_mod
 from ffcnn_tpu.darknet import weights as weights_mod
 from ffcnn_tpu.darknet.ir import LayerType, NetIR
+from ffcnn_tpu.tuning import get_flag
 
 from .graph.build import (fold_input_transform, forward_features,
                           params_from_numpy)
 from .kernels.block_fused import block_params, plan_runs
+from .kernels.conv0_fused import conv0_params
+from .kernels.head_fused import check_fits, head_params, plan_head_runs
 from .ops.nms import NMSResult, nms
 from .ops.preprocess import letterbox, letterbox_params, letterbox_uint8
 from .ops.yolo import (apply_arena_cap, arena_capacity, concat_heads,
@@ -85,12 +96,28 @@ class Net:
         self.topk = topk
         self.params = params_from_numpy(params, self.device)
         self._dtype = torch.float32 if mode == "parity" else torch.bfloat16
-        # parity mode runs no fused kernel, for parity with the reference
-        self._fused_runs = plan_runs(ir) if mode == "fast" else []
+        # parity mode runs no fused kernel, for parity with the reference;
+        # fast mode resolves the flags here, as the JAX Net does in its
+        # constructor and when it traces a pipeline
+        fast = mode == "fast"
+        self._fused_runs = plan_runs(ir) if fast else []
         self._fused_params = {r.start: [block_params(ir, self.params, b)
                                         for b in r.blocks]
                               for r in self._fused_runs}
-        self._folded: Dict[tuple, Dict] = {}
+        self._head_runs = plan_head_runs(ir) if fast and os.environ.get(
+            "FFCNN_FUSED_HEADS", "0") == "1" else []
+        self._head_params = {r.start: head_params(ir, self.params, r)
+                             for r in self._head_runs}
+        if self.device.type == "cuda":
+            for hp in self._head_params.values():
+                check_fits(hp)
+        self._conv0_pallas = fast and get_flag("FFCNN_CONV0_PALLAS",
+                                               "0") == "1"
+        # (folded params, their stem params) per (mean, norm); the demo
+        # default's are made now, with every other kernel's params
+        self._folded: Dict[tuple, tuple] = {}
+        if self._can_fold_input():
+            self._folded_params(DEFAULT_MEAN, DEFAULT_NORM)
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -121,12 +148,17 @@ class Net:
                 and first.groups == 1)
 
     def _folded_params(self, mean, norm):
-        """Conv-1 with the input transform folded in, cached per
-        (mean, norm)."""
+        """Conv-1 with the input transform folded in, and the stem kernel's
+        params made from it (None without ``FFCNN_CONV0_PALLAS``), cached
+        per (mean, norm)."""
         key = (mean, norm)
         if key not in self._folded:
-            self._folded[key] = fold_input_transform(self.ir, self.params,
-                                                     mean, norm)
+            params = fold_input_transform(self.ir, self.params, mean, norm)
+            l0 = self.ir.layers[0]
+            c0 = conv0_params(self.ir, params) if (
+                self._conv0_pallas and 1 in self._fused_params
+                and (l0.fs, l0.stride, l0.pad) == (3, 2, 1)) else None
+            self._folded[key] = (params, c0)
         return self._folded[key]
 
     def _max_candidates(self) -> int:
@@ -148,15 +180,19 @@ class Net:
         norm = tuple(float(v) for v in np.asarray(norm).reshape(3))
         with _tf32(self.mode == "fast"):
             if self._can_fold_input() and mean == DEFAULT_MEAN:
-                params = self._folded_params(mean, norm)
+                params, c0 = self._folded_params(mean, norm)
                 x = letterbox_uint8(batch, net_w, net_h)
             else:
-                params = self.params
+                params, c0 = self.params, None
                 x = letterbox(batch, net_w, net_h, mean, norm,
                               dtype=self._dtype)
             return forward_features(ir, params, x, input_dtype=self._dtype,
                                     fused_runs=self._fused_runs,
-                                    fused_params=self._fused_params)
+                                    fused_params=self._fused_params,
+                                    head_runs=self._head_runs,
+                                    head_params=self._head_params,
+                                    conv0_pallas=c0 is not None,
+                                    conv0_params=c0)
 
     def detect_device(self, batch, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
                       topk: Optional[int] = None) -> NMSResult:

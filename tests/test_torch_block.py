@@ -58,6 +58,16 @@ def test_pick_tile_limits(h, w):
     assert th <= h and tw <= w
 
 
+@pytest.mark.parametrize("h,w", [(80, 80), (40, 40), (20, 20), (10, 10),
+                                 (5, 7), (1, 1)])
+def test_pick_tile_limits_stride2(h, w):
+    """Stride-2 tiles of an (h, w) output map: a (2TH+1) x (2TW+1) input
+    halo of at most 160 pixels (csrc/block_fused.cuh max_halo<2>)."""
+    th, tw = tbf.pick_tile(h, w, 2)
+    assert th * tw <= 64 and (2 * th + 1) * (2 * tw + 1) <= 160
+    assert th <= h and tw <= w
+
+
 @pytest.fixture(scope="module")
 def xl96():
     ir = parse_cfg(XL, 96, 96)
@@ -130,6 +140,25 @@ def test_wrapper_refuses_other_devices(xl96):
     b = ir.blobs[blk.start]
     with pytest.raises(ValueError):
         tbf.fused_block(torch.empty((1, b.h, b.w, b.c), device="meta"), bp)
+
+
+def test_apply_run_dispatches_down_blocks(xl96):
+    """A region run (stride-2 block first) goes block by block through the
+    stride-2 and stride-1 versions."""
+    ir, params = xl96
+    run = tbf.plan_runs(ir, 8, True)[1]
+    assert run.start == 81 and run.blocks[0].down
+    tp = params_from_numpy(params)
+    bps = [tbf.block_params(ir, tp, b) for b in run.blocks]
+    b = ir.blobs[run.start]
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        2, b.h, b.w, b.c).astype(np.float32))
+    want = tbf.block_down_plain(x, bps[0])
+    for bp in bps[1:]:
+        want = tbf.block_plain(want, bp)
+    got = tbf.apply_run(x, run, bps)
+    assert got.shape == (2, b.h // 2, b.w // 2, ir.blobs[run.end + 1].c)
+    assert torch.equal(got, want)
 
 
 def test_apply_run_needs_params_for_every_block(xl96):
