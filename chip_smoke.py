@@ -5,24 +5,34 @@ card.  Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card and the CUDA toolkit (``nvcc``; ``CUDA_HOME``
-defaults to /usr/local/cuda).  Two fast-mode paths are driven on
-yolo-fastest-xl at 320x320 with synthesized weights (seed 42): the default
-(13 stride-1 blocks through K1) and the region configuration
-(``FFCNN_FUSED_DOWN=1 FFCNN_FUSED_MINC=8 FFCNN_CONV0_PALLAS=1
-FFCNN_FUSED_HEADS=1``: the uint8 stem K6, 20 K1 and 4 stride-2 K3 blocks,
-the head chain K7).  Phases, each of which exits non-zero on failure:
+defaults to /usr/local/cuda).  Four fast-mode paths are driven on
+yolo-fastest-xl at 320x320 with synthesized weights (seed 42):
+
+* default: 13 stride-1 blocks through K1;
+* region (``FFCNN_FUSED_DOWN=1 FFCNN_FUSED_MINC=8 FFCNN_CONV0_PALLAS=1
+  FFCNN_FUSED_HEADS=1``): the uint8 stem K6, 20 K1 and 4 stride-2 K3
+  blocks, the head chain K7;
+* cascade (the region flags and ``FFCNN_FUSED_CASCADE=3``): K6, 7 groups
+  of 2-3 blocks through the halo cascade K4, 2 K1 and 4 K3 blocks, K7;
+* mega (``FFCNN_FUSED_MEGA=1``): run 84-108 in one K5 launch, 8 K1 blocks.
+
+The region configuration is also built at 416x416, where K7's stage
+buffers leave shared memory for device memory.  Phases, each of which
+exits non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi)
   2. build every kernel from ffcnn_tpu_torch/csrc/ (one nvcc per source,
      all started together)
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the two paths give it, batch 64
+     shapes the paths give it, batch 64
   4. each path: ``detect`` on a batch of 64 frames and on one 640x448
      frame, with every kernel launch count read around the call; heads and
-     detections against the same Net on the CPU
+     detections against the same Net on the CPU; the region Net at
+     416x416 likewise
   5. parity mode on the card against parity mode on the CPU
-  6. timings with CUDA events: kernels against their plain versions, the
-     whole forward (unfused, default fused, region), img/s of both paths
+  6. timings with CUDA events: kernels against their plain versions (K4
+     and K5 also against the K1 launches they replace), the whole forward
+     of every path, img/s of every path
 
 The last line of standard output is one JSON object with the device.
 """
@@ -45,6 +55,19 @@ BATCH = 64
 NMS_KS = (128, 1500)        # fast mode's top-k, and xl's candidate count
 REGION_FLAGS = {"FFCNN_FUSED_DOWN": "1", "FFCNN_FUSED_MINC": "8",
                 "FFCNN_CONV0_PALLAS": "1", "FFCNN_FUSED_HEADS": "1"}
+PATH_FLAGS = {"default": {}, "region": REGION_FLAGS,
+              "cascade": {**REGION_FLAGS, "FFCNN_FUSED_CASCADE": "3"},
+              "mega": {"FFCNN_FUSED_MEGA": "1"}}
+# the cascade path's launch groups (by their blocks' expand layers)
+CASCADE_GROUPS = [[1, 4], [9], [12, 17], [22], [25, 30, 35], [38, 43, 48],
+                  [53], [58], [61, 66, 71], [76], [81], [84, 89, 94],
+                  [99, 104]]
+# the launches each path makes in one forward
+WANT_COUNTS = {
+    "default": {"K1": 13, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+    "region": {"K1": 20, "K3": 4, "K4": 0, "K5": 0, "K6": 1, "K7": 1},
+    "cascade": {"K1": 2, "K3": 4, "K4": 7, "K5": 0, "K6": 1, "K7": 1},
+    "mega": {"K1": 8, "K3": 0, "K4": 0, "K5": 1, "K6": 0, "K7": 0}}
 
 # Tolerances of a kernel against its plain version on the same inputs, for
 # every kernel but K2 (K1, K3, K6, K7: float32 math inside).  float32: the
@@ -191,7 +214,8 @@ def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
             raise AssertionError(f"{tag} heads disagree with the CPU")
     dc = cpu_net.detect(few)
     heads = [l for l in net.ir.layers if l.type == pt.LayerType.YOLO]
-    cands = [concat_heads([decode_head(h.float().cpu(), l, 320, 320)
+    net_w, net_h = net.ir.blobs[0].w, net.ir.blobs[0].h
+    cands = [concat_heads([decode_head(h.float().cpu(), l, net_w, net_h)
                            for h, l in zip(hs, heads)]) for hs in (hg, hc)]
     for i in range(len(few)):
         fr = [match_fraction(d[i], *(t[i].numpy() for t in c), DET_MATCH_PX,
@@ -210,6 +234,34 @@ def check_dets(tag: str, dets) -> None:
         if not (0 < d.score <= 1 and 0 <= d.class_id < 80
                 and all(np.isfinite(d[2:]))):
             raise AssertionError(f"{tag}: bad detection {d}")
+
+
+def load_net(pt, wbytes, flags, device, size=320):
+    """A fast Net of xl built with ``flags`` set in the environment (a Net
+    reads them once, when it is built), which are then restored."""
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        return pt.load(CFG, wbytes, input_w=size, input_h=size, mode="fast",
+                       device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def group_params(net):
+    """[(blocks, block params)] of a Net's launch groups, in order."""
+    out = []
+    for r in net._fused_runs:
+        bps = net._fused_params[r.start]
+        i = 0
+        for g in net._fused_groups[r.start]:
+            out.append((g, bps[i:i + len(g)]))
+            i += len(g)
+    return out
 
 
 def main() -> int:
@@ -234,7 +286,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"K1": bf.fused_block, "K2": knms.nms_keep_mask,
-                "K3": bf.fused_down_block, "K6": c0.conv0_cs,
+                "K3": bf.fused_down_block, "K4": bf.fused_cascade,
+                "K5": bf.fused_mega, "K6": c0.conv0_cs,
                 "K7": hf.apply_head_run}
 
     # 1. the card
@@ -246,37 +299,45 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    for load in (bf.build, bf.build_down, c0.build, hf.build, knms.build):
+    for load in (bf.build, bf.build_down, bf.build_cascade, bf.build_mega,
+                 c0.build, hf.build, knms.build):
         load()
     log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
         f"parallel: {', '.join(_build.sources())}")
 
-    # the two nets and their params (the same weights on the card and CPU)
+    # the nets of every path, on the card and on the CPU (the same weights)
     wbytes = pt.synth_weights_bytes(pt.parse_cfg(CFG), seed=SEED,
                                     obj_bias=2.0)
-    net = pt.load(CFG, wbytes, mode="fast", device="cuda")
+    nets = {tag: load_net(pt, wbytes, f, "cuda")
+            for tag, f in PATH_FLAGS.items()}
+    cpus = {tag: load_net(pt, wbytes, f, "cpu")
+            for tag, f in PATH_FLAGS.items()}
+    net, rnet, cnet, mnet = (nets[t] for t in PATH_FLAGS)
     ir, runs = net.ir, net._fused_runs
     if [(r.start, r.end, len(r.blocks)) for r in runs] != \
             [(38, 57, 4), (61, 80, 4), (84, 108, 5)] or net._head_runs:
         raise AssertionError(f"unexpected default plan {runs}")
-    saved = {k: os.environ.get(k) for k in REGION_FLAGS}
-    os.environ.update(REGION_FLAGS)
-    try:
-        rnet = pt.load(CFG, wbytes, mode="fast", device="cuda")
-        rcpu = pt.load(CFG, wbytes, mode="fast", device="cpu")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    cgroups = group_params(cnet)
+    if [[b.start for b in g] for g, _ in cgroups] != CASCADE_GROUPS:
+        raise AssertionError(f"unexpected cascade plan {cgroups}")
+    cgroups = [(g, bps) for g, bps in cgroups if len(g) > 1]
+    if mnet._mega_runs != {84}:
+        raise AssertionError(f"unexpected mega runs {mnet._mega_runs}")
+    mbps = mnet._fused_params[84]
+    # the region configuration at 416x416: the 13x13 head chain
+    r416 = load_net(pt, wbytes, REGION_FLAGS, "cuda", 416)
+    r416cpu = load_net(pt, wbytes, REGION_FLAGS, "cpu", 416)
+    hrun416 = r416._head_runs[0]
+    hps416 = r416._head_params[hrun416.start]
+    if (hps416.h, hps416.w) != (13, 13) or not hf.scratch_floats(hps416):
+        raise AssertionError(f"unexpected 416 head chain {hrun416}")
     rruns = rnet._fused_runs
     if [(r.start, r.end, len(r.blocks)) for r in rruns] != \
             [(1, 80, 18), (81, 108, 6)] or \
             [(r.start, r.end) for r in rnet._head_runs] != [(116, 120)]:
         raise AssertionError(f"unexpected region plan {rruns} "
                              f"{rnet._head_runs}")
-    rfolded, rc0 = rnet._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
+    rc0 = rnet._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[1]
     hrun = rnet._head_runs[0]
     hps = rnet._head_params[hrun.start]
     gen = torch.Generator().manual_seed(SEED)
@@ -327,6 +388,32 @@ def main() -> int:
             f"K7 head chain {hrun.start}-{hrun.end} {hb.h}x{hb.w}x{hb.c} "
             f"({hf.smem_bytes(hps)} B shared)",
             hf.apply_head_run(x, hrun, hps), hf.head_plain(x, hps)))
+    hb416 = r416.ir.blobs[hrun416.start]
+    for dt in dtypes:
+        x = rand((BATCH, hb416.h, hb416.w, hb416.c), dt)
+        errs["K7"] = max(errs["K7"], check_kernel(
+            f"K7 head chain {hrun416.start}-{hrun416.end} at 416x416 "
+            f"{hb416.h}x{hb416.w}x{hb416.c} (stage buffers in device "
+            f"memory, {hf.scratch_floats(hps416) * 4} B an image)",
+            hf.apply_head_run(x, hrun416, hps416), hf.head_plain(x, hps416)))
+    # K4 at the cascade path's 7 groups, K5 at the mega path's run, each
+    # with the tile the wrapper picks at this batch
+    for g, bps in cgroups:
+        blob = ir.blobs[g[0].start]
+        tile = bf.check_chain_fits(blob.h, blob.w, bps, n=BATCH)
+        for dt in dtypes:
+            x = rand((BATCH, blob.h, blob.w, blob.c), dt)
+            errs["K4"] = max(errs["K4"], check_kernel(
+                f"K4 group {[b.start for b in g]} {blob.h}x{blob.w} "
+                f"C{blob.c} -> P{bps[-1].w2.shape[1]} tile {tile}",
+                bf.fused_cascade(x, bps), bf.chain_plain(x, bps)))
+    mblob = ir.blobs[84]
+    for dt in dtypes:
+        x = rand((BATCH, mblob.h, mblob.w, mblob.c), dt)
+        errs["K5"] = max(errs["K5"], check_kernel(
+            f"K5 run 84-108 {mblob.h}x{mblob.w} C{mblob.c} 5 blocks tile "
+            f"{bf.check_chain_fits(mblob.h, mblob.w, mbps, mega=True)}",
+            bf.fused_mega(x, mbps), bf.chain_plain(x, mbps)))
     for k in NMS_KS:
         for kind in ("min", "union"):
             cand = nms_candidates(BATCH, k, seed=k)
@@ -347,34 +434,32 @@ def main() -> int:
             if not same:
                 raise AssertionError("K2 keep mask differs from plain")
 
-    # 4. the two paths, each with its launch counts read around the call
+    # 4. every path, each with its launch counts read around the call
     rng = np.random.RandomState(SEED)
     frames = np.concatenate([pt.bmp_load(BMP)[None], rng.randint(
         0, 256, (BATCH - 1, 320, 320, 3), dtype=np.uint8)])
     wide = rng.randint(0, 256, (448, 640, 3), dtype=np.uint8)
-    want_counts = {
-        "default": {"K1": 13, "K3": 0, "K6": 0, "K7": 0},
-        "region": {"K1": 20, "K3": 4, "K6": 1, "K7": 1}}
-    cpu_net = pt.load(CFG, wbytes, mode="fast", device="cpu")
+    frames416 = rng.randint(0, 256, (8, 416, 416, 3), dtype=np.uint8)
     main_counts = {}
-    for tag, n, cn in (("default", net, cpu_net), ("region", rnet, rcpu)):
-        dets, counts = counted(counters, lambda: n.detect(frames))
-        log(f"[4] {tag} fast detect batch {BATCH}: {sum(map(len, dets))} "
-            f"detections ({len(dets[0])} on test320.bmp); launches "
+    for tag, n, cn, fr in [(t, nets[t], cpus[t], frames) for t in nets] + [
+            ("region416", r416, r416cpu, frames416)]:
+        want = WANT_COUNTS[tag.replace("416", "")]
+        dets, counts = counted(counters, lambda: n.detect(fr))
+        log(f"[4] {tag} fast detect batch {len(fr)}: {sum(map(len, dets))} "
+            f"detections ({len(dets[0])} on the first); launches "
             + " ".join(f"{k} {v}" for k, v in counts.items()))
-        if any(counts[k] != v for k, v in want_counts[tag].items()) \
-                or counts["K2"] < 1:
+        if any(counts[k] != v for k, v in want.items()) or counts["K2"] < 1:
             raise AssertionError(f"the {tag} path did not run its kernels")
         check_dets(tag, dets)
         main_counts[tag] = counts
         d640, counts = counted(counters, lambda: n.detect(wide))
         log(f"[4] {tag} fast detect 640x448: {len(d640)} detections, "
             f"launches " + " ".join(f"{k} {v}" for k, v in counts.items()))
-        if any(counts[k] != v for k, v in want_counts[tag].items()) \
+        if any(counts[k] != v for k, v in want.items()) \
                 or not all(0 < d.score <= 1 and np.isfinite(d[2:]).all()
                            for d in d640):
             raise AssertionError(f"{tag} 640x448 detect failed")
-        check_against_cpu(tag, n, cn, frames, dets)
+        check_against_cpu(tag, n, cn, fr, dets)
 
     # 5. parity mode, card against CPU
     few = frames[:4]
@@ -478,6 +563,52 @@ def main() -> int:
     log(f"[6] K7 head chain 10x10x192 bf16 batch {BATCH}: kernel "
         f"{k7_ms:.4f} / {k7_ms2:.4f} ms, plain {k7_pms:.4f} / "
         f"{k7_pms2:.4f} ms")
+    xh = rand((BATCH, hb416.h, hb416.w, hb416.c), bf16)
+    (ms, ms2), (pms, pms2) = turns(
+        lambda: hf.apply_head_run(xh, hrun416, hps416),
+        lambda: hf.head_plain(xh, hps416))
+    log(f"[6] K7 head chain 13x13x192 (416x416) bf16 batch {BATCH}: kernel "
+        f"{ms:.4f} / {ms2:.4f} ms, plain {pms:.4f} / {pms2:.4f} ms")
+
+    def k1_chain(x, bps):
+        for bp in bps:
+            x = bf.fused_block(x, bp)
+        return x
+
+    # K4: each group against the K1 launches it replaces (bf16 boundaries
+    # between them) and against plain; then all 7 groups in turns
+    xg = [rand((BATCH,) + ir.blobs[g[0].start].nhwc, bf16)
+          for g, _ in cgroups]
+    for (g, bps), x in zip(cgroups, xg):
+        blob = ir.blobs[g[0].start]
+        ms = cuda_ms(lambda: bf.fused_cascade(x, bps))
+        k1ms = cuda_ms(lambda: k1_chain(x, bps))
+        pms = cuda_ms(lambda: bf.chain_plain(x, bps), iters=5)
+        log(f"[6] K4 group {[b.start for b in g]} {blob.h}x{blob.w} tile "
+            f"{bf.check_chain_fits(blob.h, blob.w, bps, n=BATCH)} bf16 batch "
+            f"{BATCH}: kernel {ms:.4f} ms, K1 x{len(bps)} {k1ms:.4f} ms, "
+            f"plain {pms:.4f} ms")
+
+    def k4_all(kernel):
+        for (_, bps), x in zip(cgroups, xg):
+            (bf.fused_cascade if kernel else bf.chain_plain)(x, bps)
+    (k4_ms, k4_ms2), (k4_pms, k4_pms2) = turns(lambda: k4_all(True),
+                                               lambda: k4_all(False), 10)
+    k4_k1 = cuda_ms(lambda: [k1_chain(x, bps)
+                             for (_, bps), x in zip(cgroups, xg)], 10)
+    log(f"[6] K4 all 7 groups bf16 batch {BATCH}: kernel {k4_ms:.4f} / "
+        f"{k4_ms2:.4f} ms, the 18 K1 launches they replace {k4_k1:.4f} ms, "
+        f"plain {k4_pms:.4f} / {k4_pms2:.4f} ms")
+    k5 = {}
+    for nb in (BATCH, 256):
+        x = rand((nb, mblob.h, mblob.w, mblob.c), bf16)
+        (ms, ms2), (pms, pms2) = turns(lambda: bf.fused_mega(x, mbps),
+                                       lambda: bf.chain_plain(x, mbps), 10)
+        k1ms = cuda_ms(lambda: k1_chain(x, mbps))
+        k5[nb] = (ms, pms)
+        log(f"[6] K5 run 84-108 10x10 C96 E448 bf16 batch {nb}: kernel "
+            f"{ms:.4f} / {ms2:.4f} ms, its 5 K1 launches {k1ms:.4f} ms, "
+            f"plain {pms:.4f} / {pms2:.4f} ms")
 
     nms_ms = {}
     for k in NMS_KS:
@@ -491,30 +622,32 @@ def main() -> int:
             f"{pms:.4f} ms")
 
     # the whole fast forward: unfused cuDNN chain, the default fused runs,
-    # the region configuration
+    # the region, cascade and mega configurations, each as its Net runs it
+    # on 320x320 uint8 frames (folded stem)
     xb = torch.from_numpy(frames).to(dev)
     folded = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[0]
     torch.backends.cudnn.allow_tf32 = True   # fast mode: exact on bf16 values
 
     def fwd(kind):
-        if kind == "region":
-            return forward_features(
-                ir, rfolded, xb, input_dtype=bf16, fused_runs=rruns,
-                fused_params=rnet._fused_params, head_runs=rnet._head_runs,
-                head_params=rnet._head_params, conv0_pallas=True,
-                conv0_params=rc0)
-        return forward_features(ir, folded, xb, input_dtype=bf16,
-                                fused_runs=runs if kind == "fused" else None,
-                                fused_params=net._fused_params)
-    order = ("unfused", "fused", "region", "region", "fused", "unfused")
-    fwd_ms = {k: [] for k in order[:3]}
-    for kind in order:
+        if kind == "unfused":
+            return forward_features(ir, folded, xb, input_dtype=bf16)
+        n = nets["default" if kind == "fused" else kind]
+        p, c0p = n._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
+        return forward_features(
+            ir, p, xb, input_dtype=bf16, fused_runs=n._fused_runs,
+            fused_params=n._fused_params, fused_groups=n._fused_groups,
+            mega_runs=n._mega_runs, fused_mid_dtype=n._mid_dtype,
+            head_runs=n._head_runs, head_params=n._head_params,
+            conv0_pallas=c0p is not None, conv0_params=c0p)
+    kinds = ("unfused", "fused", "region", "cascade", "mega")
+    fwd_ms = {k: [] for k in kinds}
+    for kind in kinds + kinds[::-1]:
         fwd_ms[kind].append(cuda_ms(lambda: fwd(kind), 10))
     log(f"[6] fast forward batch {BATCH} (two turns): " + ", ".join(
         f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in fwd_ms.items()))
 
     from torch.profiler import ProfilerActivity, profile
-    for tag, n in (("default", net), ("region", rnet)):
+    for tag, n in nets.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             n.detect_device(xb)
@@ -526,7 +659,7 @@ def main() -> int:
         for line in table.splitlines():
             log("    " + line)
 
-    for tag, n in (("default", net), ("region", rnet)):
+    for tag, n in nets.items():
         for nb, iters in ((1, 50), (64, 20), (256, 8)):
             batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
                                      ).to(dev)
@@ -565,6 +698,16 @@ def main() -> int:
          "replaces": "ffcnn_tpu/kernels/head_fused.py:119",
          "launches": launches["K7"], "max_abs_err": errs["K7"],
          "ms": k7_ms, "plain_ms": k7_pms},
+        {"name": "block_cascade", "route": "cuda",
+         "source": "ffcnn_tpu_torch/csrc/block_cascade.cu",
+         "replaces": "ffcnn_tpu/kernels/block_fused.py:374",
+         "launches": main_counts["cascade"]["K4"], "max_abs_err": errs["K4"],
+         "ms": k4_ms, "plain_ms": k4_pms},
+        {"name": "block_mega", "route": "cuda",
+         "source": "ffcnn_tpu_torch/csrc/block_mega.cu",
+         "replaces": "ffcnn_tpu/kernels/block_fused.py:709",
+         "launches": main_counts["mega"]["K5"], "max_abs_err": errs["K5"],
+         "ms": k5[BATCH][0], "plain_ms": k5[BATCH][1]},
     ]
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -14,20 +14,21 @@
 
 extern "C" {
 
-// x (n, h, w, c): float32 (bf16 == 0) or bfloat16, contiguous, h and w
-// even; y (n, h/2, w/2, p) in x's dtype.  Weights as for ffcnn_block_s1.
-// (th, tw): output tile, th*tw <= 64 and (2th+1)*(2tw+1) <= 160.  Returns
-// cudaErrorInvalidValue for a tile, an odd size, a batch (> 65535) or a
-// channel count (shared memory) it cannot take, else cudaGetLastError().
-int ffcnn_block_s2(const void* x, void* y, int bf16, const void* w1,
-                   const void* s1, const void* b1, const void* kdw,
-                   const void* s2, const void* b2, const void* w2,
-                   const void* s3, const void* b3, int n, int h, int w, int c,
-                   int e, int p, int act1, int act2, int act3, int th, int tw,
-                   void* stream) {
-  return ffcnn_block::run_block<2>(x, y, bf16, w1, s1, b1, kdw, s2, b2, w2,
-                                   s3, b3, n, h, w, c, e, p, act1, act2, act3,
-                                   0, 0, th, tw, stream);
+// x (n, h, w, c), h and w even, and y (n, h/2, w/2, p), contiguous:
+// bfloat16 where in_bf16 (x) or out_bf16 (y) is 1, else float32.  Weights
+// as for ffcnn_block_s1.  (th, tw): output tile, th*tw <= 64 and
+// (2th+1)*(2tw+1) <= 160.  Returns cudaErrorInvalidValue for a tile, an odd
+// size, a batch (> 65535) or a channel count (shared memory) it cannot
+// take, else cudaGetLastError().
+int ffcnn_block_s2(const void* x, void* y, int in_bf16, int out_bf16,
+                   const void* w1, const void* s1, const void* b1,
+                   const void* kdw, const void* s2, const void* b2,
+                   const void* w2, const void* s3, const void* b3, int n,
+                   int h, int w, int c, int e, int p, int act1, int act2,
+                   int act3, int th, int tw, void* stream) {
+  return ffcnn_block::run_block<2>(x, y, in_bf16, out_bf16, w1, s1, b1, kdw,
+                                   s2, b2, w2, s3, b3, n, h, w, c, e, p, act1,
+                                   act2, act3, 0, 0, th, tw, stream);
 }
 
 const char* ffcnn_down_error_string(int err) {

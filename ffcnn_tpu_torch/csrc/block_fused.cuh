@@ -9,7 +9,9 @@
 // expand OUTPUT: halo pixels outside the image are set to 0 after the
 // expand epilogue (pw of a zero pixel is act1(b1), not 0).  Math is float32
 // throughout; the input is upcast on load and the output cast once at the
-// store.
+// store (input and output types are separate, float32 or bfloat16, so a run
+// can keep its boundaries in float32).  block_chain.cuh builds the chained
+// kernels (K4, K5) from the helpers here.
 //
 // Bound on this card: the unfused chain moves the E-wide expand tensor
 // (E/C = 3-6x the block input on yolo-fastest-xl) through device memory
@@ -88,7 +90,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T, int PJ, int S>
+template <typename Tin, typename Tout, int PJ, int S>
 __global__ void __launch_bounds__(kThreads) block_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);     // [nq][cp] input halo
@@ -105,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) block_kernel(Args a) {
   const int tx0 = (blockIdx.x % a.tiles_w) * tw;
   const int iy0 = S * ty0 - 1, ix0 = S * tx0 - 1;  // input halo origin
   const int img = blockIdx.y, og = blockIdx.z * kOG;
-  const T* x = static_cast<const T*>(a.x);
+  const Tin* x = static_cast<const Tin*>(a.x);
 
   for (int i = tid; i < nq * cp; i += kThreads) {
     const int q = i / cp, c = i - q * cp;
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) block_kernel(Args a) {
     }
   }
 
-  T* y = static_cast<T*>(a.y);
+  Tout* y = static_cast<Tout*>(a.y);
 #pragma unroll
   for (int k = 0; k < kPPT; ++k) {
     const int pix = warp + k * kWarps;
@@ -235,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) block_kernel(Args a) {
   }
 }
 
-template <typename T, int PJ, int S>
+template <typename Tin, typename Tout, int PJ, int S>
 void launch(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   // The shared-memory cap is a per-device attribute of the instance: raise
   // it to the card's maximum once per device, not on every launch.
@@ -244,33 +246,34 @@ void launch(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   cudaGetDevice(&dev);
   const uint64_t bit = uint64_t{1} << (dev & 63);
   if (!(raised.load(std::memory_order_relaxed) & bit) &&
-      cudaFuncSetAttribute(block_kernel<T, PJ, S>,
+      cudaFuncSetAttribute(block_kernel<Tin, Tout, PJ, S>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kMaxSmem) == cudaSuccess)
     raised.fetch_or(bit, std::memory_order_relaxed);
-  block_kernel<T, PJ, S><<<grid, kThreads, smem, stream>>>(a);
+  block_kernel<Tin, Tout, PJ, S><<<grid, kThreads, smem, stream>>>(a);
 }
 
-template <typename T, int S>
+template <typename Tin, typename Tout, int S>
 void launch_pj(const Args& a, int pj, dim3 grid, size_t smem,
                cudaStream_t stream) {
   switch (pj) {
-    case 1: launch<T, 1, S>(a, grid, smem, stream); break;
-    case 2: launch<T, 2, S>(a, grid, smem, stream); break;
-    case 3: launch<T, 3, S>(a, grid, smem, stream); break;
-    default: launch<T, 4, S>(a, grid, smem, stream); break;
+    case 1: launch<Tin, Tout, 1, S>(a, grid, smem, stream); break;
+    case 2: launch<Tin, Tout, 2, S>(a, grid, smem, stream); break;
+    case 3: launch<Tin, Tout, 3, S>(a, grid, smem, stream); break;
+    default: launch<Tin, Tout, 4, S>(a, grid, smem, stream); break;
   }
 }
 
 // The C entries' body: checks what the kernel cannot take, then launches.
-// (th, tw) is the OUTPUT tile; the output is (h/S) x (w/S).
+// (th, tw) is the OUTPUT tile; the output is (h/S) x (w/S).  in_bf16 and
+// out_bf16 pick bfloat16 (1) or float32 (0) for x and y.
 template <int S>
-int run_block(const void* x, void* y, int bf16, const void* w1,
-              const void* s1, const void* b1, const void* kdw, const void* s2,
-              const void* b2, const void* w2, const void* s3, const void* b3,
-              int n, int h, int w, int c, int e, int p, int act1, int act2,
-              int act3, int residual, int res_act, int th, int tw,
-              void* stream) {
+int run_block(const void* x, void* y, int in_bf16, int out_bf16,
+              const void* w1, const void* s1, const void* b1, const void* kdw,
+              const void* s2, const void* b2, const void* w2, const void* s3,
+              const void* b3, int n, int h, int w, int c, int e, int p,
+              int act1, int act2, int act3, int residual, int res_act, int th,
+              int tw, void* stream) {
   const int hw = S * tw + 3 - S, nq = (S * th + 3 - S) * hw;
   if (th < 1 || tw < 1 || th * tw > kMaxPix || nq > max_halo<S>() ||
       h % S || w % S || (S != 1 && residual))
@@ -290,10 +293,14 @@ int run_block(const void* x, void* y, int bf16, const void* w1,
   const dim3 grid(tiles, n, (p + kOG - 1) / kOG);
   const int pj = p >= kOG ? 4 : (p + 31) / 32;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    launch_pj<__nv_bfloat16, S>(a, pj, grid, smem, s);
+  if (in_bf16 && out_bf16)
+    launch_pj<__nv_bfloat16, __nv_bfloat16, S>(a, pj, grid, smem, s);
+  else if (in_bf16)
+    launch_pj<__nv_bfloat16, float, S>(a, pj, grid, smem, s);
+  else if (out_bf16)
+    launch_pj<float, __nv_bfloat16, S>(a, pj, grid, smem, s);
   else
-    launch_pj<float, S>(a, pj, grid, smem, s);
+    launch_pj<float, float, S>(a, pj, grid, smem, s);
   return (int)cudaGetLastError();
 }
 

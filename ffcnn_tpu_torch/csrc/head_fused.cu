@@ -12,7 +12,11 @@
 // per stage, on maps of only 100 pixels.  Here one CTA owns one image's whole
 // chain: the input and each interior map live in two float32 stage buffers
 // in shared memory (10x10x192 = 76.8 KB each), so only the chain's input and
-// the head's output touch device memory.  The pointwise weights (192x255
+// the head's output touch device memory.  Where the two buffers do not fit
+// a CTA (xl at 416x416: 13x13x192, 292 KB with the weight chunk), they live
+// in a per-image scratch buffer in device memory that the wrapper allocates
+// (260 KB an image, 16.6 MB at batch 64, so it stays in the 50 MB L2) and
+// shared memory holds the weight chunk alone.  The pointwise weights (192x255
 // float32 = 196 KB) do not fit beside the buffers, so they stream through
 // shared memory in chunks of 32 input channels.  A pointwise stage gives each
 // thread 16 pixels x up to 4 output channels of float32 accumulators in
@@ -49,6 +53,7 @@ struct Stage {
 struct Args {
   const void* x;
   void* y;
+  float* scratch;  // 2 * h * w * cbuf floats an image, or null: in smem
   int h, w, ns, cbuf;
   Stage st[kMaxStages];
 };
@@ -163,11 +168,11 @@ __device__ void dw_stage(const Stage& st, const float* in, float* out, T* y,
 template <typename T>
 __global__ void __launch_bounds__(kThreads) head_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  const int npix = a.h * a.w;
-  float* buf[2] = {reinterpret_cast<float*>(smem4),
-                   reinterpret_cast<float*>(smem4) + (size_t)npix * a.cbuf};
-  float* wbuf = buf[1] + (size_t)npix * a.cbuf;
-  const int img = blockIdx.x;
+  const int npix = a.h * a.w, img = blockIdx.x;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* buf0 = a.scratch ? a.scratch + (size_t)img * 2 * npix * a.cbuf : smem;
+  float* buf[2] = {buf0, buf0 + (size_t)npix * a.cbuf};
+  float* wbuf = a.scratch ? smem : buf[1] + (size_t)npix * a.cbuf;
   const int c0 = a.st[0].cin;
   const T* x = static_cast<const T*>(a.x) + (size_t)img * npix * c0;
   for (int i = threadIdx.x; i < npix * c0; i += kThreads)
@@ -217,10 +222,10 @@ void launch(const Args& a, int n, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared memory the kernel needs for a chain (meta as for ffcnn_head), or
-// 0 for a chain it cannot take (too many stages, a stage kind, kernel size
-// or width it does not take, channels that do not chain).  Over 232448
-// bytes, the card cannot hold it.
+// Shared memory the kernel needs to hold a chain's stage buffers and weight
+// chunk (meta as for ffcnn_head), or 0 for a chain it cannot take (too many
+// stages, a stage kind, kernel size or width it does not take, channels that
+// do not chain).  Over 232448 bytes, the buffers go to device memory.
 size_t ffcnn_head_smem(int h, int w, int ns, const int* meta) {
   if (ns < 1 || ns > kMaxStages || h < 1 || w < 1) return 0;
   size_t cbuf = meta[3], wmax = 0;
@@ -245,22 +250,31 @@ size_t ffcnn_head_smem(int h, int w, int ns, const int* meta) {
 // x (n, h, w, meta[3]) and y (n, h, w, cout of the last stage): float32
 // (bf16 == 0) or bfloat16, contiguous.  meta: 5 ints per stage (kind 0 pw /
 // 1 dw, fs, act, cin, cout); w, s, b: per stage, float32 contiguous (pw w
-// (cin, cout), dw w (cin, fs*fs), s/b (cout)).  Returns
+// (cin, cout), dw w (cin, fs*fs), s/b (cout)).  scratch: float32, n * 2 * h
+// * w * (widest map's channels), for a chain whose stage buffers do not fit
+// shared memory (ffcnn_head_smem over 232448 bytes), else null.  Returns
 // cudaErrorInvalidValue for a chain it cannot take, else cudaGetLastError().
-int ffcnn_head(const void* x, void* y, int bf16, int n, int h, int w, int ns,
-               const int* meta, const void* const* wp, const void* const* sp,
-               const void* const* bp, void* stream) {
-  const size_t smem = ffcnn_head_smem(h, w, ns, meta);
-  if (smem == 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaGetLastError();
+int ffcnn_head(const void* x, void* y, void* scratch, int bf16, int n, int h,
+               int w, int ns, const int* meta, const void* const* wp,
+               const void* const* sp, const void* const* bp, void* stream) {
+  size_t smem = ffcnn_head_smem(h, w, ns, meta);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   Args a{};
+  a.cbuf = meta[3];  // the widest map a stage buffer holds
+  for (int s = 0; s < ns - 1; ++s) a.cbuf = std::max(a.cbuf, meta[5 * s + 4]);
+  if (smem > kMaxSmem) {  // the stage buffers go to scratch
+    smem -= sizeof(float) * 2 * (size_t)h * w * a.cbuf;
+    if (!scratch || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    a.scratch = static_cast<float*>(scratch);
+  } else if (scratch) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaGetLastError();
   a.x = x;
   a.y = y;
   a.h = h;
   a.w = w;
   a.ns = ns;
-  a.cbuf = meta[3];  // the widest map a stage buffer holds
-  for (int s = 0; s < ns - 1; ++s) a.cbuf = std::max(a.cbuf, meta[5 * s + 4]);
   for (int s = 0; s < ns; ++s) {
     const int* m = meta + 5 * s;
     a.st[s] = Stage{m[0], m[1], m[2], m[3], m[4], (const float*)wp[s],

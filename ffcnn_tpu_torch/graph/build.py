@@ -4,10 +4,11 @@
 The reference walks its layer array with a refcount memory manager
 (net_forward, ffcnn.c:476-520); here the layer loop runs eagerly and the
 caching allocator reuses blob memory.  Fused runs of inverted-residual
-blocks go through ``kernels/block_fused.py`` (one launch per block), fused
-head chains through ``kernels/head_fused.py`` (one launch per chain), and
-the uint8 stem through ``kernels/conv0_fused.py``; every other layer is a
-plain PyTorch op.
+blocks go through ``kernels/block_fused.py`` (one launch per block, per
+cascade group or per run), fused head chains through
+``kernels/head_fused.py`` (one launch per chain), and the uint8 stem
+through ``kernels/conv0_fused.py``; every other layer is a plain PyTorch
+op.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ffcnn_tpu.darknet.ir import LayerType, NetIR
 
-from ..kernels.block_fused import apply_run
+from ..kernels.block_fused import apply_run, run_blocks
 from ..kernels.conv0_fused import conv0_cs
 from ..kernels.head_fused import apply_head_run
 from ..ops.activations import activate
@@ -73,6 +74,7 @@ def fold_input_transform(ir: NetIR, params: Params, mean, norm) -> Params:
 def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
                      input_dtype: Optional[torch.dtype] = None,
                      blob_hook=None, fused_runs=None, fused_params=None,
+                     fused_groups=None, mega_runs=(), fused_mid_dtype=None,
                      head_runs=None, head_params=None,
                      conv0_pallas: bool = False,
                      conv0_params=None) -> List[torch.Tensor]:
@@ -87,7 +89,12 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
     ``fused_runs``: ``kernels.block_fused.FusedRun`` list; each run's layers
     execute as fused blocks and their interior blobs never materialise.
     ``fused_params``: ``{run.start: [BlockParams, ...]}`` for every run,
-    prepared once by the caller with ``block_params``.
+    prepared once by the caller with ``block_params``.  ``fused_groups``:
+    ``{run.start: cascade_groups(run, k)}``, the launch groups (default one
+    block a launch); ``mega_runs``: the starts of the runs that launch
+    whole (K5); ``fused_mid_dtype``: the storage of the boundaries between
+    launches (default the blob dtype; float32 with
+    ``FFCNN_FUSED_STORE=f32``).
 
     ``head_runs``: ``kernels.head_fused.HeadRun`` list; each chain feeding a
     yolo layer executes as one launch.  ``head_params``:
@@ -95,12 +102,14 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
 
     ``conv0_pallas``: run the stem (K6, ``kernels/conv0_fused.py``) straight
     off uint8 ``x`` and hand its output to the fused run that starts at
-    layer 1, where the JAX package's guard allows it (``x`` uint8, a
+    layer 1, group by group and never whole (as JAX's stem enters
+    ``run_blocks_cs``), where the JAX package's guard allows it (``x`` uint8, a
     3x3/s2/pad-1 dense stem over even sizes, a run at layer 1, blob 1 read
     by no route or shortcut); otherwise the normal path runs.
     ``conv0_params``: the stem's ``Conv0Params``, from the same (folded)
     ``params``."""
     run_map = {r.start: r for r in (fused_runs or [])}
+    groups = fused_groups or {}
     head_map = {r.start: r for r in (head_runs or [])}
     l0 = ir.layers[0]
     use_c0p = (conv0_pallas and x.dtype == torch.uint8 and 1 in run_map
@@ -168,7 +177,8 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
             # the stem's output (blob 1) goes straight into the run at 1
             r = run_map[1]
             y0 = conv0_cs(x, conv0_params, float_dtype)
-            skip_until = finish_run(r.end, apply_run(y0, r, fused_params[1]))
+            skip_until = finish_run(r.end, run_blocks(
+                y0, r, fused_params[1], groups.get(1), fused_mid_dtype))
             continue
         if li in head_map:
             r = head_map[li]
@@ -177,8 +187,9 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
             continue
         if li in run_map:
             r = run_map[li]
-            skip_until = finish_run(r.end, apply_run(blobs[li], r,
-                                                     fused_params[li]))
+            skip_until = finish_run(r.end, apply_run(
+                blobs[li], r, fused_params[li], groups=groups.get(li),
+                mega=li in mega_runs, mid_dtype=fused_mid_dtype))
             continue
         blobs[li + 1] = run_layer(li, layer, blobs[li])
         if blob_hook is not None and blobs[li + 1] is not None:

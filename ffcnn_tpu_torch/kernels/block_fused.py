@@ -1,9 +1,9 @@
 """Fused inverted-residual blocks: pw-expand -> dw3x3 -> pw-project
-(+ residual) in one launch per block, the expand tensor never in device
-memory.  Holds the planner (pure IR code), the CUDA kernels' wrappers and
-their plain PyTorch versions.
+(+ residual), the expand tensor never in device memory.  Holds the planner
+(pure IR code), the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Two kernels, one template (``csrc/block_fused.cuh``):
+Four kernels.  K1 and K3 are one template (``csrc/block_fused.cuh``), K4
+and K5 chain its blocks (``csrc/block_chain.cuh``):
 
 * K1 (``fused_block``, ``csrc/block_fused.cu``) replaces
   ``ffcnn_tpu/kernels/block_fused.py::_make_kernel``, the stride-1 block
@@ -11,18 +11,35 @@ Two kernels, one template (``csrc/block_fused.cuh``):
 * K3 (``fused_down_block``, ``csrc/block_down.cu``) replaces
   ``_make_down_kernel``, the stride-2 stage-transition block launched by
   ``_cs_down_block``: H and W halve, no residual.
+* K4 (``fused_cascade``, ``csrc/block_cascade.cu``) replaces
+  ``_make_cascade_kernel`` (``_cs_cascade``): a group of consecutive
+  stride-1 blocks in one launch (``FFCNN_FUSED_CASCADE=k``, groups from
+  ``cascade_groups``), the boundaries inside the group kept on chip in
+  float32.
+* K5 (``fused_mega``, ``csrc/block_mega.cu``) replaces ``_make_mega_kernel``
+  (``_apply_run_mega``): a whole run of stride-1 blocks in one launch
+  (``FFCNN_FUSED_MEGA``, where ``mega_fits``), one image's map resident on
+  chip in float32.
 
 The expand tensor is E/C times the block's input (3-6x on yolo-fastest-xl),
 so materialising it dominates the block's device-memory traffic; the
 kernels keep it in shared memory instead.  A CTA owns a tile of output
 pixels of one image and walks E in chunks: it expands the tile's input halo
 into shared memory, applies the depthwise 3x3 and adds the chunk's share of
-the projection to float32 accumulators in registers.  Expand and project are
-float32 FMAs on the CUDA cores; moving them onto the tensor cores is later
-work.
+the projection to float32 accumulators.  Expand and project are float32
+FMAs on the CUDA cores; moving them onto the tensor cores is later work.
 
-The TPU gates ``BATCH_QUANTUM`` and ``runs_usable`` do not apply here: on
-the card fast mode takes the kernels at every batch size.
+Departures from the JAX package, neither of which changes a plan:
+
+* Its TPU gates ``BATCH_QUANTUM``, ``runs_usable`` and the mega route's
+  ``n % MEGA_NB == 0`` do not apply: on the card fast mode takes the
+  kernels at every batch size.
+* ``_pick_rows_cascade`` falls back to per-block launches where a group's
+  rows do not fit VMEM or divide the map; here every cascade group runs as
+  one K4 launch, because the tile search (``pick_cascade_tile``) bounds the
+  shared memory instead, with tiles cut at the map's edge.  So a group the
+  JAX package splits at such a geometry keeps its boundaries in float32
+  here.
 """
 
 from __future__ import annotations
@@ -198,7 +215,7 @@ def block_params(ir: NetIR, params, b: FusedBlock) -> BlockParams:
 
 def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int
                ) -> torch.Tensor:
-    """The block in plain PyTorch, float32 inside, NHWC in and out."""
+    """The block in plain PyTorch, float32 inside and out, NHWC."""
     xf = x.float()
     n, h, w, _ = x.shape
     ho, wo = h // stride, w // stride
@@ -219,29 +236,83 @@ def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int
     y = activate(torch.matmul(h2, bp.w2) * bp.s3 + bp.b3, bp.acts[2])
     if bp.residual:
         y = activate(y + xf, bp.res_act)
-    return y.to(x.dtype)
+    return y
 
 
-def block_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+def block_plain(x: torch.Tensor, bp: BlockParams,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The stride-1 block in plain PyTorch, float32 inside, NHWC in and
-    out: what ``_make_kernel`` computes."""
-    return _block_f32(x, bp, 1)
+    out (in ``out_dtype``, default x's): what ``_make_kernel`` computes."""
+    return _block_f32(x, bp, 1).to(out_dtype or x.dtype)
 
 
-def block_down_plain(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+def block_down_plain(x: torch.Tensor, bp: BlockParams,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
     """The stride-2 block in plain PyTorch, float32 inside, NHWC (N, H, W,
-    C) -> (N, H/2, W/2, P) for even H and W: what ``_make_down_kernel``
-    computes (no residual)."""
+    C) -> (N, H/2, W/2, P) for even H and W, in ``out_dtype`` (default
+    x's): what ``_make_down_kernel`` computes (no residual)."""
     if bp.residual:
         raise ValueError("a stride-2 block has no residual")
-    return _block_f32(x, bp, 2)
+    return _block_f32(x, bp, 2).to(out_dtype or x.dtype)
 
 
-# Output tiles the kernels accept (csrc/block_fused.cuh kMaxPix,
+def chain_plain(x: torch.Tensor, bps: List[BlockParams],
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Stride-1 blocks chained in plain PyTorch, NHWC: float32 between the
+    blocks, never rounded, and one cast at the end (to ``out_dtype``,
+    default x's).  What ``_make_cascade_kernel`` computes for a group and
+    ``_make_mega_kernel`` for a run: the plain version of K4 and of K5."""
+    y = x
+    for bp in bps:
+        y = _block_f32(y, bp, 1)
+    return y.to(out_dtype or x.dtype)
+
+
+# ----------------------------------------------------------------- routing
+def cascade_groups(run: FusedRun, k: int) -> List[List[FusedBlock]]:
+    """The run's blocks in launch groups, as ``run_blocks_cs`` groups them
+    for ``FFCNN_FUSED_CASCADE=k``: a stride-1 block joins the current group
+    unless that group is full (k blocks) or ends in a stride-2 block; a
+    stride-2 block is a group of its own.  ``k`` < 2: one block a group."""
+    groups: List[List[FusedBlock]] = []
+    for b in run.blocks:
+        if (k > 1 and not b.down and groups and len(groups[-1]) < k
+                and not groups[-1][-1].down):
+            groups[-1].append(b)
+        else:
+            groups.append([b])
+    return groups
+
+
+# The JAX mega route's VMEM gate (``_mega_fits``), kept so both packages
+# route the same runs: images per chunk and its float32 budget.
+MEGA_NB = 128
+_MEGA_VMEM_BUDGET = 72 << 20
+
+
+def mega_fits(ir: NetIR, run: FusedRun) -> bool:
+    """``ffcnn_tpu/kernels/block_fused.py::_mega_fits`` as IR math: two
+    E-wide float32 stages of a 128-image chunk of the run's map, plus its
+    input and output, within the TPU budget."""
+    hh, ww = ir.blobs[run.start].h, ir.blobs[run.start].w
+    emax = max(ir.layers[b.start].fn for b in run.blocks)
+    s = ww * MEGA_NB
+    need = 2 * hh * emax * (s + 2 * MEGA_NB) * 4
+    need += 2 * hh * max(ir.blobs[run.blocks[0].start].c,
+                         ir.blobs[run.end + 1].c) * s * 4
+    return need <= _MEGA_VMEM_BUDGET
+
+
+# Output tiles K1 and K3 accept (csrc/block_fused.cuh kMaxPix,
 # max_halo<S>): at most 64 output pixels, and an input halo of at most 104
 # pixels at stride 1, 160 at stride 2.
 _TILE_MAX_PIX = 64
 _TILE_MAX_HALO = {1: 104, 2: 160}
+# A CTA's shared memory on sm_90 (csrc/block_fused.cuh kMaxSmem), and the
+# blocks a chained launch takes (csrc/block_chain.cuh kMaxChain).
+MAX_SMEM = 232448
+MAX_CHAIN = 16
 
 
 @functools.cache
@@ -264,24 +335,206 @@ def pick_tile(h: int, w: int, stride: int = 1) -> Tuple[int, int]:
     return best[1]
 
 
-def _check(x: torch.Tensor, bp: BlockParams) -> None:
-    """Raise on what the kernels do not take."""
-    c = x.shape[-1]
-    e, p = bp.w1.shape[1], bp.w2.shape[1]
+# A chain's widths, (c, e, p) per block: what the chained kernels' shared
+# memory and the tile searches depend on.
+Widths = Tuple[Tuple[int, int, int], ...]
+
+
+def _widths(bps: List[BlockParams]) -> Widths:
+    return tuple((bp.w1.shape[0], bp.w1.shape[1], bp.w2.shape[1])
+                 for bp in bps)
+
+
+def _pad4(c: int) -> int:
+    return -(-c // 4) * 4
+
+
+def _proj_stride(p: int) -> int:
+    g = 32 * (4 if p >= 128 else -(-p // 32))
+    return -(-p // g) * g
+
+
+def _chunk_floats(widths: Widths, halo: int, pix: int) -> int:
+    """The chunk buffers of csrc/block_chain.cuh: the expand and project
+    weight chunks, the expanded halo and the dw output (32 channels)."""
+    cpin = max(_pad4(c) for c, _, _ in widths)
+    psmax = max(_proj_stride(p) for _, _, p in widths)
+    return 32 * (cpin + psmax + halo + -(-pix // 64) * 64)
+
+
+def cascade_smem(widths: Widths, th: int, tw: int) -> int:
+    """Bytes of shared memory K4 needs at output tile (th, tw), as
+    ``cascade_smem`` in ``csrc/block_chain.cuh`` lays it out: block
+    j reads a map of (th + 2(k-j)) x (tw + 2(k-j)) pixels from one of two
+    float32 buffers and writes one pixel ring smaller into the other."""
+    k = len(widths)
+    chans = [widths[0][0]] + [p for _, _, p in widths]
+    bufs = [0, 0]
+    for j in range(k + 1):
+        r = k - j
+        bufs[j % 2] = max(bufs[j % 2],
+                          (th + 2 * r) * (tw + 2 * r) * _pad4(chans[j]))
+    return 4 * (sum(bufs) + _chunk_floats(
+        widths, (th + 2 * k) * (tw + 2 * k),
+        (th + 2 * k - 2) * (tw + 2 * k - 2)))
+
+
+def mega_smem(widths: Widths, h: int, w: int, th: int, tw: int) -> int:
+    """Bytes of shared memory K5 needs for an (h, w) map at output tile
+    (th, tw), as ``mega_smem`` in ``csrc/block_chain.cuh`` lays it out:
+    two float32 maps with a one-pixel border, and one tile's chunks."""
+    cpm = max(max(_pad4(c) for c, _, _ in widths), _pad4(widths[-1][2]))
+    return 4 * (2 * (h + 2) * (w + 2) * cpm
+                + _chunk_floats(widths, (th + 2) * (tw + 2), th * tw))
+
+
+def _cut_tiles(h: int, w: int, th: int, tw: int):
+    """(rows, cols, count) of the tiles of an (h, w) map at (th, tw), cut
+    at the map's bottom and right edges."""
+    for rows, nr in ((th, h // th), (h % th, int(h % th > 0))):
+        for cols, nc in ((tw, w // tw), (w % tw, int(w % tw > 0))):
+            if nr and nc:
+                yield rows, cols, nr * nc
+
+
+def _cascade_cost(widths: Widths, th: int, tw: int) -> int:
+    """Multiply-adds of one (th, tw) tile of K4, E counted in whole chunks
+    of 32: each block expands its input map and projects its output map."""
+    k, cost = len(widths), 0
+    for j, (c, e, p) in enumerate(widths):
+        r = k - j
+        nin = (th + 2 * r) * (tw + 2 * r)
+        nout = (th + 2 * r - 2) * (tw + 2 * r - 2)
+        cost += -(-e // 32) * 32 * (nin * _pad4(c) + nout * (9 + p))
+    return cost
+
+
+# A CTA's shared memory comes out of its SM's 228 KB, with 1 KB more for
+# each resident CTA; an H100 has 132 SMs.  Two CTAs of a chained launch on
+# one SM ran 1.0-1.9x as many multiply-adds a second as one alone on xl's
+# seven cascade groups at batch 64 and 256 (H100 80GB HBM3, 700 W); the
+# tile search takes 1.3.
+_SM_SMEM, _CTA_SMEM_EXTRA, _SMS = 233472, 1024, 132
+_SM_SPEED = {1: 1.0, 2: 1.3}
+
+
+def _least_cost_tile(h: int, w: int, widths: Widths, budget: int):
+    """The tile of least multiply-adds over an (h, w) map, halo recompute
+    included, within ``budget`` bytes of shared memory (ties go to the
+    larger tile), and that cost; (None, 0) if no tile fits."""
+    best = None
+    for th in range(1, h + 1):
+        for tw in range(1, w + 1):
+            if cascade_smem(widths, th, tw) > budget:
+                break                   # grows with tw
+            cost = sum(n * _cascade_cost(widths, r, c)
+                       for r, c, n in _cut_tiles(h, w, th, tw))
+            key = (cost, -th * tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+    return (None, 0) if best is None else (best[1], best[0][0])
+
+
+@functools.cache
+def pick_cascade_tile(h: int, w: int, widths: Widths, n: int = 1
+                      ) -> Optional[Tuple[int, int]]:
+    """K4's (TH, TW) output tile for a group on an (h, w) map at batch n:
+    of the least-cost tiles that let one or two CTAs share an SM, the one
+    whose waves of CTAs take the least time at that many a SM.  None if no
+    tile fits.  Cached: every launch asks."""
+    best = None
+    for m, speed in _SM_SPEED.items():
+        tile, cost = _least_cost_tile(
+            h, w, widths, min(MAX_SMEM, _SM_SMEM // m - _CTA_SMEM_EXTRA))
+        if tile is None:
+            continue
+        per_image = -(-h // tile[0]) * -(-w // tile[1])
+        waves = -(-n * per_image // (_SMS * m))
+        est = waves * m * cost / per_image / speed
+        if best is None or est < best[0]:
+            best = (est, tile)
+    return None if best is None else best[1]
+
+
+@functools.cache
+def pick_mega_tile(h: int, w: int, widths: Widths
+                   ) -> Optional[Tuple[int, int]]:
+    """K5's (TH, TW) output tile, walked over the resident (h, w) map: the
+    fewest halo pixels expanded over the map within a CTA's shared memory
+    (the whole map where it fits); ties go to the larger tile.  None if the
+    two maps alone do not fit.  Cached: every launch asks."""
+    best = None
+    for th in range(1, h + 1):
+        for tw in range(1, w + 1):
+            if mega_smem(widths, h, w, th, tw) > MAX_SMEM:
+                break
+            cost = sum(n * (r + 2) * (c + 2)
+                       for r, c, n in _cut_tiles(h, w, th, tw))
+            key = (cost, -th * tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+    return None if best is None else best[1]
+
+
+def check_chain_fits(h: int, w: int, bps: List[BlockParams],
+                     mega: bool = False, n: int = 1) -> Tuple[int, int]:
+    """The tile K4 (or, with ``mega``, K5) takes for the chain on an (h, w)
+    map at batch n; raise if the chain cannot run on the card (``Net`` asks
+    for every group and mega run when it is built on the card)."""
+    widths = _widths(bps)
+    if len(bps) > MAX_CHAIN:
+        raise ValueError(f"a chain of {len(bps)} blocks; the kernels take "
+                         f"at most {MAX_CHAIN}")
+    tile = (pick_mega_tile(h, w, widths) if mega
+            else pick_cascade_tile(h, w, widths, n))
+    if tile is None:
+        need = mega_smem(widths, h, w, 1, 1) if mega else \
+            cascade_smem(widths, 1, 1)
+        raise ValueError(f"the {'mega' if mega else 'cascade'} chain "
+                         f"{widths} on a {h}x{w} map needs {need} bytes of "
+                         f"shared memory at its smallest tile, more than "
+                         f"the {MAX_SMEM} a CTA has on sm_90")
+    return tile
+
+
+# ---------------------------------------------------------------- wrappers
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_x(x: torch.Tensor) -> None:
     if x.device.type != "cuda" or x.dim() != 4 or not x.is_contiguous() \
-            or x.dtype not in (torch.float32, torch.bfloat16):
+            or x.dtype not in _DTYPES:
         raise ValueError(f"x must be a contiguous NHWC float32/bfloat16 CUDA "
                          f"tensor, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
+
+
+def _check_params(bp: BlockParams, c: int, device) -> None:
+    e, p = bp.w1.shape[1], bp.w2.shape[1]
     shapes = {"w1": (c, e), "s1": (e,), "b1": (e,), "kdw": (e, 9),
               "s2": (e,), "b2": (e,), "w2": (e, p), "s3": (p,), "b3": (p,)}
     for name, shape in shapes.items():
         t = getattr(bp, name)
-        if (t.device != x.device or t.dtype != torch.float32
+        if (t.device != device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    if bp.residual and p != c:
+        raise ValueError(f"residual block needs P == C, got {p} != {c}")
+
+
+def _check(x: torch.Tensor, bps: List[BlockParams], out_dtype) -> None:
+    """Raise on what the kernels do not take: a chain's widths must link
+    up, each block's params must lie beside x."""
+    _check_x(x)
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    c = x.shape[-1]
+    for bp in bps:
+        _check_params(bp, c, x.device)
+        c = bp.w2.shape[1]
 
 
 def _params_ptrs(bp: BlockParams):
@@ -290,23 +543,27 @@ def _params_ptrs(bp: BlockParams):
             bp.w2.data_ptr(), bp.s3.data_ptr(), bp.b3.data_ptr())
 
 
-def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
-    """One stride-1 block (K1), NHWC (N, H, W, C) -> (N, H, W, P) in x's
-    dtype.
+def _is_bf16(dtype) -> int:
+    return int(dtype == torch.bfloat16)
+
+
+def fused_block(x: torch.Tensor, bp: BlockParams,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One stride-1 block (K1), NHWC (N, H, W, C) -> (N, H, W, P) in
+    ``out_dtype`` (default x's).
 
     CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return block_plain(x, bp)
-    _check(x, bp)
+        return block_plain(x, bp, out_dtype)
+    _check(x, [bp], out_dtype)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
-    if bp.residual and p != c:
-        raise ValueError(f"residual block needs P == C, got {p} != {c}")
     th, tw = pick_tile(h, w)
-    y = torch.empty((n, h, w, p), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, h, w, p), dtype=out_dtype, device=x.device)
     lib = build()
     err = lib.ffcnn_block_s1(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
         *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, int(bp.residual),
         bp.res_act, th, tw, _build.stream_ptr())
     fused_block.launches += 1
@@ -319,25 +576,29 @@ def fused_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
 fused_block.launches = 0
 
 
-def fused_down_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
+def fused_down_block(x: torch.Tensor, bp: BlockParams,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
     """One stride-2 block (K3), NHWC (N, H, W, C) -> (N, H/2, W/2, P) in
-    x's dtype; H and W must be even.
+    ``out_dtype`` (default x's); H and W must be even.
 
     CPU tensors take ``block_down_plain``; CUDA tensors launch the
     kernel."""
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return block_down_plain(x, bp)
-    _check(x, bp)
+        return block_down_plain(x, bp, out_dtype)
+    _check(x, [bp], out_dtype)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
     if h % 2 or w % 2 or bp.residual:
         raise ValueError(f"a stride-2 block needs even H and W and no "
                          f"residual, got {h}x{w}, residual={bp.residual}")
     th, tw = pick_tile(h // 2, w // 2, 2)
-    y = torch.empty((n, h // 2, w // 2, p), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, h // 2, w // 2, p), dtype=out_dtype,
+                    device=x.device)
     lib = build_down()
     err = lib.ffcnn_block_s2(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
         *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, th, tw,
         _build.stream_ptr())
     fused_down_block.launches += 1
@@ -349,44 +610,165 @@ def fused_down_block(x: torch.Tensor, bp: BlockParams) -> torch.Tensor:
 
 fused_down_block.launches = 0
 
+
+def _chain_args(bps: List[BlockParams]):
+    """The chained kernels' description of the blocks: 8 ints a block (c e
+    p act1 act2 act3 residual res_act) and 9 weight pointers a block."""
+    meta, ptrs = [], []
+    for (c, e, p), bp in zip(_widths(bps), bps):
+        meta += [c, e, p, *bp.acts, int(bp.residual), bp.res_act]
+        ptrs += _params_ptrs(bp)
+    return ((ctypes.c_int * len(meta))(*meta),
+            (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
+def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A group of stride-1 blocks in one launch (K4), NHWC (N, H, W, C) ->
+    (N, H, W, P of the last block) in ``out_dtype`` (default x's); the
+    boundaries inside the group stay float32.
+
+    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return chain_plain(x, bps, out_dtype)
+    _check(x, bps, out_dtype)
+    n, h, w, _ = x.shape
+    th, tw = check_chain_fits(h, w, bps, n=n)
+    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=out_dtype,
+                    device=x.device)
+    lib = build_cascade()
+    err = lib.ffcnn_cascade(
+        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
+        n, h, w, len(bps), *_chain_args(bps), th, tw, _build.stream_ptr())
+    fused_cascade.launches += 1
+    if err:
+        raise RuntimeError("cascade launch failed: "
+                           + lib.ffcnn_cascade_error_string(err).decode())
+    return y
+
+
+fused_cascade.launches = 0
+
+
+def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
+    """A whole run of stride-1 blocks in one launch (K5), NHWC (N, H, W, C)
+    -> (N, H, W, P of the last block) in x's dtype; every boundary stays
+    float32.
+
+    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return chain_plain(x, bps)
+    _check(x, bps, x.dtype)
+    n, h, w, _ = x.shape
+    th, tw = check_chain_fits(h, w, bps, mega=True)
+    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    lib = build_mega()
+    err = lib.ffcnn_mega(x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), n,
+                         h, w, len(bps), *_chain_args(bps), th, tw,
+                         _build.stream_ptr())
+    fused_mega.launches += 1
+    if err:
+        raise RuntimeError("mega run launch failed: "
+                           + lib.ffcnn_mega_error_string(err).decode())
+    return y
+
+
+fused_mega.launches = 0
+
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _load(name: str, entry: str, argtypes, errors: str) -> ctypes.CDLL:
+    lib = _build.load_library(name)
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = _INT
+    getattr(lib, errors).argtypes = [_INT]
+    getattr(lib, errors).restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def build() -> ctypes.CDLL:
     """Build (if needed) and load K1's library."""
-    lib = _build.load_library("block_fused")
-    lib.ffcnn_block_s1.argtypes = ([_PTR, _PTR, _INT] + [_PTR] * 9
-                                   + [_INT] * 13 + [_PTR])
-    lib.ffcnn_block_s1.restype = _INT
-    lib.ffcnn_block_error_string.argtypes = [_INT]
-    lib.ffcnn_block_error_string.restype = ctypes.c_char_p
-    return lib
+    return _load("block_fused", "ffcnn_block_s1",
+                 [_PTR, _PTR, _INT, _INT] + [_PTR] * 9 + [_INT] * 13
+                 + [_PTR], "ffcnn_block_error_string")
 
 
 @functools.cache
 def build_down() -> ctypes.CDLL:
     """Build (if needed) and load K3's library."""
-    lib = _build.load_library("block_down")
-    lib.ffcnn_block_s2.argtypes = ([_PTR, _PTR, _INT] + [_PTR] * 9
-                                   + [_INT] * 11 + [_PTR])
-    lib.ffcnn_block_s2.restype = _INT
-    lib.ffcnn_down_error_string.argtypes = [_INT]
-    lib.ffcnn_down_error_string.restype = ctypes.c_char_p
-    return lib
+    return _load("block_down", "ffcnn_block_s2",
+                 [_PTR, _PTR, _INT, _INT] + [_PTR] * 9 + [_INT] * 11
+                 + [_PTR], "ffcnn_down_error_string")
 
 
-def apply_run(x: torch.Tensor, run: FusedRun,
-              bps: List[BlockParams]) -> torch.Tensor:
-    """Run a chain of fused blocks on an NHWC blob: one launch per block
-    (K1 for stride 1, K3 for stride 2), each block boundary stored in x's
-    dtype (the JAX package's default boundary storage).  ``bps``: the run's
-    ``block_params``, one per block, prepared once (the JAX
-    ``apply_run(x, ir, params, run)`` gathers them inside its trace;
-    eagerly that would cost copies every forward)."""
+@functools.cache
+def build_cascade() -> ctypes.CDLL:
+    """Build (if needed) and load K4's library."""
+    return _load("block_cascade", "ffcnn_cascade",
+                 [_PTR, _PTR] + [_INT] * 6 + [ctypes.POINTER(_INT),
+                                              ctypes.POINTER(_PTR)]
+                 + [_INT, _INT, _PTR], "ffcnn_cascade_error_string")
+
+
+@functools.cache
+def build_mega() -> ctypes.CDLL:
+    """Build (if needed) and load K5's library."""
+    return _load("block_mega", "ffcnn_mega",
+                 [_PTR, _PTR] + [_INT] * 5 + [ctypes.POINTER(_INT),
+                                              ctypes.POINTER(_PTR)]
+                 + [_INT, _INT, _PTR], "ffcnn_mega_error_string")
+
+
+# ------------------------------------------------------------ entry points
+def run_blocks(x: torch.Tensor, run: FusedRun, bps: List[BlockParams],
+               groups: Optional[List[List[FusedBlock]]] = None,
+               mid_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A run's blocks group by group, as ``run_blocks_cs`` runs them: a
+    group of several blocks is one K4 launch, a single block one K1 (stride
+    1) or K3 (stride 2) launch.  ``groups``: ``cascade_groups(run, k)``
+    (default one block a group).  The boundaries between groups are stored
+    in ``mid_dtype`` (default x's; float32 with ``FFCNN_FUSED_STORE=f32``),
+    the run's output in x's dtype.  ``bps``: the run's ``block_params``,
+    one per block, prepared once."""
     if len(bps) != len(run.blocks):
         raise ValueError(f"{len(bps)} block params for {len(run.blocks)} "
                          f"blocks")
-    for b, bp in zip(run.blocks, bps):
-        x = fused_down_block(x, bp) if b.down else fused_block(x, bp)
+    if groups is None:
+        groups = cascade_groups(run, 0)
+    if [b for g in groups for b in g] != list(run.blocks):
+        raise ValueError(f"groups {groups} do not partition run {run}")
+    final, i = x.dtype, 0
+    for gi, g in enumerate(groups):
+        od = final if gi == len(groups) - 1 else (mid_dtype or final)
+        gbps, i = bps[i:i + len(g)], i + len(g)
+        if len(g) > 1:
+            x = fused_cascade(x, gbps, od)
+        elif g[0].down:
+            x = fused_down_block(x, gbps[0], od)
+        else:
+            x = fused_block(x, gbps[0], od)
     return x
+
+
+def apply_run(x: torch.Tensor, run: FusedRun, bps: List[BlockParams], *,
+              groups: Optional[List[List[FusedBlock]]] = None,
+              mega: bool = False,
+              mid_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Run a chain of fused blocks on an NHWC blob.  ``mega``: the whole run
+    in one K5 launch (every block stride 1; the caller routes the runs
+    where the mega flag is set and ``mega_fits`` holds, as the JAX
+    ``apply_run`` does); else ``run_blocks`` with ``groups`` and
+    ``mid_dtype``.  ``bps``: the run's ``block_params``, one per block,
+    prepared once (the JAX ``apply_run(x, ir, params, run)`` gathers them
+    inside its trace; eagerly that would cost copies every forward)."""
+    if not mega:
+        return run_blocks(x, run, bps, groups, mid_dtype)
+    if len(bps) != len(run.blocks) or any(b.down for b in run.blocks):
+        raise ValueError(f"the mega route takes one params per block and "
+                         f"stride-1 blocks only, got {len(bps)} params for "
+                         f"run {run}")
+    return fused_mega(x, bps)

@@ -5,11 +5,14 @@ PyTorch version.
 
 Replaces ``ffcnn_tpu/kernels/head_fused.py::_make_kernel`` (launched by
 ``apply_head_run``).  The kernel (``csrc/head_fused.cu``) gives one CTA one
-image's whole chain, with two float32 stage buffers in shared memory; a
-chain whose buffers do not fit in a CTA's 227 KB cannot run on the card, and
-``check_fits`` says so when a CUDA ``Net`` is built.  On yolo-fastest-xl at
-320x320 the planned chain (116-120, 10x10, up to 192 channels) needs
-186 KB.
+image's whole chain, with two float32 stage buffers in shared memory.  On
+yolo-fastest-xl at 320x320 the planned chain (116-120, 10x10, up to 192
+channels) needs 186 KB.  Where the buffers do not fit a CTA's 227 KB (xl at
+416x416: 13x13, 292 KB), the wrapper allocates them per image in device
+memory (``scratch_floats``), where they stay in L2, and shared memory holds
+only the weight chunk; so every chain the planner gives runs.
+``check_fits`` refuses only what the kernel cannot take at all, when a CUDA
+``Net`` is built.
 
 The TPU's batch chunk (``CHUNK``, ``nc``) and its batch and backend gate
 (``head_runs_usable``) do not apply: the kernel takes every batch size.  The
@@ -35,8 +38,12 @@ from . import _build
 # runs (images per chunk it tries, and its f32 budget).
 _TPU_CHUNKS = (128, 64)
 _TPU_VMEM_BUDGET = 72 << 20
-# A CTA's shared memory on sm_90 (csrc/head_fused.cu kMaxSmem).
+# A CTA's shared memory on sm_90, and the stages and pointwise output
+# channels the kernel takes (csrc/head_fused.cu kMaxSmem, kMaxStages,
+# kMaxOJ * kOL).
 MAX_SMEM = 232448
+MAX_STAGES = 8
+MAX_PW_OUT = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,26 +156,48 @@ def _meta(hp: HeadParams) -> List[int]:
     return out
 
 
-def smem_bytes(hp: HeadParams) -> int:
-    """Shared memory the kernel needs for the chain (two float32 stage
-    buffers of the widest map it holds, and the largest weight chunk), as
-    ``ffcnn_head_smem`` in ``csrc/head_fused.cu`` computes it."""
+def _sizes(hp: HeadParams) -> Tuple[int, int]:
+    """(channels of the widest map a stage buffer holds, floats of the
+    largest weight chunk), as ``ffcnn_head_smem`` in ``csrc/head_fused.cu``
+    computes them."""
     meta = _meta(hp)
     cbuf = max([meta[3]] + meta[4:-5:5])
     wmax = max(32 * m[4] if m[0] == 0 else m[3] * m[1] * m[1]
                for m in (meta[i:i + 5] for i in range(0, len(meta), 5)))
+    return cbuf, wmax
+
+
+def smem_bytes(hp: HeadParams) -> int:
+    """Shared memory the kernel needs to hold the chain on chip: two
+    float32 stage buffers of the widest map and the largest weight chunk
+    (``ffcnn_head_smem``)."""
+    cbuf, wmax = _sizes(hp)
     return 4 * (2 * hp.h * hp.w * cbuf + wmax)
 
 
+def scratch_floats(hp: HeadParams) -> int:
+    """Float32s of device memory an image's stage buffers take where they
+    do not fit shared memory (``smem_bytes`` over ``MAX_SMEM``), else 0."""
+    cbuf, _ = _sizes(hp)
+    return 2 * hp.h * hp.w * cbuf if smem_bytes(hp) > MAX_SMEM else 0
+
+
 def check_fits(hp: HeadParams) -> None:
-    """Raise if the kernel cannot hold the chain in a CTA's shared
-    memory (``Net`` asks once, when it is built on the card; the kernel's
-    C entry refuses such a chain at launch too)."""
-    need = smem_bytes(hp)
-    if need > MAX_SMEM:
-        raise ValueError(f"head chain at {hp.h}x{hp.w} needs {need} bytes of "
-                         f"shared memory, more than the {MAX_SMEM} a CTA "
-                         f"has on sm_90")
+    """Raise for a chain the kernel cannot take (``Net`` asks once, when it
+    is built on the card; the kernel's C entry refuses such a chain at
+    launch too): more than 8 stages, a pointwise stage wider than 256
+    channels, or a weight chunk over a CTA's shared memory.  A chain whose
+    stage buffers do not fit shared memory runs with them in device
+    memory."""
+    _, wmax = _sizes(hp)
+    widest = max((st.w.shape[1] for st in hp.stages if st.kind == "pw"),
+                 default=0)
+    if len(hp.stages) > MAX_STAGES or widest > MAX_PW_OUT \
+            or 4 * wmax > MAX_SMEM:
+        raise ValueError(f"head chain at {hp.h}x{hp.w} ({len(hp.stages)} "
+                         f"stages, widest weight chunk {4 * wmax} bytes) is "
+                         f"more than the kernel takes: {MAX_STAGES} stages, "
+                         f"{MAX_PW_OUT} pointwise outputs, {MAX_SMEM} bytes")
 
 
 def head_plain(x: torch.Tensor, hp: HeadParams) -> torch.Tensor:
@@ -221,11 +250,15 @@ def apply_head_run(x: torch.Tensor, run: HeadRun,
     n, ns = x.shape[0], len(hp.stages)
     y = torch.empty((n, hp.h, hp.w, meta[-1]), dtype=x.dtype,
                     device=x.device)
+    nscratch = scratch_floats(hp)
+    scratch = torch.empty((n, nscratch), dtype=torch.float32,
+                          device=x.device) if nscratch else None
     ptrs = [(ctypes.c_void_p * ns)(*(getattr(st, name).data_ptr()
                                      for st in hp.stages))
             for name in ("w", "scale", "bias")]
     lib = build()
     err = lib.ffcnn_head(x.data_ptr(), y.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(),
                          int(x.dtype == torch.bfloat16), n, hp.h, hp.w, ns,
                          (ctypes.c_int * len(meta))(*meta), *ptrs,
                          _build.stream_ptr())
@@ -243,7 +276,7 @@ apply_head_run.launches = 0
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the kernel's library."""
     lib = _build.load_library("head_fused")
-    lib.ffcnn_head.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+    lib.ffcnn_head.argtypes = ([ctypes.c_void_p] * 3
                                + [ctypes.c_int] * 5
                                + [ctypes.POINTER(ctypes.c_int)]
                                + [ctypes.POINTER(ctypes.c_void_p)] * 3

@@ -18,7 +18,13 @@ Fast mode reads the JAX package's fusion flags once, when the Net is built:
 ``DOWN=1, MINC=8`` they span whole backbone regions, stride-2 blocks
 included), ``FFCNN_CONV0_PALLAS`` (the uint8 stem kernel, feeding a run at
 layer 1) and ``FFCNN_FUSED_HEADS`` (the fused yolo-head chains).  All four
-set is the region configuration; none set plans the default runs.
+set is the region configuration; none set plans the default runs.  Three
+more choose how a run's blocks launch: ``FFCNN_FUSED_CASCADE=k`` (up to k
+consecutive stride-1 blocks in one launch, K4), ``FFCNN_FUSED_MEGA`` (a run
+of stride-1 blocks that passes ``mega_fits`` in one launch, K5) and
+``FFCNN_FUSED_STORE=f32`` (the boundaries between launches in float32).
+``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` are not ported: a fast Net
+refuses them.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from ffcnn_tpu.tuning import get_flag
 
 from .graph.build import (fold_input_transform, forward_features,
                           params_from_numpy)
-from .kernels.block_fused import block_params, plan_runs
+from .kernels.block_fused import (block_params, cascade_groups,
+                                  check_chain_fits, mega_fits, plan_runs)
 from .kernels.conv0_fused import conv0_params
 from .kernels.head_fused import check_fits, head_params, plan_head_runs
 from .ops.nms import NMSResult, nms
@@ -88,6 +95,15 @@ class Net:
             raise ValueError(f"mode must be 'fast' or 'parity', got {mode!r}")
         if any(l.type == LayerType.YOLOV8 for l in ir.layers):
             raise NotImplementedError("[yolov8] heads are not ported yet")
+        fast = mode == "fast"
+        # the JAX package's float32 accuracy knobs change what fast mode
+        # computes (parity mode ignores them, as there)
+        if fast and get_flag("FFCNN_HEAD_F32", "0") == "1":
+            raise NotImplementedError("FFCNN_HEAD_F32 (head chains in "
+                                      "float32) is not ported yet")
+        if fast and get_flag("FFCNN_F32_STAGES", ""):
+            raise NotImplementedError("FFCNN_F32_STAGES (float32 stages) is "
+                                      "not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
@@ -99,11 +115,24 @@ class Net:
         # parity mode runs no fused kernel, for parity with the reference;
         # fast mode resolves the flags here, as the JAX Net does in its
         # constructor and when it traces a pipeline
-        fast = mode == "fast"
         self._fused_runs = plan_runs(ir) if fast else []
         self._fused_params = {r.start: [block_params(ir, self.params, b)
                                         for b in r.blocks]
                               for r in self._fused_runs}
+        # how each run launches: groups of up to FFCNN_FUSED_CASCADE blocks
+        # (read as JAX's run_blocks_cs reads it), the whole run where
+        # FFCNN_FUSED_MEGA is set and the JAX mega gate holds (read from the
+        # environment, as JAX's apply_run does), and the boundary storage
+        casc = int(get_flag("FFCNN_FUSED_CASCADE", "0"))
+        self._fused_groups = {r.start: cascade_groups(r, casc)
+                              for r in self._fused_runs}
+        mega = os.environ.get("FFCNN_FUSED_MEGA", "0") != "0"
+        self._mega_runs = frozenset(
+            r.start for r in self._fused_runs
+            if mega and not any(b.down for b in r.blocks)
+            and mega_fits(ir, r))
+        self._mid_dtype = torch.float32 if get_flag(
+            "FFCNN_FUSED_STORE", "input") == "f32" else None
         self._head_runs = plan_head_runs(ir) if fast and os.environ.get(
             "FFCNN_FUSED_HEADS", "0") == "1" else []
         self._head_params = {r.start: head_params(ir, self.params, r)
@@ -111,6 +140,7 @@ class Net:
         if self.device.type == "cuda":
             for hp in self._head_params.values():
                 check_fits(hp)
+            self._check_chains_fit()
         self._conv0_pallas = fast and get_flag("FFCNN_CONV0_PALLAS",
                                                "0") == "1"
         # (folded params, their stem params) per (mean, norm); the demo
@@ -118,6 +148,23 @@ class Net:
         self._folded: Dict[tuple, tuple] = {}
         if self._can_fold_input():
             self._folded_params(DEFAULT_MEAN, DEFAULT_NORM)
+
+    def _check_chains_fit(self) -> None:
+        """Raise if a cascade group or a mega run cannot run on the card
+        (the chained kernels' shared memory), as ``check_fits`` does for
+        the head chains."""
+        for r in self._fused_runs:
+            b = self.ir.blobs[r.start]
+            bps = self._fused_params[r.start]
+            if r.start in self._mega_runs:
+                check_chain_fits(b.h, b.w, bps, mega=True)
+                continue
+            i = 0
+            for g in self._fused_groups[r.start]:
+                if len(g) > 1:
+                    gb = self.ir.blobs[g[0].start]
+                    check_chain_fits(gb.h, gb.w, bps[i:i + len(g)])
+                i += len(g)
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -189,6 +236,9 @@ class Net:
             return forward_features(ir, params, x, input_dtype=self._dtype,
                                     fused_runs=self._fused_runs,
                                     fused_params=self._fused_params,
+                                    fused_groups=self._fused_groups,
+                                    mega_runs=self._mega_runs,
+                                    fused_mid_dtype=self._mid_dtype,
                                     head_runs=self._head_runs,
                                     head_params=self._head_params,
                                     conv0_pallas=c0 is not None,
