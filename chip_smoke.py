@@ -17,8 +17,11 @@ yolo-fastest-xl at 320x320 with synthesized weights (seed 42):
 * mega (``FFCNN_FUSED_MEGA=1``): run 84-108 in one K5 launch, 8 K1 blocks.
 
 The region configuration is also built at 416x416, where K7's stage
-buffers leave shared memory for device memory.  Phases, each of which
-exits non-zero on failure:
+buffers leave shared memory for device memory.  Then the block A/B bench
+(``ffcnn_tpu_torch/bench_block.py``) runs its two parts: the seven configs
+of ``tools/bench_block.py`` at batch 256 and the 24 blocks of xl's region
+plan at batch 64, each through K8 and (stride 1) K9.  Phases, each of
+which exits non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi)
   2. build every kernel from ffcnn_tpu_torch/csrc/ (one nvcc per source,
@@ -33,12 +36,20 @@ exits non-zero on failure:
   6. timings with CUDA events: kernels against their plain versions (K4
      and K5 also against the K1 launches they replace), the whole forward
      of every path, img/s of every path
+  7. the block bench: its kernel pass with the K8 and K9 launch counts
+     read around it (one launch a case each), its report (each kernel
+     against its plain version, the three-conv cuDNN chain and K1/K3, with
+     times), then every case again in float32 against the plain versions
 
-The last line of standard output is one JSON object with the device.
+Before the last line comes one JSON object with every kernel's name,
+source, launches, error, time, plain time and bound (the least time an
+H100 could take for the same work, ``bench_block.Work``); the last line of
+standard output is one JSON object with the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -68,6 +79,8 @@ WANT_COUNTS = {
     "region": {"K1": 20, "K3": 4, "K4": 0, "K5": 0, "K6": 1, "K7": 1},
     "cascade": {"K1": 2, "K3": 4, "K4": 7, "K5": 0, "K6": 1, "K7": 1},
     "mega": {"K1": 8, "K3": 0, "K4": 0, "K5": 1, "K6": 0, "K7": 0}}
+for _want in WANT_COUNTS.values():
+    _want.update(K8=0, K9=0)       # no Net path runs the bench's kernels
 
 # Tolerances of a kernel against its plain version on the same inputs, for
 # every kernel but K2 (K1, K3, K6, K7: float32 math inside).  float32: the
@@ -76,6 +89,16 @@ WANT_COUNTS = {
 # from a rounding edge may land one bf16 ulp (2^-8 relative) away; allow
 # two.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
+# K8 and K9 against their plain versions, of the output's range.  float32:
+# as above (phase 7 measured at most 4.4e-7 over the bench's cases on an
+# H100 80GB HBM3 at 700 W).  bfloat16: both round an intermediate to bf16
+# before the next stage (K8 the expand and depthwise outputs, K9 the
+# depthwise output), so a value that the two sum orders put on either side
+# of a rounding edge flips one bf16 ulp there, and the flip, times the taps
+# and the projection weights, reaches the output besides the output's own
+# one-ulp rounding; phase 7 measured at most 5.8e-3 of the range (1.5
+# ulps) on that card; allow four ulps (2^-6).
+MBCONV_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # The whole fast forward on the card against the CPU: every bf16 blob may
 # carry such one-ulp flips from the previous layers (the CPU test of the
 # port against JAX holds the same bounds).
@@ -162,19 +185,22 @@ def match_fraction(dets, boxes, scores, classes, px: float,
     return hits / len(dets)
 
 
-def check_kernel(label: str, got, want) -> float:
+def check_kernel(label: str, got, want, tols=KERNEL_TOL,
+                 phase: int = 3) -> float:
     """Hold a kernel's output against its plain version's on the same
-    inputs (KERNEL_TOL of the output's range); returns max |err|."""
+    inputs (``tols`` of the output's range); returns max |err|."""
     import torch
     torch.cuda.synchronize()
     dtype = str(want.dtype).split(".")[-1]
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    tol = KERNEL_TOL[dtype] * want.abs().max().item()
+    scale = want.abs().max().item()
+    tol = tols[dtype] * scale
     ok = got.shape == want.shape and bool(torch.isfinite(got).all()) \
         and err <= tol
-    log(f"[3] {label} batch {got.shape[0]} {dtype}: max|err| {err:.3e} "
-        f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    log(f"[{phase}] {label} batch {got.shape[0]} {dtype}: max|err| "
+        f"{err:.3e} ({err / max(scale, 1e-30):.1e} of the range; tol "
+        f"{tol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version")
     return err
@@ -264,6 +290,34 @@ def group_params(net):
     return out
 
 
+def chain_work(bb, n, h, w, bps, stride=1):
+    """What K1 or K3 (one block) or K4 or K5 (a chain in one launch) must
+    do on an (n, h, w) bf16 input: each block's operations and float32
+    weights; only the chain's input and output cross device memory."""
+    work = bb.Work()
+    for bp in bps:
+        c, e, p = bp.w1.shape[0], bp.w1.shape[1], bp.w2.shape[1]
+        work += bb.block_work(n, h, w, c, e, p, stride)
+    # each boundary inside the chain was counted as an output and an input
+    inner = sum(2 * 2 * n * h * w * bp.w2.shape[1] for bp in bps[:-1])
+    return dataclasses.replace(work, bytes=work.bytes - inner)
+
+
+def head_work(bb, n, hps, c_in):
+    """K7's chain over an (n, h, w, c_in) bf16 input to its bf16 head map:
+    pointwise and depthwise operations, float32 weights."""
+    pix = n * hps.h * hps.w
+    work = bb.Work(2 * pix * (c_in + hps.stages[-1].scale.shape[0]))
+    for st in hps.stages:
+        cout = st.w.shape[1] if st.kind == "pw" else st.w.shape[0]
+        work += bb.Work(4 * (st.w.numel() + 2 * cout))
+        if st.kind == "pw":
+            work += bb.Work(tc_flop=2 * pix * st.w.numel())
+        else:
+            work += bb.Work(f32_flop=2 * pix * st.w.numel())
+    return work
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -272,11 +326,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         import ffcnn_tpu_torch as pt
+        from ffcnn_tpu_torch import bench_block as bb
         from ffcnn_tpu_torch.graph.build import forward_features
         from ffcnn_tpu_torch.kernels import _build
         from ffcnn_tpu_torch.kernels import block_fused as bf
         from ffcnn_tpu_torch.kernels import conv0_fused as c0
         from ffcnn_tpu_torch.kernels import head_fused as hf
+        from ffcnn_tpu_torch.kernels import mbconv as k8
+        from ffcnn_tpu_torch.kernels import mbconv_cs as k9
         from ffcnn_tpu_torch.kernels import nms as knms
     except ImportError as e:
         print(f"chip_smoke: the repository is not here ({e})",
@@ -288,7 +345,8 @@ def main() -> int:
     counters = {"K1": bf.fused_block, "K2": knms.nms_keep_mask,
                 "K3": bf.fused_down_block, "K4": bf.fused_cascade,
                 "K5": bf.fused_mega, "K6": c0.conv0_cs,
-                "K7": hf.apply_head_run}
+                "K7": hf.apply_head_run, "K8": k8.fused_mbconv,
+                "K9": k9.fused_mbconv_cs}
 
     # 1. the card
     card = card_line()
@@ -300,7 +358,7 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     for load in (bf.build, bf.build_down, bf.build_cascade, bf.build_mega,
-                 c0.build, hf.build, knms.build):
+                 c0.build, hf.build, knms.build, k8.build, k9.build):
         load()
     log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
         f"parallel: {', '.join(_build.sources())}")
@@ -671,43 +729,122 @@ def main() -> int:
     log(f"[6] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
+    # 7. the block A/B bench: the kernel pass counted (one K8 launch a
+    # case, one K9 launch a stride-1 case), then the report, then float32
+    cases = bb.cases_configs(dev) + bb.cases_xl(dev)
+    outs, bench_counts = counted(counters, lambda: bb.drive(cases))
+    want8, want9 = len(cases), sum(c.k9 is not None for c in cases)
+    log(f"[7] block bench kernel pass, {len(cases)} cases: launches "
+        + " ".join(f"{k} {v}" for k, v in bench_counts.items()))
+    if bench_counts["K8"] != want8 or bench_counts["K9"] != want9 or any(
+            v for k, v in bench_counts.items() if k not in ("K8", "K9")):
+        raise AssertionError("the block bench did not run K8 and K9 once "
+                             "a case")
+    rows = bb.report(cases, outs, log=lambda line: log("[7] " + line))
+    for r in rows:
+        for k in ("8", "9"):
+            if "err" + k not in r:
+                continue
+            tol = MBCONV_TOL["bfloat16"] * r["range" + k]
+            errs["K" + k] = max(errs["K" + k], r["err" + k])
+            if not (r["finite"] and r["err" + k] <= tol):
+                raise AssertionError(f"K{k} {r['name']} bf16 disagrees with "
+                                     f"its plain version: {r['err' + k]:.3e}"
+                                     f" > {tol:.3e}")
+    log(f"[7] K8 and K9 against their plain versions in bf16 within "
+        f"{MBCONV_TOL['bfloat16']:.4g} of the range: ok")
+    for c in cases:
+        f = dataclasses.replace(
+            c, x=c.x.float(), res=None if c.res is None else c.res.float(),
+            x_cs=None if c.x_cs is None else c.x_cs.float(),
+            res_cs=None if c.res_cs is None else c.res_cs.float())
+        errs["K8"] = max(errs["K8"], check_kernel(
+            f"K8 {c.name}", bb.run_k8(f), bb.plain_k8(f), MBCONV_TOL, 7))
+        if c.k9 is not None:
+            n, h, w, _ = c.x.shape
+            errs["K9"] = max(errs["K9"], check_kernel(
+                f"K9 {c.name}", k9.cs_to_nhwc(bb.run_k9(f), n, h, w),
+                k9.cs_to_nhwc(bb.plain_k9(f), n, h, w), MBCONV_TOL, 7))
+    part_a = [(c, r) for c, r in zip(cases, rows) if c.part == "a"]
+    bench = {}
+    for k, rs in (("8", part_a), ("9", [(c, r) for c, r in part_a
+                                        if "ms9" in r])):
+        bench[k] = dict(
+            ms=sum(r["ms" + k] for _, r in rs),
+            plain_ms=sum(r["ms_plain" + k] for _, r in rs),
+            chain_ms=sum(r["ms_chain"] for _, r in rs),
+            work=sum((c.work8() if k == "8" else c.work9()
+                      for c, _ in rs), bb.Work()))
+        log(f"[7] K{k} the tool's {len(rs)} configs, bf16 batch 256: kernel "
+            f"{bench[k]['ms']:.4f} ms (bound {bench[k]['work'].bound()[0]:.4f}"
+            f" ms), cuDNN chain {bench[k]['chain_ms']:.4f} ms, plain "
+            f"{bench[k]['plain_ms']:.4f} ms")
+    part_b = [r for c, r in zip(cases, rows) if c.part == "b"]
+    for k in ("8", "9"):
+        rs = [r for r in part_b if "ms" + k in r]
+        log(f"[7] K{k} xl's {len(rs)} region blocks, bf16 batch 64: kernel "
+            f"{sum(r['ms' + k] for r in rs):.4f} ms, K1/K3 "
+            f"{sum(r['ms_block'] for r in rs):.4f} ms, cuDNN chain "
+            f"{sum(r['ms_chain'] for r in rs):.4f} ms, plain "
+            f"{sum(r['ms_plain' + k] for r in rs):.4f} ms")
+
+    # the work of every kernel's timed call, for its bound
+    def blocks_work(down):
+        return sum((chain_work(bb, BATCH, ir.blobs[b.start].h,
+                               ir.blobs[b.start].w, [bp], 2 if down else 1)
+                    for b, bp, _ in rblocks if b.down == down), bb.Work())
+    nk = NMS_KS[0]
+    f0 = rc0.wm.shape[1]
+    works = {
+        "K1": blocks_work(False), "K3": blocks_work(True),
+        # boxes, scores, classes in and the keep mask out; about 12 float32
+        # operations for each pair's IoU test
+        "K2": bb.Work(BATCH * nk * 28,
+                      f32_flop=12 * BATCH * nk * (nk - 1) / 2),
+        # uint8 in, bf16 out, 27 float32 taps a channel
+        "K6": bb.Work(BATCH * 320 * 320 * 3 + 2 * BATCH * 160 * 160 * f0
+                      + 4 * 29 * f0,
+                      f32_flop=2 * 27 * f0 * BATCH * 160 * 160),
+        "K7": head_work(bb, BATCH, hps, hb.c),
+        "K4": sum((chain_work(bb, BATCH, ir.blobs[g[0].start].h,
+                              ir.blobs[g[0].start].w, bps)
+                   for g, bps in cgroups), bb.Work()),
+        "K5": chain_work(bb, BATCH, mblob.h, mblob.w, mbps)}
+
+    def entry(name, key, source, replaces, launches, ms, plain_ms, work,
+              **more):
+        bound, by = work.bound()
+        return {"name": name, "route": "cuda",
+                "source": f"ffcnn_tpu_torch/csrc/{source}",
+                "replaces": f"ffcnn_tpu/kernels/{replaces}",
+                "launches": launches, "max_abs_err": errs[key], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None, **more}
+
     launches = main_counts["region"]
     kernels = [
-        {"name": "block_fused_s1", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/block_fused.cu",
-         "replaces": "ffcnn_tpu/kernels/block_fused.py:206",
-         "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": rk1_ms, "plain_ms": rk1_pms},
-        {"name": "nms_keep_mask", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/nms.cu",
-         "replaces": "ffcnn_tpu/kernels/nms_pallas.py:26",
-         "launches": launches["K2"], "max_abs_err": errs["K2"],
-         "ms": nms_ms[128][0], "plain_ms": nms_ms[128][1]},
-        {"name": "block_fused_s2", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/block_down.cu",
-         "replaces": "ffcnn_tpu/kernels/block_fused.py:299",
-         "launches": launches["K3"], "max_abs_err": errs["K3"],
-         "ms": k3_ms, "plain_ms": k3_pms},
-        {"name": "conv0_fused", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/conv0_fused.cu",
-         "replaces": "ffcnn_tpu/kernels/conv0_fused.py:37",
-         "launches": launches["K6"], "max_abs_err": errs["K6"],
-         "ms": k6_ms, "plain_ms": k6_pms},
-        {"name": "head_fused", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/head_fused.cu",
-         "replaces": "ffcnn_tpu/kernels/head_fused.py:119",
-         "launches": launches["K7"], "max_abs_err": errs["K7"],
-         "ms": k7_ms, "plain_ms": k7_pms},
-        {"name": "block_cascade", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/block_cascade.cu",
-         "replaces": "ffcnn_tpu/kernels/block_fused.py:374",
-         "launches": main_counts["cascade"]["K4"], "max_abs_err": errs["K4"],
-         "ms": k4_ms, "plain_ms": k4_pms},
-        {"name": "block_mega", "route": "cuda",
-         "source": "ffcnn_tpu_torch/csrc/block_mega.cu",
-         "replaces": "ffcnn_tpu/kernels/block_fused.py:709",
-         "launches": main_counts["mega"]["K5"], "max_abs_err": errs["K5"],
-         "ms": k5[BATCH][0], "plain_ms": k5[BATCH][1]},
+        entry("block_fused_s1", "K1", "block_fused.cu", "block_fused.py:206",
+              launches["K1"], rk1_ms, rk1_pms, works["K1"]),
+        entry("nms_keep_mask", "K2", "nms.cu", "nms_pallas.py:26",
+              launches["K2"], nms_ms[nk][0], nms_ms[nk][1], works["K2"]),
+        entry("block_fused_s2", "K3", "block_down.cu", "block_fused.py:299",
+              launches["K3"], k3_ms, k3_pms, works["K3"]),
+        entry("conv0_fused", "K6", "conv0_fused.cu", "conv0_fused.py:37",
+              launches["K6"], k6_ms, k6_pms, works["K6"]),
+        entry("head_fused", "K7", "head_fused.cu", "head_fused.py:119",
+              launches["K7"], k7_ms, k7_pms, works["K7"]),
+        entry("block_cascade", "K4", "block_cascade.cu",
+              "block_fused.py:374", main_counts["cascade"]["K4"], k4_ms,
+              k4_pms, works["K4"]),
+        entry("block_mega", "K5", "block_mega.cu", "block_fused.py:709",
+              main_counts["mega"]["K5"], k5[BATCH][0], k5[BATCH][1],
+              works["K5"]),
+        entry("mbconv", "K8", "mbconv.cu", "block_pallas.py:47",
+              bench_counts["K8"], bench["8"]["ms"], bench["8"]["plain_ms"],
+              bench["8"]["work"], cudnn_chain_ms=bench["8"]["chain_ms"]),
+        entry("mbconv_cs", "K9", "mbconv_cs.cu", "csblock_pallas.py:59",
+              bench_counts["K9"], bench["9"]["ms"], bench["9"]["plain_ms"],
+              bench["9"]["work"], cudnn_chain_ms=bench["9"]["chain_ms"]),
     ]
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ffcnn_tpu.darknet.ir import LayerType, NetIR
+from ..darknet.ir import LayerType, NetIR
 
 from ..kernels.block_fused import apply_run, run_blocks
 from ..kernels.conv0_fused import conv0_cs

@@ -51,10 +51,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ffcnn_tpu.darknet.ir import LayerType, NetIR
-from ffcnn_tpu.tuning import get_flag
-
+from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
+from ..tuning import get_flag
 from . import _build
 
 # Input-channel gate of the JAX package, kept so both packages plan the same
@@ -142,7 +141,7 @@ def plan_runs(ir: NetIR, min_channels: Optional[int] = None,
 
     Unset arguments resolve as the JAX package's ``plan_runs`` does:
     ``FFCNN_FUSED_MINC`` (default ``MIN_CHANNELS``) and ``FFCNN_FUSED_DOWN``
-    (default off), through ``ffcnn_tpu.tuning.get_flag``."""
+    (default off), through ``tuning.get_flag``."""
     if min_channels is None:
         min_channels = int(get_flag("FFCNN_FUSED_MINC", str(MIN_CHANNELS)))
     if allow_down is None:

@@ -21,8 +21,7 @@ import functools
 
 import torch
 
-from ffcnn_tpu.darknet.ir import LayerType, NetIR
-
+from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
 from . import _build
 

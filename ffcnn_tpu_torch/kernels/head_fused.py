@@ -29,8 +29,7 @@ from typing import List, Tuple
 
 import torch
 
-from ffcnn_tpu.darknet.ir import LayerType, NetIR
-
+from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
 from . import _build
 

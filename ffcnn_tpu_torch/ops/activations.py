@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ffcnn_tpu.darknet.ir import Activation
+from ..darknet.ir import Activation
 
 
 def activate(x: torch.Tensor, act: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ffcnn_tpu.darknet.ir import Layer
+from ..darknet.ir import Layer
 
 
 class DecodedBoxes(NamedTuple):

@@ -16,6 +16,7 @@ from ffcnn_tpu.darknet import parse_cfg
 from ffcnn_tpu.darknet.weights import load_weights, synth_weights_bytes
 from ffcnn_tpu.graph.build import params_to_pytree
 from ffcnn_tpu.kernels import block_fused as jbf
+from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph.build import params_from_numpy
 from ffcnn_tpu_torch.kernels import block_fused as tbf
 
@@ -32,15 +33,15 @@ def _plan(runs):
 @pytest.mark.parametrize("cfg_path", CFGS, ids=[
     os.path.splitext(os.path.basename(p))[0] for p in CFGS])
 def test_plan_runs_equal_jax(cfg_path):
-    ir = parse_cfg(cfg_path)
-    assert _plan(tbf.plan_runs(ir)) == _plan(jbf.plan_runs(ir))
-    assert _plan(tbf.plan_runs(ir, min_channels=1)) == \
+    ir, tir = parse_cfg(cfg_path), tparse_cfg(cfg_path)
+    assert _plan(tbf.plan_runs(tir)) == _plan(jbf.plan_runs(ir))
+    assert _plan(tbf.plan_runs(tir, min_channels=1)) == \
         _plan(jbf.plan_runs(ir, min_channels=1, allow_down=False))
 
 
 def test_xl_plan_at_320():
     """yolo-fastest-xl at 320: three runs, 13 stride-1 residual blocks."""
-    ir = parse_cfg(XL, 320, 320)
+    ir = tparse_cfg(XL, 320, 320)
     runs = tbf.plan_runs(ir)
     assert [(r.start, r.end, len(r.blocks)) for r in runs] == \
         [(38, 57, 4), (61, 80, 4), (84, 108, 5)]
@@ -70,10 +71,11 @@ def test_pick_tile_limits_stride2(h, w):
 
 @pytest.fixture(scope="module")
 def xl96():
+    """JAX's IR, the port's IR and the folded params of xl at 96x96."""
     ir = parse_cfg(XL, 96, 96)
     params, _ = load_weights(ir, synth_weights_bytes(ir, seed=42,
                                                      obj_bias=2.0))
-    return ir, params
+    return ir, tparse_cfg(XL, 96, 96), params
 
 
 # run 1: 6x6 C48 E272, 4 blocks; run 2: 3x3 C96 E448, 5 blocks (the
@@ -82,8 +84,8 @@ def xl96():
                                              (1, "bfloat16"),
                                              (2, "bfloat16")])
 def test_apply_run_matches_jax_interpret(xl96, run_index, dtype):
-    ir, params = xl96
-    run = tbf.plan_runs(ir)[run_index]
+    ir, tir, params = xl96
+    run = tbf.plan_runs(tir)[run_index]
     jrun = jbf.plan_runs(ir)[run_index]
     b = ir.blobs[run.start]
     rng = np.random.RandomState(run_index)
@@ -92,7 +94,7 @@ def test_apply_run_matches_jax_interpret(xl96, run_index, dtype):
                          jrun, interpret=True)
     tp = params_from_numpy(params)
     got = tbf.apply_run(torch.from_numpy(x).to(getattr(torch, dtype)), run,
-                        [tbf.block_params(ir, tp, b) for b in run.blocks])
+                        [tbf.block_params(tir, tp, b) for b in run.blocks])
     assert got.dtype == getattr(torch, dtype)
     got = got.float().numpy()
     want = np.asarray(jnp.asarray(want, jnp.float32))
@@ -114,7 +116,7 @@ def test_block_plain_matches_unfused_convs(xl96):
     """The plain block equals the three convs + shortcut of the graph."""
     from ffcnn_tpu_torch.ops.activations import activate
     from ffcnn_tpu_torch.ops.conv import conv2d_fused
-    ir, params = xl96
+    _, ir, params = xl96
     tp = params_from_numpy(params)
     blk = tbf.plan_runs(ir)[0].blocks[0]
     b = ir.blobs[blk.start]
@@ -134,7 +136,7 @@ def test_block_plain_matches_unfused_convs(xl96):
 def test_wrapper_refuses_other_devices(xl96):
     """No fallback: a tensor off the CPU that the kernel cannot take raises
     instead of reaching the plain version."""
-    ir, params = xl96
+    _, ir, params = xl96
     blk = tbf.plan_runs(ir)[0].blocks[0]
     bp = tbf.block_params(ir, params_from_numpy(params), blk)
     b = ir.blobs[blk.start]
@@ -145,7 +147,7 @@ def test_wrapper_refuses_other_devices(xl96):
 def test_apply_run_dispatches_down_blocks(xl96):
     """A region run (stride-2 block first) goes block by block through the
     stride-2 and stride-1 versions."""
-    ir, params = xl96
+    _, ir, params = xl96
     run = tbf.plan_runs(ir, 8, True)[1]
     assert run.start == 81 and run.blocks[0].down
     tp = params_from_numpy(params)
@@ -162,7 +164,7 @@ def test_apply_run_dispatches_down_blocks(xl96):
 
 
 def test_apply_run_needs_params_for_every_block(xl96):
-    ir, params = xl96
+    _, ir, params = xl96
     run = tbf.plan_runs(ir)[0]
     tp = params_from_numpy(params)
     b = ir.blobs[run.start]

@@ -26,6 +26,7 @@ from ffcnn_tpu.graph import build as jbuild
 from ffcnn_tpu.kernels import block_fused as jbf
 from ffcnn_tpu.kernels import head_fused as jhf
 from ffcnn_tpu.ops import preprocess as jpre
+from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import block_fused as tbf
 from ffcnn_tpu_torch.kernels import conv0_fused as tc0
@@ -45,10 +46,12 @@ XL_CASCADE_GROUPS = [[1, 4], [9], [12, 17], [22], [25, 30, 35],
 
 
 def _model(size, seed=42):
+    """JAX's IR, the port's IR (each package's own parser) and the folded
+    params of xl at ``size``."""
     ir = parse_cfg(XL, size, size)
     params, _ = load_weights(ir, synth_weights_bytes(ir, seed=seed,
                                                      obj_bias=2.0))
-    return ir, params
+    return ir, tparse_cfg(XL, size, size), params
 
 
 @pytest.fixture(scope="module")
@@ -132,11 +135,11 @@ def _jax_groups(ir, run, monkeypatch):
 def test_cascade_groups_equal_jax(cfg_path, k, region, monkeypatch):
     """``cascade_groups`` makes the launch groups JAX's ``run_blocks_cs``
     makes for ``FFCNN_FUSED_CASCADE=k``, on every run of every config."""
-    ir = parse_cfg(cfg_path)
+    ir, tir = parse_cfg(cfg_path), tparse_cfg(cfg_path)
     minc, down = (8, True) if region else (24, False)
     monkeypatch.setenv("FFCNN_FUSED_CASCADE", str(k))
     for jr, tr in zip(jbf.plan_runs(ir, minc, down),
-                      tbf.plan_runs(ir, minc, down), strict=True):
+                      tbf.plan_runs(tir, minc, down), strict=True):
         want = _jax_groups(ir, jr, monkeypatch)
         got = [[b.start for b in g] for g in tbf.cascade_groups(tr, k)]
         assert got == want, (tr.start, got, want)
@@ -147,8 +150,8 @@ def test_xl_cascade_plan_at_320(monkeypatch):
     blocks (K1) and 4 stride-2 blocks (K3), as a Net plans it."""
     for key, v in {**REGION_FLAGS, "FFCNN_FUSED_CASCADE": "3"}.items():
         monkeypatch.setenv(key, v)
-    ir, params = _model(320)
-    net = pt.Net(ir, params, mode="fast")
+    _, ir, params = _model(320)
+    net = pt.Net(ir, params, mode="fast", device="cpu")
     groups = [[b.start for b in g] for r in net._fused_runs
               for g in net._fused_groups[r.start]]
     assert groups == XL_CASCADE_GROUPS
@@ -160,32 +163,35 @@ def test_xl_cascade_plan_at_320(monkeypatch):
 def test_mega_fits_equals_jax(cfg_path, size):
     """``mega_fits`` gives JAX's ``_mega_fits`` on every run of the default
     and the region plans."""
-    ir = parse_cfg(cfg_path, size, size)
-    runs = tbf.plan_runs(ir, 24, False) + tbf.plan_runs(ir, 8, True)
-    for r in runs:
-        bi = ir.blobs[r.start]
-        assert tbf.mega_fits(ir, r) == jbf._mega_fits(ir, None, r, bi.h,
-                                                      bi.w), r
+    ir, tir = parse_cfg(cfg_path, size, size), tparse_cfg(cfg_path, size,
+                                                          size)
+    truns = tbf.plan_runs(tir, 24, False) + tbf.plan_runs(tir, 8, True)
+    jruns = jbf.plan_runs(ir, 24, False) + jbf.plan_runs(ir, 8, True)
+    for tr, jr in zip(truns, jruns, strict=True):
+        bi = ir.blobs[jr.start]
+        assert tbf.mega_fits(tir, tr) == jbf._mega_fits(ir, None, jr, bi.h,
+                                                        bi.w), tr
 
 
 def test_xl_mega_plan_at_320(monkeypatch):
     """The mega configuration of xl: run 84-108 launches whole (K5); runs
     38-57 and 61-80 fail the JAX mega gate and launch per block."""
     monkeypatch.setenv("FFCNN_FUSED_MEGA", "1")
-    ir, params = _model(320)
-    net = pt.Net(ir, params, mode="fast")
+    _, ir, params = _model(320)
+    net = pt.Net(ir, params, mode="fast", device="cpu")
     assert [(r.start, r.end) for r in net._fused_runs] == \
         [(38, 57), (61, 80), (84, 108)]
     assert net._mega_runs == frozenset({84})
     monkeypatch.delenv("FFCNN_FUSED_MEGA")
-    assert pt.Net(ir, params, mode="fast")._mega_runs == frozenset()
+    assert pt.Net(ir, params, mode="fast",
+                  device="cpu")._mega_runs == frozenset()
 
 
 def test_chain_tiles_fit_the_card():
     """Every K4 group and the K5 run of xl at 320 has a tile within a CTA's
     shared memory, at batch 1 and 64; a chain too wide for the card raises
     when it is checked."""
-    ir, params = _model(320)
+    _, ir, params = _model(320)
     tp = tbuild.params_from_numpy(params)
     blocks = {b.start: b for b in tbf.find_fused_blocks(ir).values()}
     for g in XL_CASCADE_GROUPS:
@@ -209,14 +215,14 @@ def test_chain_tiles_fit_the_card():
 
 # ------------------------------------------------ plain version against JAX
 def _chain_inputs(size, starts, seed):
-    ir, params = _model(size)
-    blocks = tbf.find_fused_blocks(ir)
+    ir, tir, params = _model(size)
+    blocks = tbf.find_fused_blocks(tir)
     jblocks = jbf.find_fused_blocks(ir)
     tp = tbuild.params_from_numpy(params)
     bi = ir.blobs[starts[0]]
     x = np.random.RandomState(seed).randn(2, bi.h, bi.w, bi.c) \
         .astype(np.float32)
-    bps = [tbf.block_params(ir, tp, blocks[s]) for s in starts]
+    bps = [tbf.block_params(tir, tp, blocks[s]) for s in starts]
     return ir, params, [jblocks[s] for s in starts], bps, x
 
 
@@ -253,7 +259,7 @@ def test_chain_plain_matches_jax_mega(dtype):
     route on the CPU) against ``_apply_run_mega`` in interpret mode: run
     84-108 of xl at 160x160 (5x5 maps, five residual blocks C96 E448), on
     one 128-image chunk."""
-    ir, params = _model(160)
+    ir, tir, params = _model(160)
     run = [r for r in jbf.plan_runs(ir) if r.start == 84][0]
     bi = ir.blobs[run.start]
     assert (bi.h, bi.w, bi.c, len(run.blocks)) == (5, 5, 96, 5)
@@ -263,9 +269,9 @@ def test_chain_plain_matches_jax_mega(dtype):
                                interpret=True)
     want = np.asarray(jnp.asarray(want, jnp.float32))
     tp = tbuild.params_from_numpy(params)
-    trun = [r for r in tbf.plan_runs(ir) if r.start == 84][0]
+    trun = [r for r in tbf.plan_runs(tir) if r.start == 84][0]
     got = tbf.apply_run(torch.from_numpy(x).to(getattr(torch, dtype)), trun,
-                        [tbf.block_params(ir, tp, b) for b in trun.blocks],
+                        [tbf.block_params(tir, tp, b) for b in trun.blocks],
                         mega=True)
     assert got.dtype == getattr(torch, dtype)
     _assert_close(got.float().numpy(), want, dtype)
@@ -292,18 +298,18 @@ def test_fused_store_f32_matches_jax(xl96, dtype, monkeypatch):
     """``FFCNN_FUSED_STORE=f32``: the boundaries between a run's launches
     in float32, the run's output in the input dtype, as JAX's
     ``apply_run`` stores them (per block, and per cascade group)."""
-    ir, params = xl96
+    ir, tir, params = xl96
     monkeypatch.setenv("FFCNN_FUSED_STORE", "f32")
     run = [r for r in jbf.plan_runs(ir) if r.start == 61][0]      # 6x6
     bi = ir.blobs[run.start]
     x = np.random.RandomState(61).randn(2, bi.h, bi.w, bi.c) \
         .astype(np.float32)
     tp = tbuild.params_from_numpy(params)
-    net = pt.Net(ir, params, mode="fast")
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     assert net._mid_dtype == torch.float32
     trun = [r for r in net._fused_runs if r.start == 61][0]
     bps = net._fused_params[61]
-    assert [tbf.block_params(ir, tp, b).w1.shape for b in trun.blocks] == \
+    assert [tbf.block_params(tir, tp, b).w1.shape for b in trun.blocks] == \
         [bp.w1.shape for bp in bps]
     got = {}
     for k in (0, 2):
@@ -335,21 +341,21 @@ def test_cascade_forward_matches_jax_f32(monkeypatch):
     to 1x1; JAX's cascade takes the groups on maps of at least 3 rows and
     launches the rest per block, which float32 does not tell apart)."""
     monkeypatch.setenv("FFCNN_FUSED_CASCADE", "3")
-    ir, params = _model(32)
+    ir, tir, params = _model(32)
     x = np.random.RandomState(8).randint(0, 256, (2, 32, 32, 3),
                                          dtype=np.uint8)
-    runs = tbf.plan_runs(ir, 8, True)
-    hruns = thf.plan_head_runs(ir)
+    runs = tbf.plan_runs(tir, 8, True)
+    hruns = thf.plan_head_runs(tir)
     tp = tbuild.params_from_numpy(params)
     got = tbuild.forward_features(
-        ir, tp, torch.from_numpy(x), input_dtype=torch.float32,
+        tir, tp, torch.from_numpy(x), input_dtype=torch.float32,
         fused_runs=runs,
-        fused_params={r.start: [tbf.block_params(ir, tp, b)
+        fused_params={r.start: [tbf.block_params(tir, tp, b)
                                 for b in r.blocks] for r in runs},
         fused_groups=_cascade_groups_of(runs, 3),
         head_runs=hruns,
-        head_params={r.start: thf.head_params(ir, tp, r) for r in hruns},
-        conv0_pallas=True, conv0_params=tc0.conv0_params(ir, tp))
+        head_params={r.start: thf.head_params(tir, tp, r) for r in hruns},
+        conv0_pallas=True, conv0_params=tc0.conv0_params(tir, tp))
     want = jax.jit(lambda v: jbuild.forward_features(
         ir, jbuild.params_to_pytree(params), v, input_dtype=jnp.float32,
         fused_runs=jbf.plan_runs(ir, 8, True),
@@ -374,10 +380,10 @@ def test_cascade_forward_matches_jax_bf16(monkeypatch):
     flags = {**REGION_FLAGS, "FFCNN_FUSED_CASCADE": "3"}
     for k, v in flags.items():
         monkeypatch.setenv(k, v)
-    ir, params = _model(32)
+    ir, tir, params = _model(32)
     frames = np.random.RandomState(9).randint(0, 256, (2, 32, 32, 3),
                                               dtype=np.uint8)
-    net = pt.Net(ir, params, mode="fast")
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     assert any(len(g) > 1 for gs in net._fused_groups.values() for g in gs)
     got = net.forward_heads(torch.from_numpy(frames))
     jp = jbuild.fold_input_transform(ir, jbuild.params_to_pytree(params),
@@ -406,8 +412,8 @@ def test_mega_forward_matches_jax_f32(monkeypatch):
     JAX takes its per-block route at a batch that is no multiple of 128;
     the two agree to float32 noise."""
     monkeypatch.setenv("FFCNN_FUSED_MEGA", "1")
-    ir, params = _model(64)
-    net = pt.Net(ir, params, mode="fast")
+    ir, tir, params = _model(64)
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     assert net._mega_runs == frozenset({38, 61, 84})
     calls = []
     real = tbf.fused_mega
@@ -420,9 +426,9 @@ def test_mega_forward_matches_jax_f32(monkeypatch):
                                           dtype=np.uint8)
     tp = tbuild.params_from_numpy(params)
     got = tbuild.forward_features(
-        ir, tp, torch.from_numpy(x), input_dtype=torch.float32,
+        tir, tp, torch.from_numpy(x), input_dtype=torch.float32,
         fused_runs=net._fused_runs,
-        fused_params={r.start: [tbf.block_params(ir, tp, b)
+        fused_params={r.start: [tbf.block_params(tir, tp, b)
                                 for b in r.blocks] for r in net._fused_runs},
         mega_runs=net._mega_runs)
     assert len(calls) == 3
@@ -440,7 +446,7 @@ def test_stem_enters_run_blocks_never_mega(monkeypatch):
     """The stem kernel's output goes into the run at layer 1 group by
     group (as JAX's stem enters ``run_blocks_cs``), even where that run is
     listed for the mega route."""
-    ir, params = _model(64)
+    _, ir, params = _model(64)
     tp = tbuild.params_from_numpy(params)
     runs = tbf.plan_runs(ir, 8, False)
     assert runs[0].start == 1 and not any(b.down for b in runs[0].blocks)
@@ -464,11 +470,11 @@ def test_head_chain_at_416_fits():
     """xl's 13x13 head chain at 416x416, which the region configuration
     plans as JAX does: its stage buffers exceed a CTA's shared memory, so
     they go to device memory, and ``check_fits`` accepts the chain."""
-    ir, params = _model(416)
-    runs = thf.plan_head_runs(ir)
+    ir, tir, params = _model(416)
+    runs = thf.plan_head_runs(tir)
     assert [(r.start, r.end) for r in runs] == \
         [(r.start, r.end) for r in jhf.plan_head_runs(ir)]
-    hp = thf.head_params(ir, tbuild.params_from_numpy(params), runs[0])
+    hp = thf.head_params(tir, tbuild.params_from_numpy(params), runs[0])
     assert (hp.h, hp.w) == (13, 13)
     assert thf.smem_bytes(hp) == 292224 > thf.MAX_SMEM
     assert thf.scratch_floats(hp) == 2 * 13 * 13 * 192
@@ -479,9 +485,9 @@ def test_head_chain_at_416_fits():
 def test_head_plain_matches_jax_at_416(dtype):
     """K7's plain version against ``apply_head_run`` (interpret mode) on
     the 13x13 chain of xl at 416x416, batch 2."""
-    ir, params = _model(416)
+    ir, tir, params = _model(416)
     jr = jhf.plan_head_runs(ir)[0]
-    tr = thf.plan_head_runs(ir)[0]
+    tr = thf.plan_head_runs(tir)[0]
     b = ir.blobs[tr.start]
     x = np.random.RandomState(13).randn(2, b.h, b.w, b.c).astype(np.float32)
     want = jhf.apply_head_run(jnp.asarray(x, getattr(jnp, dtype)), ir,
@@ -490,7 +496,7 @@ def test_head_plain_matches_jax_at_416(dtype):
     want = np.asarray(jnp.asarray(want, jnp.float32))
     got = thf.apply_head_run(
         torch.from_numpy(x).to(getattr(torch, dtype)), tr,
-        thf.head_params(ir, tbuild.params_from_numpy(params), tr))
+        thf.head_params(tir, tbuild.params_from_numpy(params), tr))
     assert got.dtype == getattr(torch, dtype)
     assert got.shape == (2, 13, 13, 255)
     _assert_close(got.float().numpy(), want, dtype)
@@ -501,8 +507,8 @@ def test_region_net_at_416(monkeypatch):
     and its heads on the CPU are finite."""
     for k, v in REGION_FLAGS.items():
         monkeypatch.setenv(k, v)
-    ir, params = _model(416)
-    net = pt.Net(ir, params, mode="fast")
+    ir, tir, params = _model(416)
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     assert [(r.start, r.end) for r in net._head_runs] == \
         [(r.start, r.end) for r in jhf.plan_head_runs(ir)]
     assert net._head_runs[0].start == 116
@@ -521,20 +527,20 @@ def test_region_net_at_416(monkeypatch):
 def test_unported_f32_flags_refused(flag, value, monkeypatch):
     """A fast Net refuses the JAX package's float32 accuracy knobs it does
     not port, instead of ignoring them; parity mode takes no knob."""
-    ir, params = _model(64)
+    _, ir, params = _model(64)
     monkeypatch.setenv(flag, value)
     with pytest.raises(NotImplementedError, match=flag):
-        pt.Net(ir, params, mode="fast")
-    pt.Net(ir, params, mode="parity")
+        pt.Net(ir, params, mode="fast", device="cpu")
+    pt.Net(ir, params, mode="parity", device="cpu")
     monkeypatch.setenv(flag, "0" if flag == "FFCNN_HEAD_F32" else "")
-    pt.Net(ir, params, mode="fast")
+    pt.Net(ir, params, mode="fast", device="cpu")
 
 
 # ------------------------------------------------------------- no fallback
 def test_chain_wrappers_refuse_other_devices(xl96):
     """No fallback: a tensor off the CPU that K4 or K5 cannot take raises
     instead of reaching ``chain_plain``, and nothing counts a launch."""
-    ir, params = xl96
+    _, ir, params = xl96
     tp = tbuild.params_from_numpy(params)
     blocks = tbf.find_fused_blocks(ir)
     bps = [tbf.block_params(ir, tp, blocks[s]) for s in (84, 89, 94)]

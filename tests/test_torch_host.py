@@ -1,0 +1,151 @@
+"""The port's own host code (``ffcnn_tpu_torch/darknet``, ``imageio``,
+``tuning``) against the JAX package's, which it copies: the same IR for
+every ``models/*.cfg``, the same folded weights, the same pixels, the same
+flag resolution; and no file of the port imports the JAX package."""
+
+import ast
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from ffcnn_tpu import tuning as jtuning
+from ffcnn_tpu.darknet import cfg as jcfg
+from ffcnn_tpu.darknet import weights as jweights
+from ffcnn_tpu.imageio import bmp as jbmp
+from ffcnn_tpu_torch import tuning as ttuning
+from ffcnn_tpu_torch.darknet import cfg as tcfg
+from ffcnn_tpu_torch.darknet import weights as tweights
+from ffcnn_tpu_torch.imageio import bmp as tbmp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))
+CFG_IDS = [os.path.splitext(os.path.basename(p))[0] for p in CFGS]
+BMP = os.path.join(REPO, "tests", "fixtures", "test320.bmp")
+
+
+@pytest.mark.parametrize("size", [0, 160, 416])
+@pytest.mark.parametrize("cfg_path", CFGS, ids=CFG_IDS)
+def test_parse_cfg_equals_jax(cfg_path, size):
+    """Every Layer field and blob shape, the [net] dims and the dump table;
+    each side parsed by its own parser (``size`` 0: the cfg's own)."""
+    want = jcfg.parse_cfg(cfg_path, size, size)
+    got = tcfg.parse_cfg(cfg_path, size, size)
+    assert len(got.layers) == len(want.layers) > 0
+    for g, w in zip(got.layers, want.layers):
+        assert dataclasses.astuple(g) == dataclasses.astuple(w), g.index
+        assert g.type.name == w.type.name
+    assert [dataclasses.astuple(b) for b in got.blobs] == \
+        [dataclasses.astuple(b) for b in want.blobs]
+    assert (got.cfg_width, got.cfg_height, got.cfg_channels) == \
+        (want.cfg_width, want.cfg_height, want.cfg_channels)
+    assert got.darknet_file_floats() == want.darknet_file_floats()
+    assert got.weight_size_floats() == want.weight_size_floats()
+    assert tcfg.dump(got) == jcfg.dump(want)
+
+
+def test_parse_cfg_quirks_equal_jax():
+    """The reference's tolerant parsing, on text: a missing stride and a
+    garbage number, relative and absolute routes, an unknown section, an
+    unknown activation."""
+    text = ("[net]\nwidth=64\nheight=48\nchannels=3\n"
+            "[convolutional]\nfilters=8\nsize=3\npad=1\nstride=x\n"
+            "activation=leakyish\n"
+            "[maxpool]\nsize=2\nstride=2\n"
+            "[region]\nfoo=1\n"
+            "[convolutional]\nfilters=4\nsize=1\nactivation=swish\n"
+            "[route]\nlayers=-1,-3\n"
+            "[shortcut]\nfrom=-2\nactivation=bogus\n")
+    want, got = jcfg.parse_cfg(text), tcfg.parse_cfg(text)
+    assert [dataclasses.astuple(l) for l in got.layers] == \
+        [dataclasses.astuple(l) for l in want.layers]
+    assert got.blobs == tuple(tcfg.BlobShape(*dataclasses.astuple(b))
+                              for b in want.blobs)
+
+
+@pytest.mark.parametrize("cfg_path", CFGS, ids=CFG_IDS)
+def test_load_weights_equals_jax(cfg_path):
+    """The same synthesized file from both packages, and the same folded
+    arrays (HWIO weights, BN-folded scale and bias) from both readers."""
+    jir, tir = jcfg.parse_cfg(cfg_path), tcfg.parse_cfg(cfg_path)
+    raw = jweights.synth_weights_bytes(jir, seed=42, obj_bias=2.0)
+    assert tweights.synth_weights_bytes(tir, seed=42, obj_bias=2.0) == raw
+    want, jhead = jweights.load_weights(jir, raw)
+    got, thead = tweights.load_weights(tir, raw)
+    assert dataclasses.astuple(thead) == dataclasses.astuple(jhead)
+    assert sorted(got) == sorted(want)
+    for li in want:
+        for f in ("weights", "scale", "bias"):
+            np.testing.assert_array_equal(getattr(got[li], f),
+                                          getattr(want[li], f), err_msg=li)
+    zw, zt = jweights.zero_weights(jir), tweights.zero_weights(tir)
+    assert all(np.array_equal(zt[li].weights, zw[li].weights)
+               and np.array_equal(zt[li].scale, zw[li].scale) for li in zw)
+
+
+def test_load_weights_refuses_a_short_file():
+    tir = tcfg.parse_cfg(CFGS[0])
+    raw = tweights.synth_weights_bytes(tir, seed=1)
+    with pytest.raises(ValueError):
+        tweights.load_weights(tir, raw[:-4])
+    with pytest.raises(ValueError):
+        tweights.load_weights(tir, raw[:10])
+    got, _ = tweights.load_weights(tir, raw + b"\0" * 8, allow_mismatch=True)
+    assert len(got) == sum(l.type == 0 for l in tir.layers)
+
+
+def test_bmp_load_equals_jax(tmp_path):
+    """The fixture's pixels, and an odd-width image (row padding) written
+    by the JAX package's writer."""
+    np.testing.assert_array_equal(tbmp.bmp_load(BMP), jbmp.bmp_load(BMP))
+    img = np.random.RandomState(0).randint(0, 256, (3, 5, 3), dtype=np.uint8)
+    path = str(tmp_path / "odd.bmp")
+    jbmp.bmp_save(path, img)
+    np.testing.assert_array_equal(tbmp.bmp_load(path), img)
+    np.testing.assert_array_equal(tbmp.bmp_load(path), jbmp.bmp_load(path))
+    with open(path, "rb") as f:
+        raw = f.read()
+    with pytest.raises(ValueError):
+        tbmp.bmp_decode(raw[:20])
+    with pytest.raises(ValueError):
+        tbmp.bmp_decode(b"XX" + raw[2:])
+
+
+def test_get_flag_follows_the_environment(monkeypatch):
+    """The environment wins, else the default; with the tuned file pinned
+    off (as the tests pin it), the JAX package resolves alike."""
+    monkeypatch.delenv("FFCNN_PORT_PROBE", raising=False)
+    assert ttuning.get_flag("FFCNN_PORT_PROBE", "d") == "d"
+    monkeypatch.setenv("FFCNN_PORT_PROBE", "7")
+    assert ttuning.get_flag("FFCNN_PORT_PROBE", "d") == "7"
+    monkeypatch.setenv("FFCNN_PORT_PROBE", "")
+    assert ttuning.get_flag("FFCNN_PORT_PROBE", "d") == ""
+    assert os.environ.get("FFCNN_TUNED_DEFAULTS") == ""
+    for v in ("1", "f32"):
+        monkeypatch.setenv("FFCNN_FUSED_STORE", v)
+        assert ttuning.get_flag("FFCNN_FUSED_STORE", "input") == \
+            jtuning.get_flag("FFCNN_FUSED_STORE", "input") == v
+
+
+def _port_files():
+    files = sorted(glob.glob(os.path.join(REPO, "ffcnn_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    return files + [os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_file_imports_nothing_of_jax(path):
+    """No file of the port, nor chip_smoke.py, imports jax or any module of
+    the JAX package (relative imports stay inside the port)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "ffcnn_tpu")]
+    assert not bad, bad

@@ -30,10 +30,12 @@ BMP = os.path.join(REPO, "tests", "fixtures", "test320.bmp")
 
 
 def _model(cfg, size, seed=42):
+    """JAX's IR, the port's IR (each package's own parser) and the folded
+    params, which both packages take."""
     ir = parse_cfg(cfg, size, size)
     params, _ = load_weights(ir, synth_weights_bytes(ir, seed=seed,
                                                      obj_bias=2.0))
-    return ir, params
+    return ir, pt.parse_cfg(cfg, size, size), params
 
 
 def _frames(size, n, seed=0):
@@ -46,14 +48,14 @@ def _frames(size, n, seed=0):
 def test_parity_blobs_agree(cfg, size):
     """Every materialised blob of the float32 forward agrees with JAX's
     (HIGHEST precision) through the two blob hooks."""
-    ir, params = _model(cfg, size)
+    ir, tir, params = _model(cfg, size)
     x = jpre.letterbox(jnp.asarray(_frames(size, 2)), size, size)
     jblobs, tblobs = {}, {}
     jbuild.forward_features(ir, jbuild.params_to_pytree(params), x,
                             precision=jax.lax.Precision.HIGHEST,
                             blob_hook=lambda i, v: jblobs.__setitem__(
                                 i, np.asarray(v)))
-    tbuild.forward_features(ir, tbuild.params_from_numpy(params),
+    tbuild.forward_features(tir, tbuild.params_from_numpy(params),
                             torch.from_numpy(np.asarray(x)),
                             blob_hook=lambda i, v: tblobs.__setitem__(
                                 i, v.numpy()))
@@ -82,13 +84,14 @@ def _assert_same_detections(got, want, score_tol):
 @pytest.mark.parametrize("cfg,size", [(MICRO, 64), (XL, 160)],
                          ids=["micro", "xl"])
 def test_parity_detect_equals_jax(cfg, size):
-    ir, params = _model(cfg, size)
+    ir, tir, params = _model(cfg, size)
     frames = _frames(size, 2, seed=1)
     if cfg == XL:
         # the fixture frame, letterboxed down from 320x320
         frames = np.stack([bmp_load(BMP)] * 2)
         frames[1] = _frames(320, 1, seed=1)[0]
-    got = pt.Net(ir, params, mode="parity", topk=64).detect(frames)
+    got = pt.Net(tir, params, mode="parity", topk=64,
+                 device="cpu").detect(frames)
     want = jt.Net(ir, params, mode="parity", topk=64).detect(frames)
     assert sum(map(len, want)) > 0
     # scores: float32 noise through the whole net (see the blob test)
@@ -98,9 +101,9 @@ def test_parity_detect_equals_jax(cfg, size):
 def test_fast_heads_match_jax_fused_interpret():
     """Fast mode (folded conv-1, bf16 blobs, fused runs) against JAX's
     forward with its fused Pallas runs in interpret mode."""
-    ir, params = _model(XL, 64)
+    ir, tir, params = _model(XL, 64)
     frames = _frames(64, 2, seed=2)
-    net = pt.Net(ir, params, mode="fast")
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     assert [(r.start, r.end) for r in net._fused_runs] == \
         [(r.start, r.end) for r in jbf.plan_runs(ir)]
     got = net.forward_heads(torch.from_numpy(frames))
@@ -125,44 +128,63 @@ def test_fast_heads_match_jax_fused_interpret():
 def test_detect_resize_path():
     """A 640x448 frame letterboxes onto the 96x96 net and its boxes come
     back in the frame's pixels: parity equals JAX's, fast mode runs."""
-    ir, params = _model(XL, 96)
+    ir, tir, params = _model(XL, 96)
     frame = np.random.RandomState(4).randint(0, 256, (448, 640, 3),
                                              dtype=np.uint8)
-    got = pt.Net(ir, params, mode="parity", topk=64).detect(frame)
+    got = pt.Net(tir, params, mode="parity", topk=64,
+                 device="cpu").detect(frame)
     want = jt.Net(ir, params, mode="parity", topk=64).detect(frame)
     assert len(want) > 0
     _assert_same_detections([got], [want], score_tol=1e-4)
-    fast = pt.Net(ir, params, mode="fast", topk=64).detect(frame)
+    fast = pt.Net(tir, params, mode="fast", topk=64,
+                  device="cpu").detect(frame)
     assert fast and all(0 < d.score <= 1 for d in fast)
 
 
 def test_parity_saturation_grows_k():
     """With topk below the candidate count, parity mode retries at a larger
     K, like the JAX Net, and reports every survivor."""
-    ir, params = _model(MICRO, 64)
+    _, tir, params = _model(MICRO, 64)
     frames = _frames(64, 2, seed=5)
-    got = pt.Net(ir, params, mode="parity", topk=8).detect(frames)
-    full = pt.Net(ir, params, mode="parity", topk=4096).detect(frames)
+    got = pt.Net(tir, params, mode="parity", topk=8,
+                 device="cpu").detect(frames)
+    full = pt.Net(tir, params, mode="parity", topk=4096,
+                  device="cpu").detect(frames)
     assert got == full
     assert max(map(len, got)) > 8
 
 
 def test_dump_and_modes():
-    ir, params = _model(MICRO, 64)
-    net = pt.Net(ir, params, mode="parity")
+    ir, tir, params = _model(MICRO, 64)
+    net = pt.Net(tir, params, mode="parity", device="cpu")
     assert net.dump() == jt.Net(ir, params, mode="parity").dump()
     with pytest.raises(NotImplementedError):
-        pt.Net(ir, params, mode="int8")
+        pt.Net(tir, params, mode="int8", device="cpu")
     with pytest.raises(ValueError):
-        pt.Net(ir, params, mode="turbo")
+        pt.Net(tir, params, mode="turbo", device="cpu")
 
 
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    ir, params = _model(MICRO, 64)
+    _, tir, params = _model(MICRO, 64)
     with pytest.raises(RuntimeError):
-        pt.Net(ir, params, device="cuda")
+        pt.Net(tir, params, device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """Net, Net.load and load run on the card unless the caller asks for
+    the CPU: with no card they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, tir, params = _model(MICRO, 64)
+    w = pt.synth_weights_bytes(tir, seed=42)
+    for make in (lambda: pt.Net(tir, params),
+                 lambda: pt.Net.load(MICRO, w),
+                 lambda: pt.load(MICRO, w, mode="parity")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert pt.load(MICRO, w, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_names_only_the_port():
@@ -180,23 +202,25 @@ def test_chip_smoke_names_only_the_port():
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The port imports no jax: with jax made unimportable it loads a
-    model and detects on the CPU, through the port's names only."""
+    """The port imports neither jax nor the JAX package: with both made
+    unimportable it loads a model and detects on the CPU, through the
+    port's names only, and no module of the JAX package was loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ffcnn_tpu'] = None\n"
         "import numpy as np\n"
         "import ffcnn_tpu_torch as pt\n"
         f"cfg = {MICRO!r}\n"
         "w = pt.synth_weights_bytes(pt.parse_cfg(cfg), seed=42,\n"
         "                           obj_bias=2.0)\n"
         "for mode in ('fast', 'parity'):\n"
-        "    net = pt.load(cfg, w, mode=mode)\n"
+        "    net = pt.load(cfg, w, mode=mode, device='cpu')\n"
         "    img = np.random.RandomState(0).randint(0, 256, (64, 64, 3),\n"
         "                                           dtype=np.uint8)\n"
         "    dets = net.detect(img)\n"
         "    assert dets and all(d.score > 0 for d in dets), mode\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ffcnn_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -17,6 +17,7 @@ from ffcnn_tpu.ops import activations as jact
 from ffcnn_tpu.ops import conv as jconv
 from ffcnn_tpu.ops import pool as jpool
 from ffcnn_tpu.ops import preprocess as jpre
+from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.ops import activations as tact
 from ffcnn_tpu_torch.ops import conv as tconv
@@ -138,7 +139,8 @@ def test_fold_input_transform(mean):
     norm = (1 / 255.0, 1 / 128.0, 1 / 64.0)
     want = jbuild.fold_input_transform(ir, jbuild.params_to_pytree(params),
                                        mean, norm)[0]
-    got = tbuild.fold_input_transform(ir, tbuild.params_from_numpy(params),
+    got = tbuild.fold_input_transform(tparse_cfg(MICRO, 64, 64),
+                                      tbuild.params_from_numpy(params),
                                       mean, norm)[0]
     np.testing.assert_allclose(
         got["weights"].numpy(),
@@ -152,8 +154,8 @@ def test_fold_input_transform(mean):
 def test_decode_head_and_arena_cap(dtype):
     from ffcnn_tpu.ops import yolo as jyolo
     from ffcnn_tpu_torch.ops import yolo as tyolo
-    ir = parse_cfg(MICRO, 64, 64)
-    layer = ir.yolo_layers[0]
+    ir, tir = parse_cfg(MICRO, 64, 64), tparse_cfg(MICRO, 64, 64)
+    layer, tlayer = ir.yolo_layers[0], tir.yolo_layers[0]
     h, w = ir.blobs[layer.index].h, ir.blobs[layer.index].w
     rng = np.random.RandomState(7)
     feat = (rng.randn(2, h, w, 3 * (5 + layer.class_num)) * 2
@@ -162,7 +164,7 @@ def test_decode_head_and_arena_cap(dtype):
     jf = jnp.asarray(feat, dtype)
     tf = _t(feat).to(getattr(torch, dtype))
     want = jyolo.decode_head(jf, layer, 64, 64)
-    got = tyolo.decode_head(tf, layer, 64, 64)
+    got = tyolo.decode_head(tf, tlayer, 64, 64)
     np.testing.assert_array_equal(got.classes.numpy(),
                                   np.asarray(want.classes))
     # exp comes from different libms: a few f32 ulp

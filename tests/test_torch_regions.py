@@ -25,6 +25,7 @@ from ffcnn_tpu.kernels import block_fused as jbf
 from ffcnn_tpu.kernels import conv0_fused as jc0
 from ffcnn_tpu.kernels import head_fused as jhf
 from ffcnn_tpu.ops import preprocess as jpre
+from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import block_fused as tbf
 from ffcnn_tpu_torch.kernels import conv0_fused as tc0
@@ -44,10 +45,12 @@ def _plan(runs):
 
 
 def _model(size, seed=42):
+    """JAX's IR, the port's IR (each package's own parser) and the folded
+    params of xl at ``size``."""
     ir = parse_cfg(XL, size, size)
     params, _ = load_weights(ir, synth_weights_bytes(ir, seed=seed,
                                                      obj_bias=2.0))
-    return ir, params
+    return ir, tparse_cfg(XL, size, size), params
 
 
 @pytest.fixture(scope="module")
@@ -60,8 +63,8 @@ def xl96():
 @pytest.mark.parametrize("allow_down", [False, True])
 @pytest.mark.parametrize("cfg_path", CFGS, ids=CFG_IDS)
 def test_plan_runs_equal_jax(cfg_path, min_channels, allow_down):
-    ir = parse_cfg(cfg_path)
-    assert _plan(tbf.plan_runs(ir, min_channels, allow_down)) == \
+    ir, tir = parse_cfg(cfg_path), tparse_cfg(cfg_path)
+    assert _plan(tbf.plan_runs(tir, min_channels, allow_down)) == \
         _plan(jbf.plan_runs(ir, min_channels, allow_down))
 
 
@@ -71,10 +74,10 @@ def test_plan_runs_read_the_flags_as_jax(cfg_path, monkeypatch):
     the same region runs from the environment."""
     monkeypatch.setenv("FFCNN_FUSED_DOWN", "1")
     monkeypatch.setenv("FFCNN_FUSED_MINC", "8")
-    ir = parse_cfg(cfg_path)
-    assert _plan(tbf.plan_runs(ir)) == _plan(jbf.plan_runs(ir))
+    ir, tir = parse_cfg(cfg_path), tparse_cfg(cfg_path)
+    assert _plan(tbf.plan_runs(tir)) == _plan(jbf.plan_runs(ir))
     # explicit arguments win over the environment, in both
-    assert _plan(tbf.plan_runs(ir, 24, False)) == \
+    assert _plan(tbf.plan_runs(tir, 24, False)) == \
         _plan(jbf.plan_runs(ir, 24, False))
 
 
@@ -84,7 +87,7 @@ def test_xl_region_plan_at_320(monkeypatch):
     VMEM test)."""
     for k, v in REGION_FLAGS.items():
         monkeypatch.setenv(k, v)
-    ir = parse_cfg(XL, 320, 320)
+    ir = tparse_cfg(XL, 320, 320)
     runs = tbf.plan_runs(ir)
     assert [(r.start, r.end, len(r.blocks)) for r in runs] == \
         [(1, 80, 18), (81, 108, 6)]
@@ -97,8 +100,9 @@ def test_xl_region_plan_at_320(monkeypatch):
 @pytest.mark.parametrize("size", [96, 320, 416])
 @pytest.mark.parametrize("cfg_path", CFGS, ids=CFG_IDS)
 def test_plan_head_runs_equal_jax(cfg_path, size):
-    ir = parse_cfg(cfg_path, size, size)
-    assert [(r.start, r.end) for r in thf.plan_head_runs(ir)] == \
+    ir, tir = parse_cfg(cfg_path, size, size), tparse_cfg(cfg_path, size,
+                                                          size)
+    assert [(r.start, r.end) for r in thf.plan_head_runs(tir)] == \
         [(r.start, r.end) for r in jhf.plan_head_runs(ir)]
 
 
@@ -106,14 +110,14 @@ def test_net_plans_by_the_flags(monkeypatch):
     """No flag: the default plan (13 stride-1 blocks, no head chain, no
     stem kernel).  The four flags: the region plan, resolved once at
     construction."""
-    ir, params = _model(320)
-    net = pt.Net(ir, params, mode="fast")
+    _, ir, params = _model(320)
+    net = pt.Net(ir, params, mode="fast", device="cpu")
     assert [(r.start, r.end) for r in net._fused_runs] == \
         [(38, 57), (61, 80), (84, 108)]
     assert net._head_runs == [] and not net._conv0_pallas
     for k, v in REGION_FLAGS.items():
         monkeypatch.setenv(k, v)
-    net = pt.Net(ir, params, mode="fast")
+    net = pt.Net(ir, params, mode="fast", device="cpu")
     for k in REGION_FLAGS:
         monkeypatch.delenv(k)
     assert [(r.start, r.end) for r in net._fused_runs] == [(1, 80),
@@ -121,7 +125,8 @@ def test_net_plans_by_the_flags(monkeypatch):
     assert [(r.start, r.end) for r in net._head_runs] == [(116, 120)]
     assert net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[1] \
         is not None
-    assert pt.Net(ir, params, mode="parity")._fused_runs == []
+    assert pt.Net(ir, params, mode="parity",
+                  device="cpu")._fused_runs == []
 
 
 # ----------------------------------------------- plain versions against JAX
@@ -131,7 +136,7 @@ def test_net_plans_by_the_flags(monkeypatch):
 def test_block_down_plain_matches_jax_interpret(xl96, start, dtype):
     """K3's plain version against ``_make_down_kernel`` (interpret mode) at
     xl's four stride-2 blocks."""
-    ir, params = xl96
+    ir, tir, params = xl96
     b = jbf.find_fused_blocks(ir)[start]
     assert b.down
     bi = ir.blobs[b.start]
@@ -140,7 +145,8 @@ def test_block_down_plain_matches_jax_interpret(xl96, start, dtype):
     want = jbf.apply_run(jnp.asarray(x, dtype), ir,
                          jbuild.params_to_pytree(params),
                          jbf.FusedRun(b.start, b.end, (b,)), interpret=True)
-    bp = tbf.block_params(ir, tbuild.params_from_numpy(params), b)
+    bp = tbf.block_params(tir, tbuild.params_from_numpy(params),
+                          tbf.find_fused_blocks(tir)[start])
     got = tbf.block_down_plain(torch.from_numpy(x).to(getattr(torch, dtype)),
                                bp)
     assert got.dtype == getattr(torch, dtype)
@@ -161,7 +167,7 @@ def test_block_down_plain_matches_jax_interpret(xl96, start, dtype):
 def test_block_down_plain_matches_unfused_convs(xl96):
     """The stride-2 plain block equals the graph's three convs."""
     from ffcnn_tpu_torch.ops.conv import conv2d_fused
-    ir, params = xl96
+    _, ir, params = xl96
     tp = tbuild.params_from_numpy(params)
     blk = tbf.find_fused_blocks(ir)[22]
     b = ir.blobs[blk.start]
@@ -181,7 +187,7 @@ def test_block_down_plain_matches_unfused_convs(xl96):
 def test_conv0_plain_matches_jax_interpret(out_dtype):
     """K6's plain version against ``conv0_cs`` (interpret mode) on the
     folded xl stem, its (H/2, F, W/2*N) output transposed back to NHWC."""
-    ir, params = _model(64)
+    ir, tir, params = _model(64)
     jp = jbuild.fold_input_transform(ir, jbuild.params_to_pytree(params),
                                      pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
     x = np.random.RandomState(7).randint(0, 256, (2, 64, 64, 3),
@@ -193,9 +199,9 @@ def test_conv0_plain_matches_jax_interpret(out_dtype):
     f = ir.blobs[1].c
     want = np.asarray(jnp.asarray(jnp.transpose(
         cs.reshape(32, f, 32, 2), (3, 0, 2, 1)), jnp.float32))
-    tp = tbuild.fold_input_transform(ir, tbuild.params_from_numpy(params),
+    tp = tbuild.fold_input_transform(tir, tbuild.params_from_numpy(params),
                                      pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
-    cp = tc0.conv0_params(ir, tp)
+    cp = tc0.conv0_params(tir, tp)
     got = tc0.conv0_cs(torch.from_numpy(x), cp, getattr(torch, out_dtype))
     assert got.dtype == getattr(torch, out_dtype)
     got = got.float().numpy()
@@ -212,11 +218,11 @@ def test_conv0_plain_matches_jax_interpret(out_dtype):
 def test_head_plain_matches_jax_interpret(xl96, dtype):
     """K7's plain version against ``apply_head_run`` (interpret mode) on
     every head chain of xl at 96x96."""
-    ir, params = xl96
+    ir, tir, params = xl96
     jp = jbuild.params_to_pytree(params)
     tp = tbuild.params_from_numpy(params)
     jruns = jhf.plan_head_runs(ir)
-    truns = thf.plan_head_runs(ir)
+    truns = thf.plan_head_runs(tir)
     assert len(truns) == 2
     for jr, tr in zip(jruns, truns):
         b = ir.blobs[tr.start]
@@ -226,7 +232,7 @@ def test_head_plain_matches_jax_interpret(xl96, dtype):
                                   interpret=True)
         got = thf.apply_head_run(torch.from_numpy(x).to(getattr(torch,
                                                                 dtype)),
-                                 tr, thf.head_params(ir, tp, tr))
+                                 tr, thf.head_params(tir, tp, tr))
         assert got.dtype == getattr(torch, dtype)
         got = got.float().numpy()
         want = np.asarray(jnp.asarray(want, jnp.float32))
@@ -247,7 +253,7 @@ def test_head_params_fit_check():
     (two 13x13x192 float32 maps an image) and ``check_fits`` accepts the
     chain all the same."""
     for size, fits in ((320, True), (416, False)):
-        ir, params = _model(size)
+        _, ir, params = _model(size)
         run = thf.plan_head_runs(ir)[0]
         hp = thf.head_params(ir, tbuild.params_from_numpy(params), run)
         need = 4 * (2 * hp.h * hp.w * 192 + 32 * 255)
@@ -263,20 +269,20 @@ def test_region_forward_matches_jax_f32():
     runs with their stride-2 blocks, the head chains) against JAX's with
     its Pallas kernels in interpret mode.  At 32x32 (maps 16x16 down to
     1x1), so that the Pallas interpreter stays under 20 s."""
-    ir, params = _model(32)
+    ir, tir, params = _model(32)
     x = np.random.RandomState(8).randint(0, 256, (2, 32, 32, 3),
                                          dtype=np.uint8)
-    runs = tbf.plan_runs(ir, 8, True)
-    hruns = thf.plan_head_runs(ir)
+    runs = tbf.plan_runs(tir, 8, True)
+    hruns = thf.plan_head_runs(tir)
     tp = tbuild.params_from_numpy(params)
     got = tbuild.forward_features(
-        ir, tp, torch.from_numpy(x), input_dtype=torch.float32,
+        tir, tp, torch.from_numpy(x), input_dtype=torch.float32,
         fused_runs=runs,
-        fused_params={r.start: [tbf.block_params(ir, tp, b)
+        fused_params={r.start: [tbf.block_params(tir, tp, b)
                                 for b in r.blocks] for r in runs},
         head_runs=hruns,
-        head_params={r.start: thf.head_params(ir, tp, r) for r in hruns},
-        conv0_pallas=True, conv0_params=tc0.conv0_params(ir, tp))
+        head_params={r.start: thf.head_params(tir, tp, r) for r in hruns},
+        conv0_pallas=True, conv0_params=tc0.conv0_params(tir, tp))
     want = jax.jit(lambda v: jbuild.forward_features(
         ir, jbuild.params_to_pytree(params), v, input_dtype=jnp.float32,
         fused_runs=jbf.plan_runs(ir, 8, True),
@@ -295,12 +301,12 @@ def test_region_forward_matches_jax_bf16(monkeypatch):
     """Fast mode with the four flags (Net.forward_heads: folded stem off
     uint8, bf16 blobs, region runs, head chains) against JAX's forward with
     its Pallas kernels in interpret mode, at 32x32 as above."""
-    ir, params = _model(32)
+    ir, tir, params = _model(32)
     frames = np.random.RandomState(9).randint(0, 256, (2, 32, 32, 3),
                                               dtype=np.uint8)
     for k, v in REGION_FLAGS.items():
         monkeypatch.setenv(k, v)
-    net = pt.Net(ir, params, mode="fast")
+    net = pt.Net(tir, params, mode="fast", device="cpu")
     for k in REGION_FLAGS:
         monkeypatch.delenv(k)
     got = net.forward_heads(torch.from_numpy(frames))
@@ -327,7 +333,7 @@ def test_region_forward_matches_jax_bf16(monkeypatch):
 def test_conv0_guard_without_region(monkeypatch):
     """``conv0_pallas`` takes the stem kernel only when a run starts at
     layer 1: with the default runs the normal stem runs, as in JAX."""
-    ir, params = _model(64)
+    _, ir, params = _model(64)
     tp = tbuild.params_from_numpy(params)
     runs = tbf.plan_runs(ir, 24, False)
     assert all(r.start != 1 for r in runs)
@@ -351,7 +357,7 @@ def test_conv0_guard_without_region(monkeypatch):
 def test_wrappers_refuse_other_devices(xl96):
     """No fallback: a tensor off the CPU that a kernel cannot take raises
     instead of reaching the plain version."""
-    ir, params = xl96
+    _, ir, params = xl96
     tp = tbuild.params_from_numpy(params)
     blk = tbf.find_fused_blocks(ir)[22]
     b = ir.blobs[blk.start]
@@ -371,24 +377,26 @@ def test_wrappers_refuse_other_devices(xl96):
 
 
 def test_region_net_runs_without_jax(tmp_path):
-    """A region Net builds and detects on the CPU with jax unimportable."""
+    """A region Net builds and detects on the CPU with jax and the JAX
+    package unimportable."""
     code = (
         "import os, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ffcnn_tpu'] = None\n"
         f"os.environ.update({REGION_FLAGS!r})\n"
         "import numpy as np\n"
         "import ffcnn_tpu_torch as pt\n"
         f"cfg = {XL!r}\n"
         "ir = pt.parse_cfg(cfg, 64, 64)\n"
         "w = pt.synth_weights_bytes(ir, seed=42, obj_bias=2.0)\n"
-        "net = pt.load(cfg, w, input_w=64, input_h=64)\n"
+        "net = pt.load(cfg, w, input_w=64, input_h=64, device='cpu')\n"
         "assert [r.start for r in net._fused_runs] == [1, 81]\n"
         "assert [r.start for r in net._head_runs] == [116, 125]\n"
         "img = np.random.RandomState(0).randint(0, 256, (64, 64, 3),\n"
         "                                       dtype=np.uint8)\n"
         "dets = net.detect(img)\n"
         "assert dets and all(d.score > 0 for d in dets)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')\n"
+        "assert not any(m.split('.')[0] in ('jax', 'ffcnn_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
