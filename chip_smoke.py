@@ -40,10 +40,21 @@ which exits non-zero on failure:
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
      times), then every case again in float32 against the plain versions
+  8. the probe kernels of tools/, each behind the port of its probe, with
+     its launches read around its probe's pass: P1 and P2 (the dense 1x1
+     product, ``bench_pw_kernels.py``: one launch each at the tool's
+     shapes, against the plain version and torch.mm, then the tool's rows
+     A, D, B, C timed); P3 (the block variants, ``bisect_smallc.py``: every
+     mode at the tool's four geometries in float32 and bf16 against its
+     plain version at batch 64, and ``full`` bit for bit against K1,
+     whose template it launches, then each mode chained 20 times at batch
+     256 in bf16, counted and timed beside the cuDNN chain and the layout
+     round trip); P4 and P5 (``retest_backend_bugs.py``: bit-exact, timed)
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
-H100 could take for the same work, ``bench_block.Work``); the last line of
+H100 could take for the same work, ``bench_block.Work``), K1-K9 and
+P1-P5; the line before it is the card's name and power limit; the last line of
 standard output is one JSON object with the device.
 """
 
@@ -80,7 +91,8 @@ WANT_COUNTS = {
     "cascade": {"K1": 2, "K3": 4, "K4": 7, "K5": 0, "K6": 1, "K7": 1},
     "mega": {"K1": 8, "K3": 0, "K4": 0, "K5": 1, "K6": 0, "K7": 0}}
 for _want in WANT_COUNTS.values():
-    _want.update(K8=0, K9=0)       # no Net path runs the bench's kernels
+    # no Net path runs the block bench's kernels or the probes'
+    _want.update({k: 0 for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5")})
 
 # Tolerances of a kernel against its plain version on the same inputs, for
 # every kernel but K2 (K1, K3, K6, K7: float32 math inside).  float32: the
@@ -99,6 +111,26 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
 # one-ulp rounding; phase 7 measured at most 5.8e-3 of the range (1.5
 # ulps) on that card; allow four ulps (2^-6).
 MBCONV_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
+# P1/P2 against their plain versions and against torch.mm: bf16 products
+# are exact in float32, so only the order of the (8 or 128) sums differs:
+# KERNEL_TOL's float32 2e-5 of the range.  P3 (the block variants, at batch
+# P3_CHECK_BATCH): copy bit-exact; float32 and bfloat16 storage as
+# KERNEL_TOL (float32 sums, one rounding at the store; dwbf16 in bf16 does
+# the plain version's roundings in its order); fullbf16 rounds its expand
+# and depthwise outputs to bf16, so it takes MBCONV_TOL's 2^-6 in both
+# storages.  P4 and P5 are copies: bit-exact.
+EXACT = {"float32": 0.0, "bfloat16": 0.0}
+P3_ITERS, P3_BATCH, P3_CHECK_BATCH = 20, 256, 64
+
+
+def p3_tols(mode: str) -> dict:
+    if mode == "copy":
+        return EXACT
+    if mode == "fullbf16":
+        return dict.fromkeys(KERNEL_TOL, MBCONV_TOL["bfloat16"])
+    return KERNEL_TOL
+
+
 # The whole fast forward on the card against the CPU: every bf16 blob may
 # carry such one-ulp flips from the previous layers (the CPU test of the
 # port against JAX holds the same bounds).
@@ -188,19 +220,23 @@ def match_fraction(dets, boxes, scores, classes, px: float,
 def check_kernel(label: str, got, want, tols=KERNEL_TOL,
                  phase: int = 3) -> float:
     """Hold a kernel's output against its plain version's on the same
-    inputs (``tols`` of the output's range); returns max |err|."""
+    inputs, of the same shape and dtype: bit for bit where ``tols`` gives
+    the dtype 0, else within that share of the output's range; returns
+    max |err|."""
     import torch
     torch.cuda.synchronize()
     dtype = str(want.dtype).split(".")[-1]
-    got, want = got.float(), want.float()
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
+    same = got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item() if same else float("inf")
+    scale = w.abs().max().item()
     tol = tols[dtype] * scale
-    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) \
-        and err <= tol
+    ok = same and bool(torch.isfinite(g).all()) and (
+        torch.equal(got, want) if tols[dtype] == 0 else err <= tol)
     log(f"[{phase}] {label} batch {got.shape[0]} {dtype}: max|err| "
-        f"{err:.3e} ({err / max(scale, 1e-30):.1e} of the range; tol "
-        f"{tol:.3e}) {'ok' if ok else 'FAIL'}")
+        f"{err:.3e} ({err / max(scale, 1e-30):.1e} of the range; "
+        + ("bit-exact required" if tols[dtype] == 0 else f"tol {tol:.3e}")
+        + f") {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version")
     return err
@@ -318,6 +354,141 @@ def head_work(bb, n, hps, c_in):
     return work
 
 
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work,
+                 library_ms=None, **more) -> dict:
+    """One kernel's entry in the ``kernels`` line."""
+    bound, by = work.bound()
+    return {"name": name, "route": "cuda",
+            "source": f"ffcnn_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, **more}
+
+
+def probe_phase(dev, counters) -> list:
+    """Phase 8: the probe kernels P1-P5 behind the ports of their probes.
+    Each kernel's launches are read around its probe's pass, each is held
+    against its plain version, and each is timed; returns their five
+    entries of the ``kernels`` line."""
+    import torch
+    from ffcnn_tpu_torch import bench_block as bb
+    from ffcnn_tpu_torch import bench_pw_kernels as bpw
+    from ffcnn_tpu_torch import bisect_smallc as bs
+    from ffcnn_tpu_torch import retest_backend_bugs as rb
+    from ffcnn_tpu_torch.kernels import block_fused as bf
+    from ffcnn_tpu_torch.kernels import block_variants as bv
+    from ffcnn_tpu_torch.kernels import pw_matmul as pw
+
+    def only(tag, counts, key, n):
+        log(f"[8] {tag}: launches " + " ".join(f"{k} {v}" for k, v in
+                                              counts.items()))
+        if counts[key] != n or any(v for k, v in counts.items() if k != key):
+            raise AssertionError(f"{tag} did not launch {key} {n} times "
+                                 f"and nothing else")
+        return n
+
+    # P1 and P2 at the tool's shapes, then the bench's rows A, D, B, C
+    err, launches = {}, {}
+    inp = bpw.make_inputs(dev)
+    for key, x, w in (("P1", inp.x2, inp.w), ("P2", inp.xp, inp.wb)):
+        y, counts = counted(counters, lambda: pw.pw_matmul(x, w))
+        launches[key] = only(f"{key} pw_matmul {tuple(x.shape)} @ "
+                             f"{tuple(w.shape)}", counts, "P1/P2", 1)
+        err[key] = check_kernel(f"{key} against its plain version", y,
+                                pw.pw_matmul_plain(x, w), phase=8)
+        mm, how = bpw.library_mm(x, w)
+        check_kernel(f"{key} against {how}", y, mm(), phase=8)
+    del inp, y
+    pwr = bpw.run(dev, log=lambda line: log("[8] " + line))
+
+    # P3: every mode at the tool's four geometries in both storages against
+    # the plain versions (batch P3_CHECK_BATCH), then the bisection at the
+    # tool's batch in bf16: each mode chained P3_ITERS times, counted, then
+    # timed
+    err["P3"] = 0.0
+    rng = np.random.RandomState(1)
+    for geom in bs.GEOMS:
+        for dt in ("float32", "bfloat16"):
+            g = bs.make_geom(geom, P3_CHECK_BATCH, getattr(torch, dt), rng,
+                             dev)
+            for mode in bv.MODES:
+                err["P3"] = max(err["P3"], check_kernel(
+                    f"P3 {mode:8s} {geom[0]}",
+                    bv.block_variant(mode, g.x0, g.vp),
+                    bv.variant_plain(mode, g.x0, g.vp), p3_tols(mode), 8))
+            # full launches K1's own code: K1's wrapper gives the same bits
+            check_kernel(f"P3 full     {geom[0]} against K1",
+                         bv.block_variant("full", g.x0, g.vp),
+                         bf.fused_block(g.x0, bv.k1_params(g.vp)), EXACT, 8)
+    p3 = dict(ms=0.0, plain_ms=0.0, launches=0, chain=0.0, tpose=0.0,
+              full=0.0, work=bb.Work())
+    rng = np.random.RandomState(0)
+    for geom in bs.GEOMS:
+        g = bs.make_geom(geom, P3_BATCH, torch.bfloat16, rng, dev)
+        for mode in bv.MODES:
+            _, counts = counted(counters,
+                                lambda: bs.run_chain(g, mode, P3_ITERS))
+            p3["launches"] += only(f"P3 {mode} {geom[0]} chained {P3_ITERS}"
+                                   f" times", counts, "P3", P3_ITERS)
+        row = bs.run_geom(g, bv.MODES, P3_ITERS, dev, "bf16",
+                          log=lambda line: log("[8] " + line))
+        plain = {m: cuda_ms(lambda: bv.variant_plain(m, g.x0, g.vp), 2, 1)
+                 for m in bv.MODES}
+        log("[8]   plain versions, ms: " + ", ".join(
+            f"{m} {v:.4f}" for m, v in plain.items()))
+        p3["ms"] += sum(row[m] for m in bv.MODES) / 1e3
+        p3["plain_ms"] += sum(plain.values())
+        p3["work"] += sum((bs.mode_work(m, g) for m in bv.MODES), bb.Work())
+        for k, r in (("chain", "xla"), ("tpose", "tpose"), ("full", "full")):
+            p3[k] += row[r] / 1e3
+        del g
+    log(f"[8] P3 the 4 geometries x 7 modes, bf16 batch {P3_BATCH}, one "
+        f"launch each: kernel {p3['ms']:.4f} ms (bound "
+        f"{p3['work'].bound()[0]:.4f} ms), plain {p3['plain_ms']:.4f} ms; "
+        f"full alone {p3['full']:.4f} ms, the cuDNN chain {p3['chain']:.4f}"
+        f" ms, the layout round trip {p3['tpose']:.4f} ms")
+
+    # P4 and P5 on the sweep's inputs, bit for bit
+    times = {}
+    for probe in rb.PROBES:
+        key, x = probe.kernel, probe.make_input(dev)
+        y, counts = counted(counters, lambda: probe.run(x))
+        launches[key] = only(f"{key} {probe.name}", counts, key, 1)
+        err[key] = check_kernel(f"{key} {probe.name} {tuple(x.shape)}", y,
+                                probe.plain(x), EXACT, 8)
+        t = times[key] = dict(
+            ms=cuda_ms(lambda: probe.run(x), 200),
+            plain=cuda_ms(lambda: probe.plain(x), 200),
+            library=(cuda_ms(lambda: x[::2].contiguous(), 200)
+                     if key == "P4" else None),
+            work=bb.Work(2 * y.numel() * y.element_size()))
+        log(f"[8] {key} {probe.name}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms" + ("" if t["library"] is None else
+                                      f", x[::2].contiguous() "
+                                      f"{t['library']:.4f} ms"))
+
+    return [
+        kernel_entry("pw_matmul_2d", "pw_matmul.cu",
+                     "tools/bench_pw_kernels.py:61", launches["P1"],
+                     err["P1"], pwr["B"], pwr["B_plain"], pwr["B_work"],
+                     pwr["B_library"]),
+        kernel_entry("pw_matmul_packed", "pw_matmul.cu",
+                     "tools/bench_pw_kernels.py:85", launches["P2"],
+                     err["P2"], pwr["C"], pwr["C_plain"], pwr["C_work"],
+                     pwr["C_library"]),
+        kernel_entry("block_variants", "block_variants.cu",
+                     "tools/bisect_smallc.py:182", p3["launches"], err["P3"],
+                     p3["ms"], p3["plain_ms"], p3["work"],
+                     cudnn_chain_ms=p3["chain"], full_ms=p3["full"],
+                     tpose_ms=p3["tpose"]),
+    ] + [kernel_entry(name, "mosaic_probes.cu",
+                      f"tools/retest_backend_bugs.py:{line}", launches[key],
+                      err[key], times[key]["ms"], times[key]["plain"],
+                      times[key]["work"], times[key]["library"])
+         for name, key, line in (("strided_rows", "P4", 73),
+                                 ("dynslice_carry", "P5", 92))]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -335,6 +506,9 @@ def main() -> int:
         from ffcnn_tpu_torch.kernels import mbconv as k8
         from ffcnn_tpu_torch.kernels import mbconv_cs as k9
         from ffcnn_tpu_torch.kernels import nms as knms
+        from ffcnn_tpu_torch.kernels import block_variants as bv
+        from ffcnn_tpu_torch.kernels import mosaic_probes as mp
+        from ffcnn_tpu_torch.kernels import pw_matmul as pw
     except ImportError as e:
         print(f"chip_smoke: the repository is not here ({e})",
               file=sys.stderr)
@@ -346,7 +520,9 @@ def main() -> int:
                 "K3": bf.fused_down_block, "K4": bf.fused_cascade,
                 "K5": bf.fused_mega, "K6": c0.conv0_cs,
                 "K7": hf.apply_head_run, "K8": k8.fused_mbconv,
-                "K9": k9.fused_mbconv_cs}
+                "K9": k9.fused_mbconv_cs, "P1/P2": pw.pw_matmul,
+                "P3": bv.block_variant, "P4": mp.strided_rows,
+                "P5": mp.dynslice_carry}
 
     # 1. the card
     card = card_line()
@@ -358,7 +534,8 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     for load in (bf.build, bf.build_down, bf.build_cascade, bf.build_mega,
-                 c0.build, hf.build, knms.build, k8.build, k9.build):
+                 c0.build, hf.build, knms.build, k8.build, k9.build,
+                 pw.build, bv.build, mp.build):
         load()
     log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
         f"parallel: {', '.join(_build.sources())}")
@@ -813,13 +990,8 @@ def main() -> int:
 
     def entry(name, key, source, replaces, launches, ms, plain_ms, work,
               **more):
-        bound, by = work.bound()
-        return {"name": name, "route": "cuda",
-                "source": f"ffcnn_tpu_torch/csrc/{source}",
-                "replaces": f"ffcnn_tpu/kernels/{replaces}",
-                "launches": launches, "max_abs_err": errs[key], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": None, **more}
+        return kernel_entry(name, source, f"ffcnn_tpu/kernels/{replaces}",
+                            launches, errs[key], ms, plain_ms, work, **more)
 
     launches = main_counts["region"]
     kernels = [
@@ -846,6 +1018,9 @@ def main() -> int:
               bench_counts["K9"], bench["9"]["ms"], bench["9"]["plain_ms"],
               bench["9"]["work"], cudnn_chain_ms=bench["9"]["chain_ms"]),
     ]
+
+    # 8. the probe kernels P1-P5 behind the ports of their probes
+    kernels += probe_phase(dev, counters)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

@@ -135,17 +135,24 @@ def _port_files():
     return files + [os.path.join(REPO, "chip_smoke.py")]
 
 
+# What the port must not import: jax, the JAX package, and the scripts under
+# tools/ (the reference's probes), by package or by their own names.
+_FORBIDDEN = {"jax", "jaxlib", "ffcnn_tpu", "tools"} | {
+    os.path.splitext(os.path.basename(p))[0]
+    for p in glob.glob(os.path.join(REPO, "tools", "*.py"))}
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_file_imports_nothing_of_jax(path):
-    """No file of the port, nor chip_smoke.py, imports jax or any module of
-    the JAX package (relative imports stay inside the port)."""
+    """No file of the port, nor chip_smoke.py, imports jax, any module of
+    the JAX package or any script under tools/ (relative imports stay
+    inside the port)."""
     with open(path) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.level == 0]
-    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
-                                                   "ffcnn_tpu")]
+    bad = [m for m in names if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
