@@ -33,9 +33,10 @@ which exits non-zero on failure:
      detections against the same Net on the CPU; the region Net at
      416x416 likewise
   5. parity mode on the card against parity mode on the CPU
-  6. timings with CUDA events: kernels against their plain versions (K4
-     and K5 also against the K1 launches they replace), the whole forward
-     of every path, img/s of every path
+  6. timings with CUDA events: kernels against their plain versions (K1
+     and K3 also by geometry, in us a block; K4 and K5 also against the K1
+     launches they replace), the whole forward of every path, img/s of
+     every path
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -54,8 +55,9 @@ which exits non-zero on failure:
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
-P1-P5; the line before it is the card's name and power limit; the last line of
-standard output is one JSON object with the device.
+P1-P5 (K1, K3, K8 and K9 also with the cuDNN chain's time at their
+shapes); the line before it is the card's name and power limit; the last
+line of standard output is one JSON object with the device.
 """
 
 from __future__ import annotations
@@ -732,16 +734,6 @@ def main() -> int:
             for bp in net._fused_params[r.start]:
                 x = bf.fused_block(x, bp) if kernel else bf.block_plain(x, bp)
 
-    for r in runs:
-        b = ir.blobs[r.start]
-        x, bps = x_runs[r.start], net._fused_params[r.start]
-        ms = cuda_ms(lambda: bf.fused_block(x, bps[0]))
-        pms = cuda_ms(lambda: bf.block_plain(x, bps[0]))
-        flop = 2 * BATCH * b.h * b.w * bps[0].w1.shape[1] * (
-            2 * b.c + 9) / 1e9
-        log(f"[6] K1 one block {b.h}x{b.w} C{b.c} E{bps[0].w1.shape[1]} "
-            f"bf16 batch {BATCH}: kernel {ms:.4f} ms ({flop / ms:.1f} "
-            f"TFLOP/s useful), plain {pms:.4f} ms")
     (k1_ms, k1_ms2), (k1_pms, k1_pms2) = turns(lambda: k1_default(True),
                                                lambda: k1_default(False))
     log(f"[6] K1 the default path's 13 blocks bf16 batch {BATCH}: kernel "
@@ -762,24 +754,33 @@ def main() -> int:
                 else:
                     (bf.fused_block if kernel else bf.block_plain)(x, bp)
 
+    # K1 and K3 by geometry: one block of each of the region path's
+    # geometries (the default path's three are among them)
+    geoms = {}
+    for b, bp, x in rblocks:
+        blob = ir.blobs[b.start]
+        geoms.setdefault((b.down, blob.h, blob.w, blob.c, bp.w1.shape[1],
+                          bp.w2.shape[1], b.residual), []).append((b, bp, x))
+    for (down, h, w, c, e, p, res), blocks in geoms.items():
+        _, bp, x = blocks[0]
+        ms = cuda_ms(lambda: (bf.fused_down_block if down
+                              else bf.fused_block)(x, bp))
+        pms = cuda_ms(lambda: (bf.block_down_plain if down
+                               else bf.block_plain)(x, bp))
+        s = 2 if down else 1
+        # expand over the input map, dw and project over the output map
+        flop = 2 * BATCH * e * (h * w * c + h * w // (s * s) * (9 + p)) / 1e9
+        log(f"[6] {'K3' if down else 'K1'} {h}x{w} C{c} E{e} P{p}"
+            f"{' residual' if res else ''}, {len(blocks)} block(s) "
+            f"{[b.start for b, _, _ in blocks]}, bf16 batch {BATCH}: "
+            f"{ms * 1e3:.1f} us a block ({flop / ms:.1f} TFLOP/s useful), "
+            f"plain {pms * 1e3:.1f} us")
     (rk1_ms, rk1_ms2), (rk1_pms, rk1_pms2) = turns(
         lambda: region_blocks(False, True), lambda: region_blocks(False,
                                                                   False))
     log(f"[6] K1 the region path's 20 blocks bf16 batch {BATCH}: kernel "
         f"{rk1_ms:.4f} / {rk1_ms2:.4f} ms, plain {rk1_pms:.4f} / "
         f"{rk1_pms2:.4f} ms")
-    for b, bp, x in rblocks:
-        if b.down:
-            blob = ir.blobs[b.start]
-            ms = cuda_ms(lambda: bf.fused_down_block(x, bp))
-            pms = cuda_ms(lambda: bf.block_down_plain(x, bp))
-            e, p = bp.w1.shape[1], bp.w2.shape[1]
-            # expand over the input map, dw and project over the output map
-            flop = 2 * BATCH * e * (blob.h * blob.w * blob.c
-                                    + blob.h * blob.w // 4 * (9 + p)) / 1e9
-            log(f"[6] K3 block {b.start} {blob.h}x{blob.w} C{blob.c} "
-                f"E{bp.w1.shape[1]} bf16 batch {BATCH}: kernel {ms:.4f} ms "
-                f"({flop / ms:.1f} TFLOP/s useful), plain {pms:.4f} ms")
     (k3_ms, k3_ms2), (k3_pms, k3_pms2) = turns(
         lambda: region_blocks(True, True), lambda: region_blocks(True, False))
     log(f"[6] K3 all 4 stride-2 blocks bf16 batch {BATCH}: kernel "
@@ -957,6 +958,12 @@ def main() -> int:
             f" ms), cuDNN chain {bench[k]['chain_ms']:.4f} ms, plain "
             f"{bench[k]['plain_ms']:.4f} ms")
     part_b = [r for c, r in zip(cases, rows) if c.part == "b"]
+    # the cuDNN chain at the region path's blocks: K1's and K3's yardstick
+    chain_b = {s: sum(r["ms_chain"] for r in part_b if r["stride"] == s)
+               for s in (1, 2)}
+    log(f"[7] the cuDNN chain at xl's region blocks, bf16 batch 64: the 20 "
+        f"stride-1 blocks {chain_b[1]:.4f} ms, the 4 stride-2 blocks "
+        f"{chain_b[2]:.4f} ms")
     for k in ("8", "9"):
         rs = [r for r in part_b if "ms" + k in r]
         log(f"[7] K{k} xl's {len(rs)} region blocks, bf16 batch 64: kernel "
@@ -996,11 +1003,13 @@ def main() -> int:
     launches = main_counts["region"]
     kernels = [
         entry("block_fused_s1", "K1", "block_fused.cu", "block_fused.py:206",
-              launches["K1"], rk1_ms, rk1_pms, works["K1"]),
+              launches["K1"], rk1_ms, rk1_pms, works["K1"],
+              cudnn_chain_ms=chain_b[1]),
         entry("nms_keep_mask", "K2", "nms.cu", "nms_pallas.py:26",
               launches["K2"], nms_ms[nk][0], nms_ms[nk][1], works["K2"]),
         entry("block_fused_s2", "K3", "block_down.cu", "block_fused.py:299",
-              launches["K3"], k3_ms, k3_pms, works["K3"]),
+              launches["K3"], k3_ms, k3_pms, works["K3"],
+              cudnn_chain_ms=chain_b[2]),
         entry("conv0_fused", "K6", "conv0_fused.cu", "conv0_fused.py:37",
               launches["K6"], k6_ms, k6_pms, works["K6"]),
         entry("head_fused", "K7", "head_fused.cu", "head_fused.py:119",

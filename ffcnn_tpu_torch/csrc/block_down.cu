@@ -1,6 +1,6 @@
 // K3: the fused stride-2 (stage-transition) block, NHWC: pw expand -> act
 // -> zero pad -> dw3x3 stride 2 -> act -> pw project -> act, no residual.
-// The kernel is the template in block_fused.cuh, at S = 2.
+// The kernel is the tensor-core template in block_mma.cuh, at S = 2.
 //
 // Replaces ffcnn_tpu/kernels/block_fused.py::_make_down_kernel (launched
 // once per stride-2 block by _cs_down_block).  The TPU kernel splits each
@@ -10,7 +10,7 @@
 // no split is needed.  A TH x TW output tile expands a (2TH+1) x (2TW+1)
 // halo, in two passes of the stride-1 kernel's register budget.
 
-#include "block_fused.cuh"
+#include "block_mma.cuh"
 
 extern "C" {
 

@@ -1,10 +1,10 @@
 // K1: the fused stride-1 inverted-residual block, NHWC (the kernel is the
-// template in block_fused.cuh, at S = 1).
+// tensor-core template in block_mma.cuh, at S = 1).
 //
 // Replaces ffcnn_tpu/kernels/block_fused.py::_make_kernel (launched once per
 // block by _cs_block).
 
-#include "block_fused.cuh"
+#include "block_mma.cuh"
 
 extern "C" {
 

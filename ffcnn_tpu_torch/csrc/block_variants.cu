@@ -10,8 +10,8 @@
 //             __hadd_rn, which nvcc never contracts into an FMA) and the
 //             leaky slope is bf16(0.1); with T = float32 the sums are float32
 //   pwonly    y = T((leaky(x @ w1 * s1 + b1) @ w2) * s3 + b3 + x), no halo
-//   full      K1 itself: block_fused.cuh's run_block<1>, the template and
-//             C-entry body that block_fused.cu launches
+//   full      K1 itself: block_mma.cuh's run_block<1>, the tensor-core
+//             template and C-entry body that block_fused.cu launches
 //   fullbf16  full with w1 and w2 rounded to bf16, the expand rounded to
 //             bf16 after the halo is zeroed, and the depthwise output
 //             rounded to bf16 before the projection
@@ -25,8 +25,9 @@
 // K1, and the wrapper converts the layout before and after.  Every mode
 // takes K1's arguments (ffcnn_block::Args, kdw as K1's (E, 9)) and K1's
 // activation ids; `full` launches K1's own template, and pwonly and
-// fullbf16 are K1's block_kernel body at S = 1 with only their mode's
-// changes.  block_fused.cuh is included read-only, so K1 is unchanged.
+// fullbf16 are the float32-FMA body K1 had before its tensor-core redesign
+// (block_kernel below, at S = 1) with only their mode's changes, so the
+// split they give is that of the earlier K1.
 //
 // Bound on this card: every variant moves the block's input and output
 // once (copy and the tap modes are bound by those bytes), and the full
@@ -37,7 +38,7 @@
 
 #include <type_traits>
 
-#include "block_fused.cuh"
+#include "block_mma.cuh"
 
 namespace p3 {
 
@@ -149,8 +150,9 @@ __global__ void __launch_bounds__(kThreads) tap_kernel(Args a) {
   }
 }
 
-// pwonly and fullbf16: K1's block_kernel (block_fused.cuh) at S = 1, Tin =
-// Tout = T, with only the mode's changes, each marked "mode:" below.
+// pwonly and fullbf16: the float32-FMA block_kernel K1 had before its
+// tensor-core redesign, at S = 1, Tin = Tout = T, with only the mode's
+// changes, each marked "mode:" below.
 template <typename T, int MODE, int PJ>
 __global__ void __launch_bounds__(kThreads) block_kernel(Args a) {
   constexpr bool kBf = MODE == kFullBf16;

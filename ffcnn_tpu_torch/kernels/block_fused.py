@@ -2,8 +2,9 @@
 (+ residual), the expand tensor never in device memory.  Holds the planner
 (pure IR code), the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Four kernels.  K1 and K3 are one template (``csrc/block_fused.cuh``), K4
-and K5 chain its blocks (``csrc/block_chain.cuh``):
+Four kernels.  K1 and K3 are one tensor-core template
+(``csrc/block_mma.cuh``); K4 and K5 chain blocks on the float32 chunk
+scheme of ``csrc/block_chain.cuh``:
 
 * K1 (``fused_block``, ``csrc/block_fused.cu``) replaces
   ``ffcnn_tpu/kernels/block_fused.py::_make_kernel``, the stride-1 block
@@ -26,8 +27,13 @@ so materialising it dominates the block's device-memory traffic; the
 kernels keep it in shared memory instead.  A CTA owns a tile of output
 pixels of one image and walks E in chunks: it expands the tile's input halo
 into shared memory, applies the depthwise 3x3 and adds the chunk's share of
-the projection to float32 accumulators.  Expand and project are float32
-FMAs on the CUDA cores; moving them onto the tensor cores is later work.
+the projection to float32 accumulators.  In K1 and K3 the expand and the
+project run on the tensor cores in 3xTF32 (each float32 operand split into
+a TF32 big and small part, the small*small product dropped: about 2^-21 of
+each product, within the float32 tolerance one TF32 pass misses), the
+depthwise taps in float32 on the CUDA cores, and the activations of the
+combinations that ``plan_runs`` yields on ``models/*.cfg`` are fixed at
+compile time.  K4 and K5 still run float32 FMAs on the CUDA cores.
 
 Departures from the JAX package, neither of which changes a plan:
 
@@ -212,13 +218,14 @@ def block_params(ir: NetIR, params, b: FusedBlock) -> BlockParams:
         residual=b.residual, res_act=b.res_act)
 
 
-def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int
-               ) -> torch.Tensor:
-    """The block in plain PyTorch, float32 inside and out, NHWC."""
+def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int,
+               matmul=torch.matmul) -> torch.Tensor:
+    """The block in plain PyTorch, float32 inside and out, NHWC; ``matmul``
+    computes the two pointwise products."""
     xf = x.float()
     n, h, w, _ = x.shape
     ho, wo = h // stride, w // stride
-    a = activate(torch.matmul(xf, bp.w1) * bp.s1 + bp.b1, bp.acts[0])
+    a = activate(matmul(xf, bp.w1) * bp.s1 + bp.b1, bp.acts[0])
     # the dw zero padding applies to the expand OUTPUT (pw of a zero row is
     # act(b1), not 0)
     a = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
@@ -232,7 +239,7 @@ def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int
                            dx:dx + stride * wo:stride]
                          * bp.kdw[:, dy * 3 + dx])
     h2 = activate(acc * bp.s2 + bp.b2, bp.acts[1])
-    y = activate(torch.matmul(h2, bp.w2) * bp.s3 + bp.b3, bp.acts[2])
+    y = activate(matmul(h2, bp.w2) * bp.s3 + bp.b3, bp.acts[2])
     if bp.residual:
         y = activate(y + xf, bp.res_act)
     return y

@@ -14,7 +14,9 @@ Modes:
     through the block kernels at every batch size.
 
 Fast mode reads the JAX package's fusion flags once, when the Net is built:
-``FFCNN_FUSED_MINC`` and ``FFCNN_FUSED_DOWN`` (the planned runs; with
+``FFCNN_FUSED=0`` (the kill switch: no fused block run is planned, and the
+stem then runs as a plain conv, as in JAX; the head chains keep their own
+flag), ``FFCNN_FUSED_MINC`` and ``FFCNN_FUSED_DOWN`` (the planned runs; with
 ``DOWN=1, MINC=8`` they span whole backbone regions, stride-2 blocks
 included), ``FFCNN_CONV0_PALLAS`` (the uint8 stem kernel, feeding a run at
 layer 1) and ``FFCNN_FUSED_HEADS`` (the fused yolo-head chains).  All four
@@ -23,8 +25,10 @@ more choose how a run's blocks launch: ``FFCNN_FUSED_CASCADE=k`` (up to k
 consecutive stride-1 blocks in one launch, K4), ``FFCNN_FUSED_MEGA`` (a run
 of stride-1 blocks that passes ``mega_fits`` in one launch, K5) and
 ``FFCNN_FUSED_STORE=f32`` (the boundaries between launches in float32).
-``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` are not ported: a fast Net
-refuses them.
+``FFCNN_HEAD_F32``, ``FFCNN_F32_STAGES`` and ``FFCNN_CONV0_INT8=1`` (conv-1
+in int8) are not ported: a fast Net refuses them.  A parity Net refuses
+``FFCNN_PARITY_PRECISION=high`` (JAX's 3-pass bf16 convs; TF32 would be a
+different rounding, not the same one).
 """
 
 from __future__ import annotations
@@ -103,6 +107,13 @@ class Net:
         if fast and get_flag("FFCNN_F32_STAGES", ""):
             raise NotImplementedError("FFCNN_F32_STAGES (float32 stages) is "
                                       "not ported yet")
+        if fast and get_flag("FFCNN_CONV0_INT8", "0") == "1":
+            raise NotImplementedError("FFCNN_CONV0_INT8 (conv-1 in int8) is "
+                                      "not ported yet")
+        if not fast and get_flag("FFCNN_PARITY_PRECISION",
+                                 "highest").lower() == "high":
+            raise NotImplementedError("FFCNN_PARITY_PRECISION=high (3-pass "
+                                      "bf16 parity convs) is not ported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
@@ -113,8 +124,10 @@ class Net:
         self._dtype = torch.float32 if mode == "parity" else torch.bfloat16
         # parity mode runs no fused kernel, for parity with the reference;
         # fast mode resolves the flags here, as the JAX Net does in its
-        # constructor and when it traces a pipeline
-        self._fused_runs = plan_runs(ir) if fast else []
+        # constructor and when it traces a pipeline (FFCNN_FUSED=0: JAX's
+        # runs_usable turns every run off)
+        self._fused_runs = plan_runs(ir) if fast and os.environ.get(
+            "FFCNN_FUSED", "1") != "0" else []
         self._fused_params = {r.start: [block_params(ir, self.params, b)
                                         for b in r.blocks]
                               for r in self._fused_runs}
