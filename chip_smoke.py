@@ -16,6 +16,11 @@ yolo-fastest-xl at 320x320 with synthesized weights (seed 42):
   of 2-3 blocks through the halo cascade K4, 2 K1 and 4 K3 blocks, K7;
 * mega (``FFCNN_FUSED_MEGA=1``): run 84-108 in one K5 launch, 8 K1 blocks.
 
+K1, K3, K4 and K5 run both pointwise products on the tensor cores
+(``mma.sync`` in 3xTF32, ``csrc/tf32_mma.cuh``); K4 and K5 keep every
+boundary of their chain in shared memory in float32, K5 with a cluster of
+two CTAs an image while the batch leaves SMs idle.
+
 The region configuration is also built at 416x416, where K7's stage
 buffers leave shared memory for device memory.  Then the block A/B bench
 (``ffcnn_tpu_torch/bench_block.py``) runs its two parts: the seven configs
@@ -27,16 +32,19 @@ which exits non-zero on failure:
   2. build every kernel from ffcnn_tpu_torch/csrc/ (one nvcc per source,
      all started together)
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the paths give it, batch 64
+     shapes the paths give it, batch 64 (K4 every group, K5 at both
+     cluster sizes)
   4. each path: ``detect`` on a batch of 64 frames and on one 640x448
      frame, with every kernel launch count read around the call; heads and
      detections against the same Net on the CPU; the region Net at
      416x416 likewise
   5. parity mode on the card against parity mode on the CPU
   6. timings with CUDA events: kernels against their plain versions (K1
-     and K3 also by geometry, in us a block; K4 and K5 also against the K1
-     launches they replace), the whole forward of every path, img/s of
-     every path
+     and K3 also by geometry, in us a block; K4 by group, with the work
+     its halo recompute adds; K5 at one CTA an image and at a cluster of
+     two, batch 64, 66, 67, 128 and 256; each with its tile, CTAs, us a
+     block and ratio to the K1 launches they replace), the whole forward
+     of every path, img/s of every path
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -341,6 +349,16 @@ def chain_work(bb, n, h, w, bps, stride=1):
     return dataclasses.replace(work, bytes=work.bytes - inner)
 
 
+def halo_work(bf, h, w, bps, tile):
+    """K4's work at ``tile`` over the work of its blocks each over the
+    whole (h, w) map as one tile, both by the tile search's cost model
+    (``_cascade_cost``): how much the chain's halo recompute adds."""
+    widths = bf._widths(bps)
+    tiled = sum(n * bf._cascade_cost(widths, r, c)
+                for r, c, n in bf._cut_tiles(h, w, *tile))
+    return tiled / sum(bf._cascade_cost([wd], h, w) for wd in widths)
+
+
 def head_work(bb, n, hps, c_in):
     """K7's chain over an (n, h, w, c_in) bf16 input to its bf16 head map:
     pointwise and depthwise operations, float32 weights."""
@@ -634,23 +652,29 @@ def main() -> int:
             f"memory, {hf.scratch_floats(hps416) * 4} B an image)",
             hf.apply_head_run(x, hrun416, hps416), hf.head_plain(x, hps416)))
     # K4 at the cascade path's 7 groups, K5 at the mega path's run, each
-    # with the tile the wrapper picks at this batch
+    # with the tile the wrapper picks
     for g, bps in cgroups:
         blob = ir.blobs[g[0].start]
-        tile = bf.check_chain_fits(blob.h, blob.w, bps, n=BATCH)
+        tile = bf.check_chain_fits(blob.h, blob.w, bps)
         for dt in dtypes:
             x = rand((BATCH, blob.h, blob.w, blob.c), dt)
             errs["K4"] = max(errs["K4"], check_kernel(
                 f"K4 group {[b.start for b in g]} {blob.h}x{blob.w} "
                 f"C{blob.c} -> P{bps[-1].w2.shape[1]} tile {tile}",
                 bf.fused_cascade(x, bps), bf.chain_plain(x, bps)))
+    # K5 at the cluster the wrapper picks at this batch, then at the other
     mblob = ir.blobs[84]
+    mcluster = bf.mega_cluster(mblob.h, BATCH, bf.sm_count(dev))
     for dt in dtypes:
         x = rand((BATCH, mblob.h, mblob.w, mblob.c), dt)
-        errs["K5"] = max(errs["K5"], check_kernel(
-            f"K5 run 84-108 {mblob.h}x{mblob.w} C{mblob.c} 5 blocks tile "
-            f"{bf.check_chain_fits(mblob.h, mblob.w, mbps, mega=True)}",
-            bf.fused_mega(x, mbps), bf.chain_plain(x, mbps)))
+        want = bf.chain_plain(x, mbps)
+        for cl in (mcluster, 3 - mcluster):
+            errs["K5"] = max(errs["K5"], check_kernel(
+                f"K5 run 84-108 {mblob.h}x{mblob.w} C{mblob.c} 5 blocks, "
+                f"{cl} CTA(s) an image, tile "
+                f"{bf.check_chain_fits(mblob.h, mblob.w, mbps, True, cluster=cl)}",
+                bf.fused_mega(x, mbps) if cl == mcluster
+                else bf.launch_mega(x, mbps, cl), want))
     for k in NMS_KS:
         for kind in ("min", "union"):
             cand = nms_candidates(BATCH, k, seed=k)
@@ -817,13 +841,18 @@ def main() -> int:
           for g, _ in cgroups]
     for (g, bps), x in zip(cgroups, xg):
         blob = ir.blobs[g[0].start]
+        tile = bf.check_chain_fits(blob.h, blob.w, bps)
+        ctas = BATCH * -(-blob.h // tile[0]) * -(-blob.w // tile[1])
         ms = cuda_ms(lambda: bf.fused_cascade(x, bps))
         k1ms = cuda_ms(lambda: k1_chain(x, bps))
         pms = cuda_ms(lambda: bf.chain_plain(x, bps), iters=5)
         log(f"[6] K4 group {[b.start for b in g]} {blob.h}x{blob.w} tile "
-            f"{bf.check_chain_fits(blob.h, blob.w, bps, n=BATCH)} bf16 batch "
-            f"{BATCH}: kernel {ms:.4f} ms, K1 x{len(bps)} {k1ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+            f"{tile}, {ctas} CTAs, halo work "
+            f"{halo_work(bf, blob.h, blob.w, bps, tile):.2f}x, bf16 batch "
+            f"{BATCH}: kernel {ms:.4f} ms "
+            f"({ms * 1e3 / len(bps):.1f} us a block), K1 x{len(bps)} "
+            f"{k1ms:.4f} ms ({k1ms * 1e3 / len(bps):.1f} us a block), "
+            f"ratio {ms / k1ms:.2f}, plain {pms:.4f} ms")
 
     def k4_all(kernel):
         for (_, bps), x in zip(cgroups, xg):
@@ -833,18 +862,34 @@ def main() -> int:
     k4_k1 = cuda_ms(lambda: [k1_chain(x, bps)
                              for (_, bps), x in zip(cgroups, xg)], 10)
     log(f"[6] K4 all 7 groups bf16 batch {BATCH}: kernel {k4_ms:.4f} / "
-        f"{k4_ms2:.4f} ms, the 18 K1 launches they replace {k4_k1:.4f} ms, "
-        f"plain {k4_pms:.4f} / {k4_pms2:.4f} ms")
+        f"{k4_ms2:.4f} ms, the 18 K1 launches they replace {k4_k1:.4f} ms "
+        f"(ratio {k4_ms / k4_k1:.2f}), plain {k4_pms:.4f} / {k4_pms2:.4f} "
+        f"ms")
+
+    # K5 at one CTA an image and at a cluster of two, against its five K1
+    # launches; the wrapper picks the cluster by the batch and the card's
+    # SMs (2n <= SMs), so batch 66, 67 and 128 read either side of its cut.
+    # The size it picks is timed through fused_mega, the other directly.
     k5 = {}
-    for nb in (BATCH, 256):
+    for nb in (BATCH, 66, 67, 128, 256):
         x = rand((nb, mblob.h, mblob.w, mblob.c), bf16)
-        (ms, ms2), (pms, pms2) = turns(lambda: bf.fused_mega(x, mbps),
-                                       lambda: bf.chain_plain(x, mbps), 10)
         k1ms = cuda_ms(lambda: k1_chain(x, mbps))
-        k5[nb] = (ms, pms)
-        log(f"[6] K5 run 84-108 10x10 C96 E448 bf16 batch {nb}: kernel "
-            f"{ms:.4f} / {ms2:.4f} ms, its 5 K1 launches {k1ms:.4f} ms, "
-            f"plain {pms:.4f} / {pms2:.4f} ms")
+        for cl in (1, 2):
+            picked = cl == bf.mega_cluster(mblob.h, nb, bf.sm_count(dev))
+            (ms, ms2), (pms, pms2) = turns(
+                (lambda: bf.fused_mega(x, mbps)) if picked
+                else (lambda: bf.launch_mega(x, mbps, cl)),
+                lambda: bf.chain_plain(x, mbps), 10)
+            tile = bf.check_chain_fits(mblob.h, mblob.w, mbps, True,
+                                       cluster=cl)
+            if picked:
+                k5[nb] = (ms, pms)
+            log(f"[6] K5 run 84-108 10x10 C96 E448 bf16 batch {nb}, "
+                f"cluster {cl}{' (the wrapper picks it)' if picked else ''}"
+                f", tile {tile}, {nb * cl} CTAs: kernel {ms:.4f} / "
+                f"{ms2:.4f} ms ({ms * 1e3 / len(mbps):.1f} us a block), "
+                f"its 5 K1 launches {k1ms:.4f} ms, ratio {ms / k1ms:.2f}, "
+                f"plain {pms:.4f} / {pms2:.4f} ms")
 
     nms_ms = {}
     for k in NMS_KS:

@@ -5,18 +5,20 @@
 // by _cs_cascade).  The TPU kernel takes R output rows plus K halo rows on
 // each side and shrinks the valid span by two rows a block; here a CTA owns
 // a TH x TW output tile of one image, loads the (TH+2K) x (TW+2K) input halo
-// once into shared memory as float32, and applies the K blocks in turn, each
-// to the map one pixel ring smaller than its input (block_chain.cuh).  The
-// tiles are two-dimensional, so the expand zeroing applies at all four edges
-// of the image.  A tile at the map's right or bottom edge is cut to the map.
+// once into shared memory as float32 (vector loads), and applies the K
+// blocks in turn, each to the map one pixel ring smaller than its input
+// (block_chain.cuh).  The tiles are two-dimensional, so the expand zeroing
+// applies at all four edges of the image.  A tile at the map's right or
+// bottom edge is cut to the map.
 //
 // Bound on this card: the per-block launches (K1) write each boundary to
 // device memory and read it back with a halo; here it never leaves the CTA,
 // but the K halo rings are recomputed, (TH+2K)(TW+2K)/(TH*TW) of the first
-// block's expand, and the two float32 maps take most of the shared memory,
-// so a CTA has an SM to itself.  The kernel is bound by float32 FMAs on the
-// CUDA cores, as K1 is; the wrapper's tile search (kernels/block_fused.py
-// pick_cascade_tile) trades the halo recompute against the shared memory.
+// block's expand.  Both pointwise products run on the tensor cores in
+// 3xTF32 (block_chain.cuh), so what is left on the CUDA cores is the
+// depthwise taps, the epilogues and the splits; the wrapper's tile search
+// (kernels/block_fused.py pick_cascade_tile) prices those against the halo
+// recompute within the shared memory of one 512-thread CTA an SM.
 
 #include "block_chain.cuh"
 
@@ -24,41 +26,41 @@ using namespace ffcnn_block;
 
 namespace {
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCThreads, 1)
     cascade_kernel(const __grid_constant__ ChainArgs a) {
   extern __shared__ float4 smem4[];
   float* base = reinterpret_cast<float*>(smem4);
-  float* buf[2] = {base, base + a.sm.buf0};
+  float* map[2] = {base, base + a.sm.map0};
   const Scratch s = scratch_of(base, a.sm);
-  const int k = a.nb, img = blockIdx.y;
-  const int ty0 = (blockIdx.x / a.tiles_w) * a.th;
-  const int tx0 = (blockIdx.x % a.tiles_w) * a.tw;
+  const int k = a.nb, img = blockIdx.y, tiles_w = (a.w + a.tw - 1) / a.tw;
+  const int ty0 = (blockIdx.x / tiles_w) * a.th;
+  const int tx0 = (blockIdx.x % tiles_w) * a.tw;
   const int th = min(a.th, a.h - ty0), tw = min(a.tw, a.w - tx0);
-  {  // the input halo, k pixel rings around the tile
-    const int c = a.b[0].c, cp = pad4(c), hw = tw + 2 * k;
-    const int nq = (th + 2 * k) * hw;
-    const Tin* x = static_cast<const Tin*>(a.x) + (size_t)img * a.h * a.w * c;
-    for (int i = threadIdx.x; i < nq * cp; i += kThreads) {
-      const int q = i / cp, ch = i - q * cp;
-      const int gy = ty0 - k + q / hw, gx = tx0 - k + q % hw;
-      float v = 0.f;
-      if (ch < c && gy >= 0 && gy < a.h && gx >= 0 && gx < a.w)
-        v = to_f32(x[((size_t)gy * a.w + gx) * c + ch]);
-      buf[0][i] = v;
-    }
-  }
-  Tout* y = static_cast<Tout*>(a.y) + (size_t)img * a.h * a.w * a.b[k - 1].p;
+  const bool in_bf16 = a.flags & kChainInBf16;
+  Pipe pipe{0, (a.flags & kChainVecW) != 0};
+  stage_chunk(a.b[0], 0, s.bufs, pipe.vec);
+  // the input halo, k pixel rings around the tile
+  const int c = a.b[0].c, vec = (a.flags & kChainVecX) != 0;
+  if (in_bf16)
+    load_map<__nv_bfloat16>(map[0], map_ld(c), a.x, img, a.h, a.w, c,
+                            th + 2 * k, tw + 2 * k, ty0 - k, tx0 - k, vec);
+  else
+    load_map<float>(map[0], map_ld(c), a.x, img, a.h, a.w, c, th + 2 * k,
+                    tw + 2 * k, ty0 - k, tx0 - k, vec);
   for (int j = 0; j < k; ++j) {
     const int r = k - j;  // pixel rings around the tile on block j's input
-    const Window wd{buf[j & 1], tw + 2 * r, 0, 0, ty0 - r, tx0 - r,
-                    buf[(j + 1) & 1], tw + 2 * r - 2, 0, 0,
-                    th + 2 * r - 2, tw + 2 * r - 2};
-    run_window<Tout>(a.b[j], wd, s, j == k - 1 ? y : nullptr, a.h, a.w);
+    const ChainBlock& b = a.b[j];
+    const Window wd{map[j & 1], tw + 2 * r, map_ld(b.c), 0, 0, ty0 - r,
+                    tx0 - r, map[(j + 1) & 1], tw + 2 * r - 2, map_ld(b.p),
+                    0, 0, th + 2 * r - 2, tw + 2 * r - 2};
+    run_window(b, wd, s, j + 1 < k ? &a.b[j + 1] : nullptr, pipe,
+               j == 0 && in_bf16, j == k - 1 ? a.y : nullptr,
+               a.flags & kChainOutBf16, img, a.h, a.w);
   }
 }
 
-template <typename Tin, typename Tout>
+// Internal linkage: the record of devices whose shared-memory cap is
+// raised is this library's own.
 void launch_cascade(const ChainArgs& a, dim3 grid, size_t smem,
                     cudaStream_t stream) {
   // Raise the shared-memory cap once per device, not on every launch.
@@ -67,11 +69,11 @@ void launch_cascade(const ChainArgs& a, dim3 grid, size_t smem,
   cudaGetDevice(&dev);
   const uint64_t bit = uint64_t{1} << (dev & 63);
   if (!(raised.load(std::memory_order_relaxed) & bit) &&
-      cudaFuncSetAttribute(cascade_kernel<Tin, Tout>,
+      cudaFuncSetAttribute(cascade_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kMaxSmem) == cudaSuccess)
     raised.fetch_or(bit, std::memory_order_relaxed);
-  cascade_kernel<Tin, Tout><<<grid, kThreads, smem, stream>>>(a);
+  cascade_kernel<<<grid, kCThreads, smem, stream>>>(a);
 }
 
 }  // namespace
@@ -90,7 +92,8 @@ int ffcnn_cascade(const void* x, void* y, int in_bf16, int out_bf16, int n,
                   int h, int w, int nb, const int* meta,
                   const void* const* ptrs, int th, int tw, void* stream) {
   ChainArgs a{};
-  if (th < 1 || tw < 1 || n > 65535 || !read_chain(a, nb, meta, ptrs))
+  if (th < 1 || tw < 1 || n > 65535 ||
+      !read_chain(a, nb, meta, ptrs, in_bf16, out_bf16, x))
     return (int)cudaErrorInvalidValue;
   a.sm = cascade_smem(a, th, tw);
   const size_t smem = a.sm.bytes();
@@ -102,17 +105,8 @@ int ffcnn_cascade(const void* x, void* y, int in_bf16, int out_bf16, int n,
   a.w = w;
   a.th = th;
   a.tw = tw;
-  a.tiles_w = (w + tw - 1) / tw;
-  const dim3 grid(((h + th - 1) / th) * a.tiles_w, n);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (in_bf16 && out_bf16)
-    launch_cascade<__nv_bfloat16, __nv_bfloat16>(a, grid, smem, s);
-  else if (in_bf16)
-    launch_cascade<__nv_bfloat16, float>(a, grid, smem, s);
-  else if (out_bf16)
-    launch_cascade<float, __nv_bfloat16>(a, grid, smem, s);
-  else
-    launch_cascade<float, float>(a, grid, smem, s);
+  const dim3 grid(((h + th - 1) / th) * ((w + tw - 1) / tw), n);
+  launch_cascade(a, grid, smem, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,10 @@
 //                      + b2 ) @ w2) * s3 + b3 ) + x )   (residual: S == 1)
 //
 // K1 and K3 (block_fused.cu, block_down.cu) are the tensor-core kernel of
-// block_mma.cuh; the chained kernels K4 and K5 (block_chain.cuh), the block
-// bench's K8 and K9 (mbconv.cu, mbconv_cs.cu) and the probe P3
-// (block_variants.cu) build on the chunk scheme whose constants live here:
+// block_mma.cuh, and the chained kernels K4 and K5 (block_chain.cuh) run
+// the same product code (tf32_mma.cuh); the block bench's K8 and K9
+// (mbconv.cu, mbconv_cs.cu) and the probe P3 (block_variants.cu) build on
+// the float32 chunk scheme whose constants live here:
 // a CTA of kThreads owns a tile of at most kMaxPix output pixels (an input
 // halo of at most max_halo<S>() pixels) and kOG output channels, and walks
 // E in chunks of kEC channels, one per lane, expanding kHaloPass halo

@@ -57,31 +57,15 @@
 //   rows t and columns g, which a stride of 8 mod 16 spreads.
 // * Widths need not be multiples of 8: C is padded to 8 and E and P to n8
 //   tiles with zeros in shared memory, and the stores skip the padding.
+// The product helpers (3xTF32, cp.async, the padded strides, the activation
+// instances) live in tf32_mma.cuh, which the chained kernels K4 and K5 share.
 
 #pragma once
 
-#include "block_fused.cuh"
+#include "tf32_mma.cuh"
 
 namespace ffcnn_block {
-
-// The activation combinations fixed at compile time: {act1, act2, act3,
-// res_act} (res_act is not read where a block has no residual).
-#define FFCNN_BLOCK_ACT_INSTANCES(X)                                     \
-  X(2, 2, 0, 0) /* yolo-fastest-xl: leaky, leaky, linear; linear res */ \
-  X(1, 2, 0, 2) /* ffcnn-micro: relu, leaky, linear; leaky res */
-
 namespace mma {
-
-constexpr int kChunk = 32;              // expand channels per chunk
-constexpr int kLdH = kChunk + 8;        // expand output row stride
-constexpr int kVec = 13 * kChunk;       // a chunk's s1, b1, s2, b2, kdw (x9)
-
-// Row strides in floats: A-fragment arrays take 4 mod 8, B-fragment arrays
-// 8 mod 16 (see the header).
-__host__ __device__ constexpr int ld_a(int k) { return (k + 3) / 8 * 8 + 4; }
-__host__ __device__ constexpr int ld_b(int n) { return (n + 7) / 16 * 16 + 8; }
-constexpr int kLdA2 = ld_a(kChunk);     // the depthwise output, big and small
-constexpr int kLdW1 = ld_b(kChunk);     // the expand weight chunk
 
 // Shared memory in floats for a halo of nq pixels, C padded to cp8 and a
 // CTA's outputs padded to pn (the tests mirror it to check the cfgs' blocks):
@@ -94,104 +78,6 @@ __host__ __device__ constexpr int smem_floats(int nq, int cp8, int pn) {
 }
 
 enum Flags { kInBf16 = 1, kOutBf16 = 2, kVec16 = 4 };
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small to about 2^-22 of v
-__device__ __forceinline__ void split(float v, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(v);
-  small = tf32(v - __uint_as_float(big));
-}
-
-// d += a @ b, one m16n8k8 TF32 product with a float32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d[j] += (a_big + a_small) @ (b_big[j] + b_small[j]) for the n8 tiles
-// j < N that are live, without the small*small term; a_small is skipped
-// where it is zero (a bfloat16 input).  b[j] holds the raw B fragment
-// {B[t][g], B[t + 4][g]}.  Each of the three passes runs over every tile
-// before the next starts, so that no mma waits on the one issued just
-// before it (they share no accumulator).
-template <int N>
-__device__ __forceinline__ void mma_3x(float (&d)[N][4],
-                                       const uint32_t (&ab)[4],
-                                       const uint32_t (&as)[4], bool a_exact,
-                                       const float (&b)[N][2],
-                                       const bool (&live)[N]) {
-  uint32_t bb[N][2], bs[N][2];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    split(b[j][0], bb[j][0], bs[j][0]);
-    split(b[j][1], bb[j][1], bs[j][1]);
-  }
-  if (!a_exact) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (live[j]) mma_tf32(d[j], as, bb[j][0], bb[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (live[j]) mma_tf32(d[j], ab, bs[j][0], bs[j][1]);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (live[j]) mma_tf32(d[j], ab, bb[j][0], bb[j][1]);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
-
-// Start copying a rows x cols block of floats (row stride sld) into shared
-// memory (row stride dld), zero-filled out to rpad x cpad.  vec: 16-byte
-// copies (cols, cpad, sld and dld multiples of 4, src 16-byte aligned).
-__device__ __forceinline__ void stage(float* dst, int dld, const float* src,
-                                      int sld, int rows, int cols, int rpad,
-                                      int cpad, bool vec) {
-  if (vec) {
-    const int nv = cpad >> 2;
-    for (int i = threadIdx.x; i < rpad * nv; i += kThreads) {
-      const int r = i / nv, c = (i - r * nv) << 2;
-      const bool ok = r < rows && c < cols;
-      cp_async16(dst + r * dld + c, ok ? src + (size_t)r * sld + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rpad * cpad; i += kThreads) {
-      const int r = i / cpad, c = i - r * cpad;
-      const bool ok = r < rows && c < cols;
-      cp_async4(dst + r * dld + c, ok ? src + (size_t)r * sld + c : src, ok);
-    }
-  }
-}
 
 // The input halo as float32, [nq16][ldx]: zero outside the image, past C
 // and in the rows that round nq up to whole 16-row slabs.
@@ -233,12 +119,6 @@ __device__ __forceinline__ void load_halo(float* xs, int ldx, const Args& a,
     d[0] = make_float4(v[0], v[1], v[2], v[3]);
     d[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
-}
-
-// act with the id fixed at compile time, or (A < 0) read at run time
-template <int A>
-__device__ __forceinline__ float act_t(float v, int runtime_id) {
-  return act(v, A < 0 ? runtime_id : A);
 }
 
 // The expand of one 16-row slab of the halo (rows r0..r0+15) for the

@@ -2,9 +2,9 @@
 (+ residual), the expand tensor never in device memory.  Holds the planner
 (pure IR code), the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Four kernels.  K1 and K3 are one tensor-core template
-(``csrc/block_mma.cuh``); K4 and K5 chain blocks on the float32 chunk
-scheme of ``csrc/block_chain.cuh``:
+Four kernels, all on one tensor-core product code (``csrc/tf32_mma.cuh``):
+K1 and K3 are one template (``csrc/block_mma.cuh``), K4 and K5 chain blocks
+in ``csrc/block_chain.cuh``:
 
 * K1 (``fused_block``, ``csrc/block_fused.cu``) replaces
   ``ffcnn_tpu/kernels/block_fused.py::_make_kernel``, the stride-1 block
@@ -19,21 +19,24 @@ scheme of ``csrc/block_chain.cuh``:
   float32.
 * K5 (``fused_mega``, ``csrc/block_mega.cu``) replaces ``_make_mega_kernel``
   (``_apply_run_mega``): a whole run of stride-1 blocks in one launch
-  (``FFCNN_FUSED_MEGA``, where ``mega_fits``), one image's map resident on
-  chip in float32.
+  (``FFCNN_FUSED_MEGA``, where ``mega_fits``), each image's map resident on
+  chip in float32, split over a cluster of two CTAs while the batch leaves
+  SMs idle (``mega_cluster``).
 
 The expand tensor is E/C times the block's input (3-6x on yolo-fastest-xl),
 so materialising it dominates the block's device-memory traffic; the
 kernels keep it in shared memory instead.  A CTA owns a tile of output
-pixels of one image and walks E in chunks: it expands the tile's input halo
-into shared memory, applies the depthwise 3x3 and adds the chunk's share of
-the projection to float32 accumulators.  In K1 and K3 the expand and the
-project run on the tensor cores in 3xTF32 (each float32 operand split into
-a TF32 big and small part, the small*small product dropped: about 2^-21 of
-each product, within the float32 tolerance one TF32 pass misses), the
-depthwise taps in float32 on the CUDA cores, and the activations of the
-combinations that ``plan_runs`` yields on ``models/*.cfg`` are fixed at
-compile time.  K4 and K5 still run float32 FMAs on the CUDA cores.
+pixels of one image and walks E in chunks of 32: it expands the tile's
+input halo into shared memory, applies the depthwise 3x3 and adds the
+chunk's share of the projection to float32 accumulators (K1 and K3 keep
+them in registers, K4 and K5 in the window's float32 output map).  The
+expand and the project run on the tensor cores in 3xTF32 (each float32
+operand split into a TF32 big and small part, the small*small product
+dropped: about 2^-21 of each product, within the float32 tolerance one TF32
+pass misses), the depthwise taps in float32 on the CUDA cores, the next
+chunk's weights arrive by ``cp.async`` while this one computes, and the
+activations of the combinations that ``plan_runs`` yields on
+``models/*.cfg`` are fixed at compile time.
 
 Departures from the JAX package, neither of which changes a plan:
 
@@ -264,14 +267,16 @@ def block_down_plain(x: torch.Tensor, bp: BlockParams,
 
 
 def chain_plain(x: torch.Tensor, bps: List[BlockParams],
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                matmul=torch.matmul) -> torch.Tensor:
     """Stride-1 blocks chained in plain PyTorch, NHWC: float32 between the
     blocks, never rounded, and one cast at the end (to ``out_dtype``,
     default x's).  What ``_make_cascade_kernel`` computes for a group and
-    ``_make_mega_kernel`` for a run: the plain version of K4 and of K5."""
+    ``_make_mega_kernel`` for a run: the plain version of K4 and of K5.
+    ``matmul`` computes the pointwise products (as in ``_block_f32``)."""
     y = x
     for bp in bps:
-        y = _block_f32(y, bp, 1)
+        y = _block_f32(y, bp, 1, matmul)
     return y.to(out_dtype or x.dtype)
 
 
@@ -351,47 +356,89 @@ def _widths(bps: List[BlockParams]) -> Widths:
                  for bp in bps)
 
 
-def _pad4(c: int) -> int:
-    return -(-c // 4) * 4
+# The chained kernels' shared-memory layout (csrc/block_chain.cuh, on the
+# constants of csrc/tf32_mma.cuh): 32-channel chunks, the expanded halo at
+# a row stride of 40 floats, the depthwise output at ld_a(32), and each
+# chunk buffer's vectors s1 b1 s2 b2 kdw in 13 x 32 floats.
+_CHUNK = 32
 
 
-def _proj_stride(p: int) -> int:
-    g = 32 * (4 if p >= 128 else -(-p // 32))
-    return -(-p // g) * g
+def _ld_a(k: int) -> int:
+    return (k + 3) // 8 * 8 + 4
 
 
-def _chunk_floats(widths: Widths, halo: int, pix: int) -> int:
-    """The chunk buffers of csrc/block_chain.cuh: the expand and project
-    weight chunks, the expanded halo and the dw output (32 channels)."""
-    cpin = max(_pad4(c) for c, _, _ in widths)
-    psmax = max(_proj_stride(p) for _, _, p in widths)
-    return 32 * (cpin + psmax + halo + -(-pix // 64) * 64)
+def _ld_b(n: int) -> int:
+    return (n + 7) // 16 * 16 + 8
+
+
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _map_ld(c: int) -> int:
+    """Row stride of a map of c channels (block_chain.cuh ``map_ld``)."""
+    return _ld_a(_pad8(c))
+
+
+def _chain_floats(widths: Widths, oh: int, ow: int) -> int:
+    """The layout's terms besides the maps, for a largest window of oh x ow
+    output pixels: the expanded halo, the depthwise output, the pixel table
+    and the two chunk buffers (``window_smem`` and ``chunk_floats`` in
+    block_chain.cuh)."""
+    npix16 = _round16(oh * ow)
+    buf = max(_pad8(c) * _ld_b(_CHUNK) + _CHUNK * _ld_b(_pad8(p))
+              + 13 * _CHUNK for c, _, p in widths)
+    return ((oh + 2) * (ow + 2) * (_CHUNK + 8) + npix16 * _ld_a(_CHUNK)
+            + npix16 + 2 * buf)
 
 
 def cascade_smem(widths: Widths, th: int, tw: int) -> int:
     """Bytes of shared memory K4 needs at output tile (th, tw), as
     ``cascade_smem`` in ``csrc/block_chain.cuh`` lays it out: block
     j reads a map of (th + 2(k-j)) x (tw + 2(k-j)) pixels from one of two
-    float32 buffers and writes one pixel ring smaller into the other."""
+    float32 maps and writes one pixel ring smaller into the other."""
     k = len(widths)
     chans = [widths[0][0]] + [p for _, _, p in widths]
-    bufs = [0, 0]
+    maps = [0, 0]
     for j in range(k + 1):
         r = k - j
-        bufs[j % 2] = max(bufs[j % 2],
-                          (th + 2 * r) * (tw + 2 * r) * _pad4(chans[j]))
-    return 4 * (sum(bufs) + _chunk_floats(
-        widths, (th + 2 * k) * (tw + 2 * k),
-        (th + 2 * k - 2) * (tw + 2 * k - 2)))
+        maps[j % 2] = max(maps[j % 2],
+                          (th + 2 * r) * (tw + 2 * r) * _map_ld(chans[j]))
+    return 4 * (sum(maps) + _chain_floats(widths, th + 2 * k - 2,
+                                          tw + 2 * k - 2))
 
 
-def mega_smem(widths: Widths, h: int, w: int, th: int, tw: int) -> int:
-    """Bytes of shared memory K5 needs for an (h, w) map at output tile
-    (th, tw), as ``mega_smem`` in ``csrc/block_chain.cuh`` lays it out:
-    two float32 maps with a one-pixel border, and one tile's chunks."""
-    cpm = max(max(_pad4(c) for c, _, _ in widths), _pad4(widths[-1][2]))
-    return 4 * (2 * (h + 2) * (w + 2) * cpm
-                + _chunk_floats(widths, (th + 2) * (tw + 2), th * tw))
+def mega_cluster(h: int, n: int, sms: int) -> int:
+    """CTAs K5 gives each of n images of h rows on a card of ``sms`` SMs,
+    1 or 2.  A CTA of K5 has an SM to itself, so while 2n <= sms a cluster
+    of two puts SMs to work that one CTA an image leaves idle, for half the
+    work a CTA; past that it takes more waves for the same work and adds a
+    boundary row of expand to each half, whole 16-row slabs and a cluster
+    barrier a block.  ``chip_smoke.py`` phase 6 times both sizes on xl's
+    run 84-108 at batch 64, 66, 67, 128 and 256 (PERF.md §6)."""
+    return 2 if h >= 2 and 2 * n <= sms else 1
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (``mega_cluster`` reads it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mega_smem(widths: Widths, h: int, w: int, th: int, tw: int,
+              cluster: int = 1) -> int:
+    """Bytes of shared memory a CTA of K5 needs for an (h, w) map at output
+    tile (th, tw) with ``cluster`` CTAs an image, as ``mega_smem`` in
+    ``csrc/block_chain.cuh`` lays it out: its ceil(h / cluster) rows with a
+    halo row above and below and a one-pixel border at the sides, twice, at
+    the chain's widest stride, and one tile's buffers."""
+    rows = -(-h // cluster)
+    ld = max(max(_map_ld(c) for c, _, _ in widths), _map_ld(widths[-1][2]))
+    return 4 * (2 * (rows + 2) * (w + 2) * ld + _chain_floats(widths, th, tw))
 
 
 def _cut_tiles(h: int, w: int, th: int, tw: int):
@@ -403,79 +450,69 @@ def _cut_tiles(h: int, w: int, th: int, tw: int):
                 yield rows, cols, nr * nc
 
 
+# A depthwise tap on the CUDA cores against one multiply-add of a pointwise
+# product on the tensor cores (3xTF32, with its splits and fragment loads):
+# about twice the clock cycles, by the phase shares that a clock-counter
+# build of K4 measured on xl's seven groups (PERF.md §6).
+_TAP_WEIGHT = 2
+
+
 def _cascade_cost(widths: Widths, th: int, tw: int) -> int:
-    """Multiply-adds of one (th, tw) tile of K4, E counted in whole chunks
-    of 32: each block expands its input map and projects its output map."""
+    """The work of one (th, tw) tile of K4 in tensor-core multiply-adds,
+    E in whole chunks of 32: each block expands its input map and projects
+    its output map on the tensor cores, in whole 16-row slabs and n8 tiles
+    (C and P padded to 8), and runs the 9 taps of each output pixel and
+    channel on the CUDA cores (``_TAP_WEIGHT`` each)."""
     k, cost = len(widths), 0
     for j, (c, e, p) in enumerate(widths):
         r = k - j
         nin = (th + 2 * r) * (tw + 2 * r)
         nout = (th + 2 * r - 2) * (tw + 2 * r - 2)
-        cost += -(-e // 32) * 32 * (nin * _pad4(c) + nout * (9 + p))
+        cost += -(-e // 32) * 32 * (_round16(nin) * _pad8(c)
+                                    + _round16(nout) * _pad8(p)
+                                    + _TAP_WEIGHT * 9 * nout)
     return cost
 
 
-# A CTA's shared memory comes out of its SM's 228 KB, with 1 KB more for
-# each resident CTA; an H100 has 132 SMs.  Two CTAs of a chained launch on
-# one SM ran 1.0-1.9x as many multiply-adds a second as one alone on xl's
-# seven cascade groups at batch 64 and 256 (H100 80GB HBM3, 700 W); the
-# tile search takes 1.3.
-_SM_SMEM, _CTA_SMEM_EXTRA, _SMS = 233472, 1024, 132
-_SM_SPEED = {1: 1.0, 2: 1.3}
-
-
-def _least_cost_tile(h: int, w: int, widths: Widths, budget: int):
-    """The tile of least multiply-adds over an (h, w) map, halo recompute
-    included, within ``budget`` bytes of shared memory (ties go to the
-    larger tile), and that cost; (None, 0) if no tile fits."""
+# K4's CTA is 512 threads at up to 128 registers each, the whole register
+# file of an SM, so one CTA has an SM and the tile search needs no occupancy
+# model: at these tiles xl's seven groups ran faster than with 256-thread
+# CTAs, two an SM at half the shared memory (PERF.md §6).
+@functools.cache
+def pick_cascade_tile(h: int, w: int, widths: Widths
+                      ) -> Optional[Tuple[int, int]]:
+    """K4's (TH, TW) output tile for a group on an (h, w) map: the least
+    work over the map, halo recompute included (``_cascade_cost``), within
+    a CTA's shared memory; ties go to the larger tile.  None if no tile
+    fits.  Cached: every launch asks."""
     best = None
     for th in range(1, h + 1):
         for tw in range(1, w + 1):
-            if cascade_smem(widths, th, tw) > budget:
+            if cascade_smem(widths, th, tw) > MAX_SMEM:
                 break                   # grows with tw
             cost = sum(n * _cascade_cost(widths, r, c)
                        for r, c, n in _cut_tiles(h, w, th, tw))
             key = (cost, -th * tw)
             if best is None or key < best[0]:
                 best = (key, (th, tw))
-    return (None, 0) if best is None else (best[1], best[0][0])
-
-
-@functools.cache
-def pick_cascade_tile(h: int, w: int, widths: Widths, n: int = 1
-                      ) -> Optional[Tuple[int, int]]:
-    """K4's (TH, TW) output tile for a group on an (h, w) map at batch n:
-    of the least-cost tiles that let one or two CTAs share an SM, the one
-    whose waves of CTAs take the least time at that many a SM.  None if no
-    tile fits.  Cached: every launch asks."""
-    best = None
-    for m, speed in _SM_SPEED.items():
-        tile, cost = _least_cost_tile(
-            h, w, widths, min(MAX_SMEM, _SM_SMEM // m - _CTA_SMEM_EXTRA))
-        if tile is None:
-            continue
-        per_image = -(-h // tile[0]) * -(-w // tile[1])
-        waves = -(-n * per_image // (_SMS * m))
-        est = waves * m * cost / per_image / speed
-        if best is None or est < best[0]:
-            best = (est, tile)
     return None if best is None else best[1]
 
 
 @functools.cache
-def pick_mega_tile(h: int, w: int, widths: Widths
+def pick_mega_tile(h: int, w: int, widths: Widths, cluster: int = 1
                    ) -> Optional[Tuple[int, int]]:
-    """K5's (TH, TW) output tile, walked over the resident (h, w) map: the
-    fewest halo pixels expanded over the map within a CTA's shared memory
-    (the whole map where it fits); ties go to the larger tile.  None if the
-    two maps alone do not fit.  Cached: every launch asks."""
-    best = None
-    for th in range(1, h + 1):
+    """K5's (TH, TW) output tile, walked over the ceil(h / cluster) rows of
+    the (h, w) map that a CTA keeps resident: the fewest halo pixels
+    expanded over those rows within a CTA's shared memory (all of them
+    where they fit); ties go to the larger tile.  None if the two maps
+    alone do not fit.  Cached: every launch asks."""
+    rows, best = -(-h // cluster), None
+    for th in range(1, rows + 1):
         for tw in range(1, w + 1):
-            if mega_smem(widths, h, w, th, tw) > MAX_SMEM:
+            if mega_smem(widths, h, w, th, tw, cluster) > MAX_SMEM:
                 break
             cost = sum(n * (r + 2) * (c + 2)
-                       for r, c, n in _cut_tiles(h, w, th, tw))
+                       for r, c, n in _cut_tiles(rows, w, th, tw))
             key = (cost, -th * tw)
             if best is None or key < best[0]:
                 best = (key, (th, tw))
@@ -483,18 +520,19 @@ def pick_mega_tile(h: int, w: int, widths: Widths
 
 
 def check_chain_fits(h: int, w: int, bps: List[BlockParams],
-                     mega: bool = False, n: int = 1) -> Tuple[int, int]:
-    """The tile K4 (or, with ``mega``, K5) takes for the chain on an (h, w)
-    map at batch n; raise if the chain cannot run on the card (``Net`` asks
-    for every group and mega run when it is built on the card)."""
+                     mega: bool = False, cluster: int = 1) -> Tuple[int, int]:
+    """The tile K4 (or, with ``mega``, K5 at ``cluster`` CTAs an image)
+    takes for the chain on an (h, w) map; raise if the chain cannot run on
+    the card (``Net`` asks for every group and mega run when it is built on
+    the card)."""
     widths = _widths(bps)
     if len(bps) > MAX_CHAIN:
         raise ValueError(f"a chain of {len(bps)} blocks; the kernels take "
                          f"at most {MAX_CHAIN}")
-    tile = (pick_mega_tile(h, w, widths) if mega
-            else pick_cascade_tile(h, w, widths, n))
+    tile = (pick_mega_tile(h, w, widths, cluster) if mega
+            else pick_cascade_tile(h, w, widths))
     if tile is None:
-        need = mega_smem(widths, h, w, 1, 1) if mega else \
+        need = mega_smem(widths, h, w, 1, 1, cluster) if mega else \
             cascade_smem(widths, 1, 1)
         raise ValueError(f"the {'mega' if mega else 'cascade'} chain "
                          f"{widths} on a {h}x{w} map needs {need} bytes of "
@@ -628,6 +666,24 @@ def _chain_args(bps: List[BlockParams]):
             (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
+def launch_cascade(x: torch.Tensor, bps: List[BlockParams], out_dtype,
+                   tile: Tuple[int, int]) -> torch.Tensor:
+    """One K4 launch at output tile ``tile`` on a checked CUDA tensor (the
+    body of ``fused_cascade``, which counts it; the smoke test also times
+    other tiles with it)."""
+    n, h, w, _ = x.shape
+    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=out_dtype,
+                    device=x.device)
+    lib = build_cascade()
+    err = lib.ffcnn_cascade(
+        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
+        n, h, w, len(bps), *_chain_args(bps), *tile, _build.stream_ptr())
+    if err:
+        raise RuntimeError("cascade launch failed: "
+                           + lib.ffcnn_cascade_error_string(err).decode())
+    return y
+
+
 def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A group of stride-1 blocks in one launch (K4), NHWC (N, H, W, C) ->
@@ -639,22 +695,33 @@ def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
     if x.device.type == "cpu":
         return chain_plain(x, bps, out_dtype)
     _check(x, bps, out_dtype)
-    n, h, w, _ = x.shape
-    th, tw = check_chain_fits(h, w, bps, n=n)
-    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=out_dtype,
-                    device=x.device)
-    lib = build_cascade()
-    err = lib.ffcnn_cascade(
-        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
-        n, h, w, len(bps), *_chain_args(bps), th, tw, _build.stream_ptr())
+    _, h, w, _ = x.shape
+    tile = check_chain_fits(h, w, bps)
+    y = launch_cascade(x, bps, out_dtype, tile)
     fused_cascade.launches += 1
-    if err:
-        raise RuntimeError("cascade launch failed: "
-                           + lib.ffcnn_cascade_error_string(err).decode())
     return y
 
 
 fused_cascade.launches = 0
+
+
+def launch_mega(x: torch.Tensor, bps: List[BlockParams],
+                cluster: int) -> torch.Tensor:
+    """One K5 launch at ``cluster`` CTAs an image on a checked CUDA tensor
+    (the body of ``fused_mega``, which counts it; the smoke test also times
+    the other cluster size with it)."""
+    n, h, w, _ = x.shape
+    th, tw = check_chain_fits(h, w, bps, mega=True, cluster=cluster)
+    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    lib = build_mega()
+    err = lib.ffcnn_mega(x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), n,
+                         h, w, len(bps), *_chain_args(bps), th, tw, cluster,
+                         _build.stream_ptr())
+    if err:
+        raise RuntimeError("mega run launch failed: "
+                           + lib.ffcnn_mega_error_string(err).decode())
+    return y
 
 
 def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
@@ -666,18 +733,9 @@ def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
     if x.device.type == "cpu":
         return chain_plain(x, bps)
     _check(x, bps, x.dtype)
-    n, h, w, _ = x.shape
-    th, tw = check_chain_fits(h, w, bps, mega=True)
-    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=x.dtype,
-                    device=x.device)
-    lib = build_mega()
-    err = lib.ffcnn_mega(x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), n,
-                         h, w, len(bps), *_chain_args(bps), th, tw,
-                         _build.stream_ptr())
+    y = launch_mega(x, bps, mega_cluster(x.shape[1], x.shape[0],
+                                         sm_count(x.device)))
     fused_mega.launches += 1
-    if err:
-        raise RuntimeError("mega run launch failed: "
-                           + lib.ffcnn_mega_error_string(err).decode())
     return y
 
 
@@ -726,7 +784,7 @@ def build_mega() -> ctypes.CDLL:
     return _load("block_mega", "ffcnn_mega",
                  [_PTR, _PTR] + [_INT] * 5 + [ctypes.POINTER(_INT),
                                               ctypes.POINTER(_PTR)]
-                 + [_INT, _INT, _PTR], "ffcnn_mega_error_string")
+                 + [_INT, _INT, _INT, _PTR], "ffcnn_mega_error_string")
 
 
 # ------------------------------------------------------------ entry points

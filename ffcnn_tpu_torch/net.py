@@ -169,7 +169,8 @@ class Net:
             b = self.ir.blobs[r.start]
             bps = self._fused_params[r.start]
             if r.start in self._mega_runs:
-                check_chain_fits(b.h, b.w, bps, mega=True)
+                # one CTA an image (large batches) holds the larger map
+                check_chain_fits(b.h, b.w, bps, mega=True, cluster=1)
                 continue
             i = 0
             for g in self._fused_groups[r.start]:

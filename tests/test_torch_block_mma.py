@@ -29,7 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))
 XL = os.path.join(REPO, "models", "yolo-fastest-xl.cfg")
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")
-MMA_CUH = os.path.join(REPO, "ffcnn_tpu_torch", "csrc", "block_mma.cuh")
+# the product code K1, K3, K4 and K5 share: the activation instances and
+# the chunk constants
+MMA_CUH = os.path.join(REPO, "ffcnn_tpu_torch", "csrc", "tf32_mma.cuh")
 F32_TOL = chip_smoke.KERNEL_TOL["float32"]
 # xl's blocks as chip_smoke.py phase 3 checks them: K1 at the default
 # path's three geometries and the region path's five others, K3 at its four
@@ -136,7 +138,7 @@ def test_one_tf32_pass_misses_the_tolerance(xl_blocks):
 
 
 def _cuh_instances():
-    """The kernel's compile-time activation instances, (act1, act2, act3,
+    """The kernels' compile-time activation instances, (act1, act2, act3,
     res_act), read from FFCNN_BLOCK_ACT_INSTANCES."""
     text = open(MMA_CUH).read()
     body = text[text.index("#define FFCNN_BLOCK_ACT_INSTANCES"):]
@@ -150,8 +152,8 @@ INSTANCES = _cuh_instances()
 
 def act_instance(acts, residual, res_act):
     """The compile-time instance a block launches (None: the runtime-switch
-    instance), as ``launch_acts`` in block_mma.cuh picks it; res_act is not
-    read without a residual."""
+    instance), as ``launch_acts`` in block_mma.cuh and ``read_chain`` in
+    block_chain.cuh pick it; res_act is not read without a residual."""
     for inst in INSTANCES:
         if tuple(acts) == inst[:3] and (not residual or res_act == inst[3]):
             return inst

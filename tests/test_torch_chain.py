@@ -199,10 +199,9 @@ def test_chain_tiles_fit_the_card():
             continue
         bps = [tbf.block_params(ir, tp, blocks[s]) for s in g]
         bi = ir.blobs[g[0]]
-        for n in (1, 64):
-            th, tw = tbf.check_chain_fits(bi.h, bi.w, bps, n=n)
-            assert 1 <= th <= bi.h and 1 <= tw <= bi.w
-            assert tbf.cascade_smem(tbf._widths(bps), th, tw) <= tbf.MAX_SMEM
+        th, tw = tbf.check_chain_fits(bi.h, bi.w, bps)
+        assert 1 <= th <= bi.h and 1 <= tw <= bi.w
+        assert tbf.cascade_smem(tbf._widths(bps), th, tw) <= tbf.MAX_SMEM
     run = [r for r in tbf.plan_runs(ir, 24, False) if r.start == 84][0]
     bps = [tbf.block_params(ir, tp, b) for b in run.blocks]
     th, tw = tbf.check_chain_fits(10, 10, bps, mega=True)
