@@ -52,8 +52,10 @@ which exits non-zero on failure:
   8. the probe kernels of tools/, each behind the port of its probe, with
      its launches read around its probe's pass: P1 and P2 (the dense 1x1
      product, ``bench_pw_kernels.py``: one launch each at the tool's
-     shapes, against the plain version and torch.mm, then the tool's rows
-     A, D, B, C timed); P3 (the block variants, ``bisect_smallc.py``: every
+     shapes, at the tool's M - 1 and at M = 1,000, each against the plain
+     version and torch.mm; an (8, 64) product refused before any launch;
+     then the tool's rows A, D, B, C timed, B and C also by the kernel's
+     device time alone); P3 (the block variants, ``bisect_smallc.py``: every
      mode at the tool's four geometries in float32 and bf16 against its
      plain version at batch 64, and ``full`` bit for bit against K1,
      whose template it launches, then each mode chained 20 times at batch
@@ -64,8 +66,9 @@ Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K8 and K9 also with the cuDNN chain's time at their
-shapes); the line before it is the card's name and power limit; the last
-line of standard output is one JSON object with the device.
+shapes, P1 and P2 with the kernel's device time alone); the line before
+it is the card's name and power limit; the last line of standard output
+is one JSON object with the device.
 """
 
 from __future__ import annotations
@@ -407,17 +410,37 @@ def probe_phase(dev, counters) -> list:
                                  f"and nothing else")
         return n
 
-    # P1 and P2 at the tool's shapes, then the bench's rows A, D, B, C
-    err, launches = {}, {}
+    # P1 and P2: one launch each at the tool's shapes, at the tool's M - 1
+    # and at M = 1,000 (ragged last tiles), each against the plain version
+    # and torch.mm; a shape that is not compiled refused before any launch;
+    # then the bench's rows A, D, B, C
+    err, launches = {"P1": 0.0, "P2": 0.0}, {}
     inp = bpw.make_inputs(dev)
     for key, x, w in (("P1", inp.x2, inp.w), ("P2", inp.xp, inp.wb)):
-        y, counts = counted(counters, lambda: pw.pw_matmul(x, w))
-        launches[key] = only(f"{key} pw_matmul {tuple(x.shape)} @ "
-                             f"{tuple(w.shape)}", counts, "P1/P2", 1)
-        err[key] = check_kernel(f"{key} against its plain version", y,
-                                pw.pw_matmul_plain(x, w), phase=8)
-        mm, how = bpw.library_mm(x, w)
-        check_kernel(f"{key} against {how}", y, mm(), phase=8)
+        m = x.shape[0]
+        for rows in (m, m - 1, 1000):
+            xm = x[:rows]
+            y, counts = counted(counters, lambda: pw.pw_matmul(xm, w))
+            launches[key] = only(f"{key} pw_matmul {tuple(xm.shape)} @ "
+                                 f"{tuple(w.shape)}", counts, "P1/P2", 1)
+            err[key] = max(err[key], check_kernel(
+                f"{key} {rows} rows against its plain version", y,
+                pw.pw_matmul_plain(xm, w), phase=8))
+            mm, how = bpw.library_mm(xm, w)
+            check_kernel(f"{key} {rows} rows against {how}", y, mm(),
+                         phase=8)
+    w64 = torch.zeros((8, 64), dtype=torch.bfloat16, device=dev)
+    for c in counters.values():
+        c.launches = 0
+    try:
+        pw.pw_matmul(inp.x2[:1000], w64)
+    except ValueError as e:
+        log(f"[8] pw_matmul (1000, 8) @ (8, 64) refused: {e}")
+    else:
+        raise AssertionError("pw_matmul took a shape it is not compiled for")
+    torch.cuda.synchronize()
+    if pw.pw_matmul.launches:
+        raise AssertionError("the refused product launched")
     del inp, y
     pwr = bpw.run(dev, log=lambda line: log("[8] " + line))
 
@@ -488,14 +511,13 @@ def probe_phase(dev, counters) -> list:
                                       f"{t['library']:.4f} ms"))
 
     return [
-        kernel_entry("pw_matmul_2d", "pw_matmul.cu",
-                     "tools/bench_pw_kernels.py:61", launches["P1"],
-                     err["P1"], pwr["B"], pwr["B_plain"], pwr["B_work"],
-                     pwr["B_library"]),
-        kernel_entry("pw_matmul_packed", "pw_matmul.cu",
-                     "tools/bench_pw_kernels.py:85", launches["P2"],
-                     err["P2"], pwr["C"], pwr["C_plain"], pwr["C_work"],
-                     pwr["C_library"]),
+        kernel_entry(name, "pw_matmul.cu", f"tools/bench_pw_kernels.py:{line}",
+                     launches[key], err[key], pwr[tag], pwr[tag + "_plain"],
+                     pwr[tag + "_work"], pwr[tag + "_library"],
+                     kernel_alone_ms=pwr[tag + "_alone"])
+        for name, key, tag, line in (("pw_matmul_2d", "P1", "B", 61),
+                                     ("pw_matmul_packed", "P2", "C", 85))
+    ] + [
         kernel_entry("block_variants", "block_variants.cu",
                      "tools/bisect_smallc.py:182", p3["launches"], err["P3"],
                      p3["ms"], p3["plain_ms"], p3["work"],
@@ -664,7 +686,7 @@ def main() -> int:
                 bf.fused_cascade(x, bps), bf.chain_plain(x, bps)))
     # K5 at the cluster the wrapper picks at this batch, then at the other
     mblob = ir.blobs[84]
-    mcluster = bf.mega_cluster(mblob.h, BATCH, bf.sm_count(dev))
+    mcluster = bf.mega_cluster(mblob.h, BATCH, _build.sm_count(dev))
     for dt in dtypes:
         x = rand((BATCH, mblob.h, mblob.w, mblob.c), dt)
         want = bf.chain_plain(x, mbps)
@@ -875,7 +897,7 @@ def main() -> int:
         x = rand((nb, mblob.h, mblob.w, mblob.c), bf16)
         k1ms = cuda_ms(lambda: k1_chain(x, mbps))
         for cl in (1, 2):
-            picked = cl == bf.mega_cluster(mblob.h, nb, bf.sm_count(dev))
+            picked = cl == bf.mega_cluster(mblob.h, nb, _build.sm_count(dev))
             (ms, ms2), (pms, pms2) = turns(
                 (lambda: bf.fused_mega(x, mbps)) if picked
                 else (lambda: bf.launch_mega(x, mbps, cl)),

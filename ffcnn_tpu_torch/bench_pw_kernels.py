@@ -22,9 +22,11 @@ rows, 16 samples packed into K = 128) and its inputs, drawn from
      against the block-diagonal weight (dense: 16x P1's multiply-adds)
 
 B and C also print their plain versions' times, the time of the ``torch.mm``
-call on their own shapes (for B, row D), and their bounds (the least time an
-H100 could take for the same work, ``bench_block.Work``).  Last
-comes ``C maxdiff vs D``, as in the tool.  Times are CUDA events
+call on their own shapes (for B, row D) and their ratio to it, their bounds
+(the least time an H100 could take for the same work, ``bench_block.Work``)
+and their share of it (bound / time), and, on the card, the kernel alone:
+its device time from ``torch.profiler`` over 30 calls.  Last comes ``C
+maxdiff vs D``, as in the tool.  Times are CUDA events
 (``bench_block.timer``) over 30 calls, as the tool takes them.
 """
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import subprocess
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,9 +97,31 @@ def work(x: torch.Tensor, w: torch.Tensor) -> Work:
     return Work(2 * (m * k + k * n) + 4 * m * n, tc_flop=2 * m * k * n)
 
 
+def kernel_alone_ms(x: torch.Tensor, w: torch.Tensor,
+                    iters: int = ITERS) -> float:
+    """The kernel's own device time per launch of ``pw_matmul(x, w)`` on
+    the card: the profiler's device time of the kernel over ``iters``
+    calls.  Raises where the profiler shows none."""
+    from torch.profiler import ProfilerActivity, profile
+    pw.pw_matmul(x, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            pw.pw_matmul(x, w)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or
+             getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if "pw_stream" in e.key)
+    if us <= 0:
+        raise RuntimeError("torch.profiler shows no device time of "
+                           "pw_stream")
+    return us / iters / 1e3
+
+
 def run(device, batch: int = N, hw: int = H, log=print) -> dict:
-    """Time rows A, D, B and C (B and C with their plain versions) and
-    return the times (ms), bounds and ``C maxdiff vs D``."""
+    """Time rows A, D, B and C (B and C with their plain versions and, on
+    the card, the kernel alone) and return the times (ms), bounds and ``C
+    maxdiff vs D``."""
     inp = make_inputs(device, batch, hw)
     s = inp.x2.shape[0]
     mm, how = library_mm(inp.x2, inp.w)
@@ -118,10 +143,19 @@ def run(device, batch: int = N, hw: int = H, log=print) -> dict:
                                   ITERS // 3)
         r[tag + "_work"] = work(x, w)
         r[tag + "_bound"] = r[tag + "_work"].bound()
+        bound, by = r[tag + "_bound"]
         log(f"{tag} {'2d' if tag == 'B' else 'packed':12s} {r[tag]:8.4f} ms"
-            f" (plain {r[tag + '_plain']:8.4f} ms, torch.mm on its shapes "
-            f"{r[tag + '_library']:8.4f} ms; bound "
-            f"{r[tag + '_bound'][0]:.4f} ms by {r[tag + '_bound'][1]})")
+            f" (plain {r[tag + '_plain']:8.4f} ms); torch.mm on its shapes "
+            f"{r[tag + '_library']:8.4f} ms ({how}), kernel / torch.mm "
+            f"{r[tag] / r[tag + '_library']:.3f}")
+        if device.type != "cuda":
+            log(f"  bound {bound:.4f} ms by {by} (an H100's; no share of it "
+                f"on the CPU, and no kernel alone)")
+            continue
+        r[tag + "_alone"] = kernel_alone_ms(x, w)
+        log(f"  bound {bound:.4f} ms by {by}: {bound / r[tag]:.1%} of it; "
+            f"kernel alone {r[tag + '_alone']:8.4f} ms by torch.profiler, "
+            f"{bound / r[tag + '_alone']:.1%} of it")
     rc = pw.pw_matmul(inp.xp, inp.wb).reshape(s, COUT)
     r["c_vs_d"] = (rc - mm()).abs().max().item()
     log(f"C maxdiff vs D: {r['c_vs_d']:.5f}")
@@ -143,6 +177,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
              else "cpu (host clock; plain versions)")
     print(f"bench_pw_kernels on {where}: batch {args.batch}, "
           f"{args.hw}x{args.hw}, Cin {CIN}, Cout {COUT}")
+    if device.type == "cuda":
+        print("card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())
     return run(device, args.batch, args.hw)
 
 

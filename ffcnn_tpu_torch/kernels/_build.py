@@ -97,5 +97,11 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_library_path(name)))
 
 
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream

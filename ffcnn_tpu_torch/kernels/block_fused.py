@@ -423,12 +423,6 @@ def mega_cluster(h: int, n: int, sms: int) -> int:
     return 2 if h >= 2 and 2 * n <= sms else 1
 
 
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The SMs of a CUDA device (``mega_cluster`` reads it)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def mega_smem(widths: Widths, h: int, w: int, th: int, tw: int,
               cluster: int = 1) -> int:
     """Bytes of shared memory a CTA of K5 needs for an (h, w) map at output
@@ -734,7 +728,7 @@ def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
         return chain_plain(x, bps)
     _check(x, bps, x.dtype)
     y = launch_mega(x, bps, mega_cluster(x.shape[1], x.shape[0],
-                                         sm_count(x.device)))
+                                         _build.sm_count(x.device)))
     fused_mega.launches += 1
     return y
 
