@@ -21,19 +21,24 @@ K1, K3, K4 and K5 run both pointwise products on the tensor cores
 boundary of their chain in shared memory in float32, K5 with a cluster of
 two CTAs an image while the batch leaves SMs idle.
 
-The region configuration is also built at 416x416, where K7's stage
-buffers leave shared memory for device memory.  Then the block A/B bench
-(``ffcnn_tpu_torch/bench_block.py``) runs its two parts: the seven configs
-of ``tools/bench_block.py`` at batch 256 and the 24 blocks of xl's region
-plan at batch 64, each through K8 and (stride 1) K9.  Phases, each of
-which exits non-zero on failure:
+K7 runs its pointwise stages on the tensor cores too, with a cluster of
+two CTAs an image while the batch leaves SMs idle.  The region
+configuration is also built at 416x416 (the 13x13 head chain, whose stage
+buffers leave shared memory for device memory with one CTA an image) and
+at 96x96 (xl's two head chains there, 3x3 C192 and 6x6 C240).  Then the
+block A/B bench (``ffcnn_tpu_torch/bench_block.py``) runs its two parts:
+the seven configs of ``tools/bench_block.py`` at batch 256 and the 24
+blocks of xl's region plan at batch 64, each through K8 and (stride 1)
+K9.  Phases, each of which exits non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi)
   2. build every kernel from ffcnn_tpu_torch/csrc/ (one nvcc per source,
      all started together)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it, batch 64 (K4 every group, K5 at both
-     cluster sizes)
+     cluster sizes; K7 at 10x10 and 13x13 at batch 64, a cluster of two,
+     at batch SMs / 2 + 1, one CTA an image, and at batch 1, and the two
+     chains at 96x96 at both cluster sizes)
   4. each path: ``detect`` on a batch of 64 frames and on one 640x448
      frame, with every kernel launch count read around the call; heads and
      detections against the same Net on the CPU; the region Net at
@@ -43,8 +48,9 @@ which exits non-zero on failure:
      and K3 also by geometry, in us a block; K4 by group, with the work
      its halo recompute adds; K5 at one CTA an image and at a cluster of
      two, batch 64, 66, 67, 128 and 256; each with its tile, CTAs, us a
-     block and ratio to the K1 launches they replace), the whole forward
-     of every path, img/s of every path
+     block and ratio to the K1 launches they replace; K7 at 10x10 and
+     13x13, batch 64 and 256, also against the cuDNN chain of its five
+     layers), the whole forward of every path, img/s of every path
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -65,8 +71,9 @@ which exits non-zero on failure:
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
-P1-P5 (K1, K3, K8 and K9 also with the cuDNN chain's time at their
-shapes, P1 and P2 with the kernel's device time alone); the line before
+P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
+shapes, K7 with its 13x13 time and its cluster size at batch 64, P1 and
+P2 with the kernel's device time alone); the line before
 it is the card's name and power limit; the last line of standard output
 is one JSON object with the device.
 """
@@ -601,13 +608,25 @@ def main() -> int:
     if mnet._mega_runs != {84}:
         raise AssertionError(f"unexpected mega runs {mnet._mega_runs}")
     mbps = mnet._fused_params[84]
-    # the region configuration at 416x416: the 13x13 head chain
+    # the region configuration at 416x416: the 13x13 head chain, whose
+    # stage buffers leave shared memory with one CTA an image (batch
+    # SMs / 2 + 1, 67 on 132 SMs) and stay in a cluster of two
+    sms = _build.sm_count(dev)
+    solo = sms // 2 + 1
     r416 = load_net(pt, wbytes, REGION_FLAGS, "cuda", 416)
     r416cpu = load_net(pt, wbytes, REGION_FLAGS, "cpu", 416)
     hrun416 = r416._head_runs[0]
     hps416 = r416._head_params[hrun416.start]
-    if (hps416.h, hps416.w) != (13, 13) or not hf.scratch_floats(hps416):
+    if (hps416.h, hps416.w) != (13, 13) \
+            or not hf.plan(hps416, solo, sms).scratch \
+            or hf.plan(hps416, BATCH, sms).scratch:
         raise AssertionError(f"unexpected 416 head chain {hrun416}")
+    # the region configuration at 96x96: xl's two head chains there (3x3
+    # C192 and 6x6 C240)
+    r96 = load_net(pt, wbytes, REGION_FLAGS, "cuda", 96)
+    if [(r.start, r.end) for r in r96._head_runs] != [(116, 120),
+                                                     (125, 129)]:
+        raise AssertionError(f"unexpected 96 head chains {r96._head_runs}")
     rruns = rnet._fused_runs
     if [(r.start, r.end, len(r.blocks)) for r in rruns] != \
             [(1, 80, 18), (81, 108, 6)] or \
@@ -658,21 +677,25 @@ def main() -> int:
         errs["K6"] = max(errs["K6"], check_kernel(
             f"K6 stem u8 320x320x3 -> 160x160x{rc0.wm.shape[1]}",
             c0.conv0_cs(xu8, rc0, dt), c0.conv0_plain(xu8, rc0, dt)))
-    hb = ir.blobs[hrun.start]
-    for dt in dtypes:
-        x = rand((BATCH, hb.h, hb.w, hb.c), dt)
-        errs["K7"] = max(errs["K7"], check_kernel(
-            f"K7 head chain {hrun.start}-{hrun.end} {hb.h}x{hb.w}x{hb.c} "
-            f"({hf.smem_bytes(hps)} B shared)",
-            hf.apply_head_run(x, hrun, hps), hf.head_plain(x, hps)))
-    hb416 = r416.ir.blobs[hrun416.start]
-    for dt in dtypes:
-        x = rand((BATCH, hb416.h, hb416.w, hb416.c), dt)
-        errs["K7"] = max(errs["K7"], check_kernel(
-            f"K7 head chain {hrun416.start}-{hrun416.end} at 416x416 "
-            f"{hb416.h}x{hb416.w}x{hb416.c} (stage buffers in device "
-            f"memory, {hf.scratch_floats(hps416) * 4} B an image)",
-            hf.apply_head_run(x, hrun416, hps416), hf.head_plain(x, hps416)))
+    # K7 at 10x10 and 13x13 at batch 64 (a cluster of two CTAs an image),
+    # at the first batch that takes one CTA an image, and at batch 1; xl's
+    # two chains at 96x96 at the first two batches
+    hb, hb416 = ir.blobs[hrun.start], r416.ir.blobs[hrun416.start]
+    k7_cases = [(hrun, hps, (BATCH, solo, 1)),
+                (hrun416, hps416, (BATCH, solo, 1))] + [
+        (r, r96._head_params[r.start], (BATCH, solo))
+        for r in r96._head_runs]
+    for run, hp, batches in k7_cases:
+        c_in = hp.stages[0].w.shape[0]
+        for nb in batches:
+            p = hf.plan(hp, nb, sms)
+            for dt in dtypes:
+                x = rand((nb, hp.h, hp.w, c_in), dt)
+                errs["K7"] = max(errs["K7"], check_kernel(
+                    f"K7 head chain {run.start}-{run.end} {hp.h}x{hp.w}x"
+                    f"{c_in}, {p.cluster} CTA(s) an image, {p.smem} B "
+                    f"shared, {p.scratch * 4} B scratch an image",
+                    hf.apply_head_run(x, run, hp), hf.head_plain(x, hp)))
     # K4 at the cascade path's 7 groups, K5 at the mega path's run, each
     # with the tile the wrapper picks
     for g, bps in cgroups:
@@ -838,19 +861,35 @@ def main() -> int:
     log(f"[6] K6 stem u8 320x320 -> bf16 batch {BATCH}: kernel "
         f"{k6_ms:.4f} / {k6_ms2:.4f} ms, plain {k6_pms:.4f} / "
         f"{k6_pms2:.4f} ms")
-    xh = rand((BATCH, hb.h, hb.w, hb.c), bf16)
-    (k7_ms, k7_ms2), (k7_pms, k7_pms2) = turns(
-        lambda: hf.apply_head_run(xh, hrun, hps),
-        lambda: hf.head_plain(xh, hps))
-    log(f"[6] K7 head chain 10x10x192 bf16 batch {BATCH}: kernel "
-        f"{k7_ms:.4f} / {k7_ms2:.4f} ms, plain {k7_pms:.4f} / "
-        f"{k7_pms2:.4f} ms")
-    xh = rand((BATCH, hb416.h, hb416.w, hb416.c), bf16)
-    (ms, ms2), (pms, pms2) = turns(
-        lambda: hf.apply_head_run(xh, hrun416, hps416),
-        lambda: hf.head_plain(xh, hps416))
-    log(f"[6] K7 head chain 13x13x192 (416x416) bf16 batch {BATCH}: kernel "
-        f"{ms:.4f} / {ms2:.4f} ms, plain {pms:.4f} / {pms2:.4f} ms")
+    # K7 at 10x10 and 13x13, batch 64 and 256, against its plain version
+    # and against its yardstick: the same five layers as the default path
+    # runs them, five cuDNN convs (ops.conv.conv2d_fused, TF32 on the
+    # bf16-exact values as in fast mode)
+    from ffcnn_tpu_torch.ops.conv import conv2d_fused
+
+    def cudnn_chain(x, n_, run):
+        for li in range(run.start, run.end + 1):
+            l, p = n_.ir.layers[li], n_.params[li]
+            x = conv2d_fused(x, p["weights"], p["scale"], p["bias"],
+                             stride=l.stride, pad=l.pad, groups=l.groups,
+                             act=l.activation)
+        return x
+
+    k7 = {}
+    for n_, run, hp in ((rnet, hrun, hps), (r416, hrun416, hps416)):
+        for nb in (BATCH, 256):
+            xh = rand((nb, hp.h, hp.w, hp.stages[0].w.shape[0]), bf16)
+            (ms, ms2), (pms, pms2) = turns(
+                lambda: hf.apply_head_run(xh, run, hp),
+                lambda: hf.head_plain(xh, hp))
+            torch.backends.cudnn.allow_tf32 = True
+            cms = cuda_ms(lambda: cudnn_chain(xh, n_, run))
+            torch.backends.cudnn.allow_tf32 = False
+            k7[hp.h, nb] = (ms, pms, cms)
+            log(f"[6] K7 head chain {hp.h}x{hp.w}x192 bf16 batch {nb}, "
+                f"{hf.plan(hp, nb, sms).cluster} CTA(s) an image: kernel "
+                f"{ms:.4f} / {ms2:.4f} ms, plain {pms:.4f} / {pms2:.4f} "
+                f"ms, cuDNN chain {cms:.4f} ms")
 
     def k1_chain(x, bps):
         for bp in bps:
@@ -1080,7 +1119,10 @@ def main() -> int:
         entry("conv0_fused", "K6", "conv0_fused.cu", "conv0_fused.py:37",
               launches["K6"], k6_ms, k6_pms, works["K6"]),
         entry("head_fused", "K7", "head_fused.cu", "head_fused.py:119",
-              launches["K7"], k7_ms, k7_pms, works["K7"]),
+              launches["K7"], k7[hb.h, BATCH][0], k7[hb.h, BATCH][1],
+              works["K7"], cudnn_chain_ms=k7[hb.h, BATCH][2],
+              ms_416=k7[hb416.h, BATCH][0],
+              cluster=hf.plan(hps, BATCH, sms).cluster),
         entry("block_cascade", "K4", "block_cascade.cu",
               "block_fused.py:374", main_counts["cascade"]["K4"], k4_ms,
               k4_pms, works["K4"]),

@@ -1,18 +1,18 @@
 """Fused yolo-head chains (K7): the stride-1 [dw, pw, ...] conv chain that
 feeds a yolo layer, in one launch, every interior map kept on chip.  Holds
-the planner (pure IR code), the CUDA kernel's wrapper and its plain
-PyTorch version.
+the planner (pure IR code), the CUDA kernel's launch plan and wrapper, and
+its plain PyTorch version.
 
 Replaces ``ffcnn_tpu/kernels/head_fused.py::_make_kernel`` (launched by
-``apply_head_run``).  The kernel (``csrc/head_fused.cu``) gives one CTA one
-image's whole chain, with two float32 stage buffers in shared memory.  On
-yolo-fastest-xl at 320x320 the planned chain (116-120, 10x10, up to 192
-channels) needs 186 KB.  Where the buffers do not fit a CTA's 227 KB (xl at
-416x416: 13x13, 292 KB), the wrapper allocates them per image in device
-memory (``scratch_floats``), where they stay in L2, and shared memory holds
-only the weight chunk; so every chain the planner gives runs.
-``check_fits`` refuses only what the kernel cannot take at all, when a CUDA
-``Net`` is built.
+``apply_head_run``).  The kernel (``csrc/head_fused.cu``) runs the pointwise
+stages on the tensor cores and keeps each interior map in one of two
+float32 stage buffers in shared memory.  ``plan`` picks its launch: a
+cluster of two CTAs an image, each owning half the rows, while the batch
+leaves SMs idle, else one; and, where the stage buffers of a CTA's rows do
+not fit its 227 KB (xl at 416x416 with one CTA an image, 19x19 maps), a
+per-image scratch in device memory, where they stay in L2, so that every
+chain the planner gives runs.  ``check_fits`` refuses only what the kernel
+cannot take at all, when a CUDA ``Net`` is built.
 
 The TPU's batch chunk (``CHUNK``, ``nc``) and its batch and backend gate
 (``head_runs_usable``) do not apply: the kernel takes every batch size.  The
@@ -37,12 +37,16 @@ from . import _build
 # runs (images per chunk it tries, and its f32 budget).
 _TPU_CHUNKS = (128, 64)
 _TPU_VMEM_BUDGET = 72 << 20
-# A CTA's shared memory on sm_90, and the stages and pointwise output
-# channels the kernel takes (csrc/head_fused.cu kMaxSmem, kMaxStages,
-# kMaxOJ * kOL).
+# As csrc/head_fused.cu: a CTA's shared memory on sm_90 (kMaxSmem), the
+# stages, pointwise output channels and depthwise kernel sizes it takes
+# (kMaxStages, kMaxPwOut), the pointwise input channels of a weight chunk
+# (kKC) and the weight chunks it holds at once (kRing).
 MAX_SMEM = 232448
 MAX_STAGES = 8
 MAX_PW_OUT = 256
+DW_SIZES = (3, 5)
+KC = 32
+RING = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,48 +159,83 @@ def _meta(hp: HeadParams) -> List[int]:
     return out
 
 
-def _sizes(hp: HeadParams) -> Tuple[int, int]:
-    """(channels of the widest map a stage buffer holds, floats of the
-    largest weight chunk), as ``ffcnn_head_smem`` in ``csrc/head_fused.cu``
-    computes them."""
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+def _ld_a(k: int) -> int:
+    """``ld_a`` in csrc/tf32_mma.cuh: a row stride that A fragments read."""
+    return (k + 3) // 8 * 8 + 4
+
+
+def _ld_b(n: int) -> int:
+    """``ld_b`` in csrc/tf32_mma.cuh: a row stride that B fragments read."""
+    return (n + 7) // 16 * 16 + 8
+
+
+def _layout(hp: HeadParams) -> Tuple[int, int]:
+    """(row stride of a stage buffer, floats of the weight region), as
+    ``layout`` in ``csrc/head_fused.cu``: the buffers hold the input and
+    every interior map, channels padded to 8; the weight region holds
+    ``RING`` pointwise chunks of ``KC`` input channels or a depthwise
+    stage's taps."""
     meta = _meta(hp)
     cbuf = max([meta[3]] + meta[4:-5:5])
-    wmax = max(32 * m[4] if m[0] == 0 else m[3] * m[1] * m[1]
-               for m in (meta[i:i + 5] for i in range(0, len(meta), 5)))
-    return cbuf, wmax
+    wfl = max(RING * KC * _ld_b(_pad8(m[4])) if m[0] == 0
+              else m[3] * m[1] ** 2
+              for m in (meta[i:i + 5] for i in range(0, len(meta), 5)))
+    return _ld_a(_pad8(cbuf)), wfl
 
 
-def smem_bytes(hp: HeadParams) -> int:
-    """Shared memory the kernel needs to hold the chain on chip: two
-    float32 stage buffers of the widest map and the largest weight chunk
-    (``ffcnn_head_smem``)."""
-    cbuf, wmax = _sizes(hp)
-    return 4 * (2 * hp.h * hp.w * cbuf + wmax)
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """One launch of K7: CTAs an image (1 or 2), image rows a CTA owns
+    (CTA r the rows from ``r * rows``), dynamic shared memory a CTA in
+    bytes, and float32s of device scratch an image (0 where the stage
+    buffers fit shared memory)."""
+    cluster: int
+    rows: int
+    smem: int
+    scratch: int
 
 
-def scratch_floats(hp: HeadParams) -> int:
-    """Float32s of device memory an image's stage buffers take where they
-    do not fit shared memory (``smem_bytes`` over ``MAX_SMEM``), else 0."""
-    cbuf, _ = _sizes(hp)
-    return 2 * hp.h * hp.w * cbuf if smem_bytes(hp) > MAX_SMEM else 0
+def plan(hp: HeadParams, n: int, sms: int) -> HeadPlan:
+    """K7's launch for ``n`` images on a card of ``sms`` SMs.  A CTA of K7
+    has an SM to itself, so while ``2n <= sms`` (and the map has two rows)
+    a cluster of two CTAs an image puts SMs to work that one CTA an image
+    leaves idle, as K5's ``mega_cluster``.  Each CTA keeps the two stage
+    buffers of its rows in shared memory beside the weight region; where
+    they do not fit, the image's buffers go to device scratch and shared
+    memory holds the weight region alone."""
+    cluster = 2 if hp.h >= 2 and 2 * n <= sms else 1
+    rows = -(-hp.h // cluster)
+    ld, wfl = _layout(hp)
+    smem = 4 * (2 * rows * hp.w * ld + wfl)
+    if smem <= MAX_SMEM:
+        return HeadPlan(cluster, rows, smem, 0)
+    return HeadPlan(cluster, rows, 4 * wfl, 2 * hp.h * hp.w * ld)
 
 
 def check_fits(hp: HeadParams) -> None:
     """Raise for a chain the kernel cannot take (``Net`` asks once, when it
     is built on the card; the kernel's C entry refuses such a chain at
     launch too): more than 8 stages, a pointwise stage wider than 256
-    channels, or a weight chunk over a CTA's shared memory.  A chain whose
-    stage buffers do not fit shared memory runs with them in device
+    channels, a depthwise kernel other than 3x3 or 5x5 (the planner gives
+    no other), or a weight region over a CTA's shared memory.  A chain
+    whose stage buffers do not fit shared memory runs with them in device
     memory."""
-    _, wmax = _sizes(hp)
+    _, wfl = _layout(hp)
     widest = max((st.w.shape[1] for st in hp.stages if st.kind == "pw"),
                  default=0)
     if len(hp.stages) > MAX_STAGES or widest > MAX_PW_OUT \
-            or 4 * wmax > MAX_SMEM:
+            or 4 * wfl > MAX_SMEM \
+            or any(st.fs not in DW_SIZES for st in hp.stages
+                   if st.kind == "dw"):
         raise ValueError(f"head chain at {hp.h}x{hp.w} ({len(hp.stages)} "
-                         f"stages, widest weight chunk {4 * wmax} bytes) is "
-                         f"more than the kernel takes: {MAX_STAGES} stages, "
-                         f"{MAX_PW_OUT} pointwise outputs, {MAX_SMEM} bytes")
+                         f"stages, weight region {4 * wfl} bytes) is more "
+                         f"than the kernel takes: {MAX_STAGES} stages, "
+                         f"{MAX_PW_OUT} pointwise outputs, depthwise "
+                         f"{DW_SIZES}, {MAX_SMEM} bytes")
 
 
 def head_plain(x: torch.Tensor, hp: HeadParams) -> torch.Tensor:
@@ -249,9 +288,9 @@ def apply_head_run(x: torch.Tensor, run: HeadRun,
     n, ns = x.shape[0], len(hp.stages)
     y = torch.empty((n, hp.h, hp.w, meta[-1]), dtype=x.dtype,
                     device=x.device)
-    nscratch = scratch_floats(hp)
-    scratch = torch.empty((n, nscratch), dtype=torch.float32,
-                          device=x.device) if nscratch else None
+    p = plan(hp, n, _build.sm_count(x.device))
+    scratch = torch.empty((n, p.scratch), dtype=torch.float32,
+                          device=x.device) if p.scratch else None
     ptrs = [(ctypes.c_void_p * ns)(*(getattr(st, name).data_ptr()
                                      for st in hp.stages))
             for name in ("w", "scale", "bias")]
@@ -260,7 +299,7 @@ def apply_head_run(x: torch.Tensor, run: HeadRun,
                          None if scratch is None else scratch.data_ptr(),
                          int(x.dtype == torch.bfloat16), n, hp.h, hp.w, ns,
                          (ctypes.c_int * len(meta))(*meta), *ptrs,
-                         _build.stream_ptr())
+                         p.cluster, _build.stream_ptr())
     apply_head_run.launches += 1
     if err:
         raise RuntimeError("head chain launch failed: "
@@ -279,8 +318,9 @@ def build() -> ctypes.CDLL:
                                + [ctypes.c_int] * 5
                                + [ctypes.POINTER(ctypes.c_int)]
                                + [ctypes.POINTER(ctypes.c_void_p)] * 3
-                               + [ctypes.c_void_p])
+                               + [ctypes.c_int, ctypes.c_void_p])
     lib.ffcnn_head.restype = ctypes.c_int
     lib.ffcnn_head_error_string.argtypes = [ctypes.c_int]
     lib.ffcnn_head_error_string.restype = ctypes.c_char_p
     return lib
+

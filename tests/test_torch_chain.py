@@ -467,16 +467,21 @@ def test_stem_enters_run_blocks_never_mega(monkeypatch):
 # ------------------------------------------------------------ K7 at 13x13
 def test_head_chain_at_416_fits():
     """xl's 13x13 head chain at 416x416, which the region configuration
-    plans as JAX does: its stage buffers exceed a CTA's shared memory, so
-    they go to device memory, and ``check_fits`` accepts the chain."""
+    plans as JAX does: with one CTA an image its stage buffers exceed a
+    CTA's shared memory, so they go to device memory; a cluster of two
+    holds them on chip; ``check_fits`` accepts the chain."""
     ir, tir, params = _model(416)
     runs = thf.plan_head_runs(tir)
     assert [(r.start, r.end) for r in runs] == \
         [(r.start, r.end) for r in jhf.plan_head_runs(ir)]
     hp = thf.head_params(tir, tbuild.params_from_numpy(params), runs[0])
     assert (hp.h, hp.w) == (13, 13)
-    assert thf.smem_bytes(hp) == 292224 > thf.MAX_SMEM
-    assert thf.scratch_floats(hp) == 2 * 13 * 13 * 192
+    alone = thf.plan(hp, 67, 132)
+    assert alone.cluster == 1 and alone.scratch == 2 * 13 * 13 * 196
+    assert 4 * (2 * 13 * 13 * 196 + 2 * 32 * 264) > thf.MAX_SMEM
+    pair = thf.plan(hp, 64, 132)
+    assert (pair.cluster, pair.rows, pair.scratch) == (2, 7, 0)
+    assert pair.smem <= thf.MAX_SMEM
     thf.check_fits(hp)
 
 

@@ -248,18 +248,28 @@ def test_head_plain_matches_jax_interpret(xl96, dtype):
 
 
 def test_head_params_fit_check():
-    """The 10x10 chain of xl at 320 fits a CTA's shared memory (186 KB);
-    at 416 (13x13) its stage buffers do not, so they go to device memory
-    (two 13x13x192 float32 maps an image) and ``check_fits`` accepts the
-    chain all the same."""
-    for size, fits in ((320, True), (416, False)):
+    """The 10x10 chain of xl at 320 fits a CTA's shared memory at either
+    cluster size; at 416 (13x13) it fits with a cluster of two CTAs an
+    image (7 rows a CTA) but not with one, where its stage buffers go to
+    device memory (two 13x13 maps of 196-float rows an image) and
+    ``check_fits`` accepts the chain all the same.  Two float32 buffers
+    of the CTA's rows (row stride 192 + 4) and two weight chunks of 32
+    rows by 255 outputs (row stride 264)."""
+    for size, fits_alone in ((320, True), (416, False)):
         _, ir, params = _model(size)
         run = thf.plan_head_runs(ir)[0]
         hp = thf.head_params(ir, tbuild.params_from_numpy(params), run)
-        need = 4 * (2 * hp.h * hp.w * 192 + 32 * 255)
-        assert thf.smem_bytes(hp) == need
-        assert (need <= thf.MAX_SMEM) == fits
-        assert thf.scratch_floats(hp) == (0 if fits else 2 * 13 * 13 * 192)
+        for n, cluster in ((64, 2), (67, 1)):
+            p = thf.plan(hp, n, 132)
+            assert (p.cluster, p.rows) == (cluster, -(-hp.h // cluster))
+            need = 4 * (2 * p.rows * hp.w * 196 + 2 * 32 * 264)
+            if cluster == 2 or fits_alone:
+                assert (p.smem, p.scratch) == (need, 0)
+                assert need <= thf.MAX_SMEM
+            else:
+                assert need > thf.MAX_SMEM
+                assert (p.smem, p.scratch) == (4 * 2 * 32 * 264,
+                                               2 * 13 * 13 * 196)
         thf.check_fits(hp)
 
 
