@@ -38,7 +38,13 @@ K9.  Phases, each of which exits non-zero on failure:
      shapes the paths give it, batch 64 (K4 every group, K5 at both
      cluster sizes; K7 at 10x10 and 13x13 at batch 64, a cluster of two,
      at batch SMs / 2 + 1, one CTA an image, and at batch 1, and the two
-     chains at 96x96 at both cluster sizes)
+     chains at 96x96 at both cluster sizes; K6 on xl's stem at batch 64
+     and 1, and on seeded stems of F 8, 16, 32 (its compiled instances),
+     20 and 16 with relu (its generic one) at 320x320, 416x416 and 322x322,
+     whose rows are not 16-byte aligned; K2 bit for bit, card and CPU, at
+     K 1, 31, 32, 33, 128 and 1,500, batch 1 and 64, on random candidates,
+     suppression chains across its 32-anchor blocks and one class, min and
+     union IoU, and at K 9,000 on the card, past what it stages)
   4. each path: ``detect`` on a batch of 64 frames and on one 640x448
      frame, with every kernel launch count read around the call; heads and
      detections against the same Net on the CPU; the region Net at
@@ -50,7 +56,9 @@ K9.  Phases, each of which exits non-zero on failure:
      two, batch 64, 66, 67, 128 and 256; each with its tile, CTAs, us a
      block and ratio to the K1 launches they replace; K7 at 10x10 and
      13x13, batch 64 and 256, also against the cuDNN chain of its five
-     layers), the whole forward of every path, img/s of every path
+     layers; K6, and K2 at K 128 and 1,500, also by the kernel's device
+     time alone, by torch.profiler), the whole forward of every path,
+     img/s of every path
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -72,8 +80,9 @@ Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
-shapes, K7 with its 13x13 time and its cluster size at batch 64, P1 and
-P2 with the kernel's device time alone); the line before
+shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
+P1 and P2 with the kernel's device time alone, K2 with its times and bound
+at K 1,500 too); the line before
 it is the card's name and power limit; the last line of standard output
 is one JSON object with the device.
 """
@@ -95,6 +104,13 @@ BMP = os.path.join(REPO, "tests", "fixtures", "test320.bmp")
 SEED = 42
 BATCH = 64
 NMS_KS = (128, 1500)        # fast mode's top-k, and xl's candidate count
+NMS_CHECK_KS = (1, 31, 32, 33) + NMS_KS   # K2's blocks are 32 anchors
+NMS_LARGE_K = 9000          # above the 8,192 candidates K2 stages
+# K6's seeded stems (F, activation) and sizes beside xl's stem: the
+# compiled instances (F 8, 16, 32, leaky), the generic one (F 20; F 16
+# relu); 322 * 3 bytes a row is not a multiple of 16 (the word copy)
+K6_STEMS = ((8, 2), (16, 2), (20, 2), (32, 2), (16, 1))
+K6_SIZES = (320, 416, 322)
 REGION_FLAGS = {"FFCNN_FUSED_DOWN": "1", "FFCNN_FUSED_MINC": "8",
                 "FFCNN_CONV0_PALLAS": "1", "FFCNN_FUSED_HEADS": "1"}
 PATH_FLAGS = {"default": {}, "region": REGION_FLAGS,
@@ -203,22 +219,6 @@ def turns(kernel, plain, iters: int = 20):
     a, b = cuda_ms(kernel, iters), cuda_ms(plain, iters)
     c, d = cuda_ms(plain, iters), cuda_ms(kernel, iters)
     return (a, d), (b, c)
-
-
-def nms_candidates(n: int, k: int, seed: int):
-    """Sorted candidates with equal scores, touching and degenerate boxes
-    and five classes (coordinates on a coarse integer grid)."""
-    rng = np.random.RandomState(seed)
-    xy = rng.randint(0, 64, (n, k, 2)).astype(np.float32)
-    wh = rng.randint(0, 24, (n, k, 2)).astype(np.float32)
-    boxes = np.concatenate([xy, xy + wh], axis=-1)
-    scores = rng.choice([0.5, 0.6, 0.75, 0.9, 1.0], (n, k)).astype(np.float32)
-    scores[rng.rand(n, k) < 0.2] = 0.0
-    order = np.argsort(-scores, axis=1, kind="stable")
-    boxes = np.take_along_axis(boxes, order[..., None], axis=1)
-    scores = np.take_along_axis(scores, order, axis=1)
-    classes = rng.randint(0, 5, (n, k)).astype(np.int32)
-    return boxes, scores, classes
 
 
 def match_fraction(dets, boxes, scores, classes, px: float,
@@ -547,6 +547,7 @@ def main() -> int:
     try:
         import ffcnn_tpu_torch as pt
         from ffcnn_tpu_torch import bench_block as bb
+        from ffcnn_tpu_torch import bench_stem_nms as sn
         from ffcnn_tpu_torch.graph.build import forward_features
         from ffcnn_tpu_torch.kernels import _build
         from ffcnn_tpu_torch.kernels import block_fused as bf
@@ -641,6 +642,13 @@ def main() -> int:
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen).to(dev, dtype)
 
+    def k6_plan(x, cp):
+        n, h, w, _ = x.shape
+        p = c0.plan(n, h, w, cp.wm.shape[1], cp.act, 2, sms,
+                    x.data_ptr() % 16 == 0)
+        return (f"instance {p.inst_f or 'generic'}, bands of {p.rows}x"
+                f"{p.cols}, {'cp.async' if p.aligned else 'word'} copy")
+
     # 3. kernels against their plain versions
     errs = {k: 0.0 for k in counters}
     dtypes = (torch.float32, torch.bfloat16)
@@ -674,9 +682,30 @@ def main() -> int:
     xu8 = torch.randint(0, 256, (BATCH, 320, 320, 3), generator=gen,
                         dtype=torch.uint8).to(dev)
     for dt in dtypes:
-        errs["K6"] = max(errs["K6"], check_kernel(
-            f"K6 stem u8 320x320x3 -> 160x160x{rc0.wm.shape[1]}",
-            c0.conv0_cs(xu8, rc0, dt), c0.conv0_plain(xu8, rc0, dt)))
+        for xs in (xu8, xu8[:1]):
+            errs["K6"] = max(errs["K6"], check_kernel(
+                f"K6 xl's stem u8 320x320x3 -> 160x160x{rc0.wm.shape[1]}, "
+                f"{k6_plan(xs, rc0)}",
+                c0.conv0_cs(xs, rc0, dt), c0.conv0_plain(xs, rc0, dt)))
+    # K6 on seeded stems: F 8, 16 and 32 leaky (the compiled instances), F
+    # 20 and F 16 relu (the generic one), at 320x320, 416x416 and 322x322
+    # (rows not 16-byte aligned: the word copy)
+    srng = np.random.RandomState(SEED)
+    stems = [c0.conv0_params_from(*(torch.from_numpy(a).to(dev) for a in (
+        srng.randn(f, 3, 3, 3).astype(np.float32) * 0.02,
+        srng.uniform(0.5, 2.0, f).astype(np.float32),
+        srng.randn(f).astype(np.float32))), act)
+        for f, act in K6_STEMS]
+    for size in K6_SIZES:
+        xs = torch.randint(0, 256, (BATCH, size, size, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+        for cp in stems:
+            for dt in dtypes:
+                errs["K6"] = max(errs["K6"], check_kernel(
+                    f"K6 stem u8 {size}x{size}x3 -> {size // 2}x{size // 2}"
+                    f"x{cp.wm.shape[1]} act {cp.act}, {k6_plan(xs, cp)}",
+                    c0.conv0_cs(xs, cp, dt), c0.conv0_plain(xs, cp, dt)))
+        del xs
     # K7 at 10x10 and 13x13 at batch 64 (a cluster of two CTAs an image),
     # at the first batch that takes one CTA an image, and at batch 1; xl's
     # two chains at 96x96 at the first two batches
@@ -720,25 +749,50 @@ def main() -> int:
                 f"{bf.check_chain_fits(mblob.h, mblob.w, mbps, True, cluster=cl)}",
                 bf.fused_mega(x, mbps) if cl == mcluster
                 else bf.launch_mega(x, mbps, cl), want))
-    for k in NMS_KS:
-        for kind in ("min", "union"):
-            cand = nms_candidates(BATCH, k, seed=k)
-            tb, ts, tc = (torch.from_numpy(a).to(dev) for a in cand)
-            got = knms.nms_keep_mask(tb, ts, tc, threshold=0.5,
-                                     iou_kind=kind)
-            want = knms.keep_mask_plain(tb, ts, tc, 0.5, kind)
-            want_cpu = knms.keep_mask_plain(
-                *(torch.from_numpy(a) for a in cand), 0.5, kind)
-            same = torch.equal(got, want) and \
-                torch.equal(got.cpu(), want_cpu)
-            errs["K2"] = max(errs["K2"], (got.float() - want.float()).abs()
-                             .max().item())
-            log(f"[3] K2 nms K={k} batch {BATCH} iou={kind}: kept "
-                f"{int(got.sum())}/{int((ts > 0).sum())}, mismatches "
-                f"{int((got != want).sum())} "
-                f"{'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError("K2 keep mask differs from plain")
+    # K2 at K on either side of its 32-anchor blocks, fast mode's and
+    # parity mode's largest, batch 1 and 64, on three candidate sets: bit
+    # for bit against the plain version on the card and on the CPU
+    nms_sets = {"candidates": sn.nms_candidates, "chains": sn.nms_chains,
+                "one class": lambda n, k, seed: (
+                    *sn.nms_candidates(n, k, seed)[:2],
+                    np.zeros((n, k), np.int32))}
+    for k in NMS_CHECK_KS:
+        for nb in (1, BATCH):
+            for set_name, make in nms_sets.items():
+                cand = make(nb, k, seed=k)
+                tb, ts, tc = (torch.from_numpy(a).to(dev) for a in cand)
+                kept = []
+                for kind in ("min", "union"):
+                    got = knms.nms_keep_mask(tb, ts, tc, threshold=0.5,
+                                             iou_kind=kind)
+                    want = knms.keep_mask_plain(tb, ts, tc, 0.5, kind)
+                    want_cpu = knms.keep_mask_plain(
+                        *(torch.from_numpy(a) for a in cand), 0.5, kind)
+                    same = torch.equal(got, want) and \
+                        torch.equal(got.cpu(), want_cpu)
+                    errs["K2"] = max(errs["K2"], (
+                        got.float() - want.float()).abs().max().item())
+                    kept.append(f"{kind} kept {int(got.sum())}, mismatches "
+                                f"{int((got != want).sum())}/"
+                                f"{int((got.cpu() != want_cpu).sum())}")
+                    if not same:
+                        raise AssertionError(
+                            f"K2 keep mask differs from plain: K={k} batch "
+                            f"{nb} {set_name} {kind}")
+                log(f"[3] K2 nms K={k} batch {nb} {set_name} "
+                    f"({int((ts > 0).sum())} live): " + "; ".join(kept)
+                    + " (card/CPU) ok")
+    # past the candidates K2 stages in shared memory (a parity-mode K at
+    # larger inputs), against the plain version on the card
+    tb, ts, tc = (torch.from_numpy(a).to(dev)
+                  for a in sn.nms_candidates(2, NMS_LARGE_K, seed=1))
+    for kind in ("min", "union"):
+        got = knms.nms_keep_mask(tb, ts, tc, threshold=0.5, iou_kind=kind)
+        want = knms.keep_mask_plain(tb, ts, tc, 0.5, kind)
+        log(f"[3] K2 nms K={NMS_LARGE_K} batch 2 candidates iou={kind}: "
+            f"kept {int(got.sum())}, mismatches {int((got != want).sum())}")
+        if not torch.equal(got, want):
+            raise AssertionError("K2 keep mask differs from plain")
 
     # 4. every path, each with its launch counts read around the call
     rng = np.random.RandomState(SEED)
@@ -858,9 +912,11 @@ def main() -> int:
     (k6_ms, k6_ms2), (k6_pms, k6_pms2) = turns(
         lambda: c0.conv0_cs(xu8, rc0, bf16),
         lambda: c0.conv0_plain(xu8, rc0, bf16))
+    k6_alone = bb.kernel_alone_ms(lambda: c0.conv0_cs(xu8, rc0, bf16),
+                                  "conv0_kernel", 50)
     log(f"[6] K6 stem u8 320x320 -> bf16 batch {BATCH}: kernel "
-        f"{k6_ms:.4f} / {k6_ms2:.4f} ms, plain {k6_pms:.4f} / "
-        f"{k6_pms2:.4f} ms")
+        f"{k6_ms:.4f} / {k6_ms2:.4f} ms, kernel alone {k6_alone:.4f} ms "
+        f"(torch.profiler), plain {k6_pms:.4f} / {k6_pms2:.4f} ms")
     # K7 at 10x10 and 13x13, batch 64 and 256, against its plain version
     # and against its yardstick: the same five layers as the default path
     # runs them, five cuDNN convs (ops.conv.conv2d_fused, TF32 on the
@@ -955,13 +1011,16 @@ def main() -> int:
     nms_ms = {}
     for k in NMS_KS:
         tb, ts, tc = (torch.from_numpy(a).to(dev)
-                      for a in nms_candidates(BATCH, k, seed=k))
+                      for a in sn.nms_candidates(BATCH, k, seed=k))
         ms = cuda_ms(lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5))
         pms = cuda_ms(lambda: knms.keep_mask_plain(tb, ts, tc, 0.5),
                       iters=3, warmup=1)
-        nms_ms[k] = (ms, pms)
-        log(f"[6] K2 nms K={k} batch {BATCH}: kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
+        alone = bb.kernel_alone_ms(
+            lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5),
+            "nms_keep_kernel", 50)
+        nms_ms[k] = (ms, pms, alone)
+        log(f"[6] K2 nms K={k} batch {BATCH}: kernel {ms:.4f} ms, kernel "
+            f"alone {alone:.4f} ms (torch.profiler), plain {pms:.4f} ms")
 
     # the whole fast forward: unfused cuDNN chain, the default fused runs,
     # the region, cascade and mega configurations, each as its Net runs it
@@ -1089,8 +1148,9 @@ def main() -> int:
         "K1": blocks_work(False), "K3": blocks_work(True),
         # boxes, scores, classes in and the keep mask out; about 12 float32
         # operations for each pair's IoU test
-        "K2": bb.Work(BATCH * nk * 28,
-                      f32_flop=12 * BATCH * nk * (nk - 1) / 2),
+        **{("K2", k): bb.Work(BATCH * k * 28,
+                              f32_flop=12 * BATCH * k * (k - 1) / 2)
+           for k in NMS_KS},
         # uint8 in, bf16 out, 27 float32 taps a channel
         "K6": bb.Work(BATCH * 320 * 320 * 3 + 2 * BATCH * 160 * 160 * f0
                       + 4 * 29 * f0,
@@ -1112,12 +1172,17 @@ def main() -> int:
               launches["K1"], rk1_ms, rk1_pms, works["K1"],
               cudnn_chain_ms=chain_b[1]),
         entry("nms_keep_mask", "K2", "nms.cu", "nms_pallas.py:26",
-              launches["K2"], nms_ms[nk][0], nms_ms[nk][1], works["K2"]),
+              launches["K2"], nms_ms[nk][0], nms_ms[nk][1], works["K2", nk],
+              kernel_alone_ms=nms_ms[nk][2], ms_1500=nms_ms[1500][0],
+              plain_ms_1500=nms_ms[1500][1],
+              kernel_alone_ms_1500=nms_ms[1500][2],
+              bound_ms_1500=works["K2", 1500].bound()[0]),
         entry("block_fused_s2", "K3", "block_down.cu", "block_fused.py:299",
               launches["K3"], k3_ms, k3_pms, works["K3"],
               cudnn_chain_ms=chain_b[2]),
         entry("conv0_fused", "K6", "conv0_fused.cu", "conv0_fused.py:37",
-              launches["K6"], k6_ms, k6_pms, works["K6"]),
+              launches["K6"], k6_ms, k6_pms, works["K6"],
+              kernel_alone_ms=k6_alone),
         entry("head_fused", "K7", "head_fused.cu", "head_fused.py:119",
               launches["K7"], k7[hb.h, BATCH][0], k7[hb.h, BATCH][1],
               works["K7"], cudnn_chain_ms=k7[hb.h, BATCH][2],

@@ -310,6 +310,25 @@ def timer(fn: Callable, device, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_alone_ms(fn: Callable, name: str, iters: int) -> float:
+    """Device time per call of the kernels whose name holds ``name``, by
+    ``torch.profiler`` over ``iters`` calls of ``fn`` on the card.  Raises
+    where the profiler shows none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or
+             getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    if us <= 0:
+        raise RuntimeError(f"torch.profiler shows no device time of {name}")
+    return us / iters / 1e3
+
+
 def report(cases: Sequence[Case], outs, iters: int = 10,
            log=print) -> List[dict]:
     """Hold each case's outputs (from ``drive``) against the plain versions,

@@ -40,7 +40,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .bench_block import Work, timer
+from .bench_block import Work, kernel_alone_ms, timer
 from .darknet.ir import Activation
 from .kernels import pw_matmul as pw
 from .ops.conv import conv2d_fused
@@ -97,27 +97,6 @@ def work(x: torch.Tensor, w: torch.Tensor) -> Work:
     return Work(2 * (m * k + k * n) + 4 * m * n, tc_flop=2 * m * k * n)
 
 
-def kernel_alone_ms(x: torch.Tensor, w: torch.Tensor,
-                    iters: int = ITERS) -> float:
-    """The kernel's own device time per launch of ``pw_matmul(x, w)`` on
-    the card: the profiler's device time of the kernel over ``iters``
-    calls.  Raises where the profiler shows none."""
-    from torch.profiler import ProfilerActivity, profile
-    pw.pw_matmul(x, w)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            pw.pw_matmul(x, w)
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) or
-             getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if "pw_stream" in e.key)
-    if us <= 0:
-        raise RuntimeError("torch.profiler shows no device time of "
-                           "pw_stream")
-    return us / iters / 1e3
-
-
 def run(device, batch: int = N, hw: int = H, log=print) -> dict:
     """Time rows A, D, B and C (B and C with their plain versions and, on
     the card, the kernel alone) and return the times (ms), bounds and ``C
@@ -152,7 +131,8 @@ def run(device, batch: int = N, hw: int = H, log=print) -> dict:
             log(f"  bound {bound:.4f} ms by {by} (an H100's; no share of it "
                 f"on the CPU, and no kernel alone)")
             continue
-        r[tag + "_alone"] = kernel_alone_ms(x, w)
+        r[tag + "_alone"] = kernel_alone_ms(lambda: pw.pw_matmul(x, w),
+                                            "pw_stream", ITERS)
         log(f"  bound {bound:.4f} ms by {by}: {bound / r[tag]:.1%} of it; "
             f"kernel alone {r[tag + '_alone']:8.4f} ms by torch.profiler, "
             f"{bound / r[tag + '_alone']:.1%} of it")

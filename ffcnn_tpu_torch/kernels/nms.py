@@ -5,8 +5,10 @@ Replaces ``ffcnn_tpu/kernels/nms_pallas.py::_nms_kernel`` (``nms_keep_mask``).
 In JAX the greedy scan is one compiled program; eager PyTorch would launch
 about a dozen kernels per candidate, so on the card the whole recurrence runs
 in one launch (``csrc/nms.cu``: one CTA per image, keep flags in shared
-memory, latency bound by the K serial steps).  The kernel and the plain
-version give the same mask bit for bit (IEEE division, no FMA contraction).
+memory, the recurrence resolved 32 anchors at a time on one warp's register
+bitset, so 1 + 2 * ceil(K / 32) barriers in place of K - 1).  The kernel and
+the plain version give the same mask bit for bit (IEEE division, no FMA
+contraction).
 """
 
 from __future__ import annotations
