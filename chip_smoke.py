@@ -56,9 +56,10 @@ K9.  Phases, each of which exits non-zero on failure:
      two, batch 64, 66, 67, 128 and 256; each with its tile, CTAs, us a
      block and ratio to the K1 launches they replace; K7 at 10x10 and
      13x13, batch 64 and 256, also against the cuDNN chain of its five
-     layers; K6, and K2 at K 128 and 1,500, also by the kernel's device
-     time alone, by torch.profiler), the whole forward of every path,
-     img/s of every path
+     layers; K6 at 320x320 and K2 at K 128 and 1,500, also by the
+     kernel's device time alone, by torch.profiler, and K6 alone at
+     320x320 in float32 and at 416x416 and 322x322), the whole forward of
+     every path, img/s of every path
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -111,6 +112,7 @@ NMS_LARGE_K = 9000          # above the 8,192 candidates K2 stages
 # relu); 322 * 3 bytes a row is not a multiple of 16 (the word copy)
 K6_STEMS = ((8, 2), (16, 2), (20, 2), (32, 2), (16, 1))
 K6_SIZES = (320, 416, 322)
+K6_TIMED = ((320, "float32"), (416, "bfloat16"), (322, "bfloat16"))
 REGION_FLAGS = {"FFCNN_FUSED_DOWN": "1", "FFCNN_FUSED_MINC": "8",
                 "FFCNN_CONV0_PALLAS": "1", "FFCNN_FUSED_HEADS": "1"}
 PATH_FLAGS = {"default": {}, "region": REGION_FLAGS,
@@ -219,6 +221,97 @@ def turns(kernel, plain, iters: int = 20):
     a, b = cuda_ms(kernel, iters), cuda_ms(plain, iters)
     c, d = cuda_ms(plain, iters), cuda_ms(kernel, iters)
     return (a, d), (b, c)
+
+
+def nms_candidates(n: int, k: int, seed: int):
+    """Sorted candidates with equal scores, touching and degenerate boxes
+    and five classes (coordinates on a coarse integer grid), numpy."""
+    rng = np.random.RandomState(seed)
+    xy = rng.randint(0, 64, (n, k, 2)).astype(np.float32)
+    wh = rng.randint(0, 24, (n, k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], axis=-1)
+    scores = rng.choice([0.5, 0.6, 0.75, 0.9, 1.0], (n, k)).astype(np.float32)
+    scores[rng.rand(n, k) < 0.2] = 0.0
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], axis=1)
+    scores = np.take_along_axis(scores, order, axis=1)
+    classes = rng.randint(0, 5, (n, k)).astype(np.int32)
+    return boxes, scores, classes
+
+
+def nms_chains(n: int, k: int, seed: int):
+    """Chains of boxes 10 wide, each 2 to the right of the one before, one
+    row and one class (of two) a chain, up to four chains an image cut at
+    seeded places, all at one score but the last eighth (absent), numpy.
+    Greedy keeps every third box of a chain with min IoU (0.8, 0.6, 0.4 at
+    one, two, three steps) and every other with union IoU (0.67, 0.43), so
+    a chain that runs over a 32-anchor edge is cut there mid-suppression."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((n, k, 4), np.float32)
+    classes = np.zeros((n, k), np.int32)
+    for img in range(n):
+        cuts = (np.sort(rng.choice(np.arange(1, k), min(3, k - 1),
+                                   replace=False)) if k > 1 else [])
+        for c, (a, b) in enumerate(zip([0, *cuts], [*cuts, k])):
+            i = np.arange(b - a, dtype=np.float32)
+            boxes[img, a:b] = np.stack([2 * i, np.full_like(i, 20 * c),
+                                        2 * i + 10,
+                                        np.full_like(i, 20 * c + 10)], -1)
+            classes[img, a:b] = c % 2
+    scores = np.full((n, k), 0.9, np.float32)
+    scores[:, k - k // 8:] = 0.0
+    return boxes, scores, classes
+
+
+def stem_nms_times(cp, dev) -> dict:
+    """K6 and K2 timed at batch 64 on seeded inputs, through their
+    wrappers.  K6 on the stem ``cp`` at 320x320 in bf16: CUDA events in
+    turns with its plain version, and the kernel's device time alone
+    (``bench_block.kernel_alone_ms``, torch.profiler); then the kernel
+    alone at each size and dtype of ``K6_TIMED``.  K2 at each K of
+    ``NMS_KS`` on ``nms_candidates``, min IoU: events, the plain version's
+    events and the kernel alone.  Returns {"K6": {...}, "K2": {k: (ms,
+    plain ms, alone ms)}}."""
+    import torch
+    from ffcnn_tpu_torch.bench_block import kernel_alone_ms
+    from ffcnn_tpu_torch.kernels import conv0_fused as c0
+    from ffcnn_tpu_torch.kernels import nms as knms
+    gen = torch.Generator().manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    def frames(size):
+        return torch.randint(0, 256, (BATCH, size, size, 3), generator=gen,
+                             dtype=torch.uint8).to(dev)
+    x = frames(320)
+    (ms, ms2), (pms, pms2) = turns(lambda: c0.conv0_cs(x, cp, bf16),
+                                   lambda: c0.conv0_plain(x, cp, bf16))
+    k6 = {"ms": ms, "ms2": ms2, "plain_ms": pms, "plain_ms2": pms2,
+          "alone": kernel_alone_ms(lambda: c0.conv0_cs(x, cp, bf16),
+                                   "conv0_kernel", 50)}
+    log(f"[6] K6 stem u8 320x320 -> bf16 batch {BATCH}: kernel {ms:.4f} / "
+        f"{ms2:.4f} ms, kernel alone {k6['alone']:.4f} ms (torch.profiler),"
+        f" plain {pms:.4f} / {pms2:.4f} ms")
+    for size, dt in K6_TIMED:
+        xs = frames(size)
+        a = kernel_alone_ms(lambda: c0.conv0_cs(xs, cp, getattr(torch, dt)),
+                            "conv0_kernel", 50)
+        k6[f"alone_{size}_{dt}"] = a
+        log(f"[6] K6 stem u8 {size}x{size} -> {dt} batch {BATCH}: kernel "
+            f"alone {a:.4f} ms (torch.profiler)")
+    k2 = {}
+    for k in NMS_KS:
+        tb, ts, tc = (torch.from_numpy(a).to(dev)
+                      for a in nms_candidates(BATCH, k, seed=k))
+        ms = cuda_ms(lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5))
+        pms = cuda_ms(lambda: knms.keep_mask_plain(tb, ts, tc, 0.5),
+                      iters=3, warmup=1)
+        alone = kernel_alone_ms(
+            lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5),
+            "nms_keep_kernel", 50)
+        k2[k] = (ms, pms, alone)
+        log(f"[6] K2 nms K={k} batch {BATCH}: kernel {ms:.4f} ms, kernel "
+            f"alone {alone:.4f} ms (torch.profiler), plain {pms:.4f} ms")
+    return {"K6": k6, "K2": k2}
 
 
 def match_fraction(dets, boxes, scores, classes, px: float,
@@ -547,7 +640,6 @@ def main() -> int:
     try:
         import ffcnn_tpu_torch as pt
         from ffcnn_tpu_torch import bench_block as bb
-        from ffcnn_tpu_torch import bench_stem_nms as sn
         from ffcnn_tpu_torch.graph.build import forward_features
         from ffcnn_tpu_torch.kernels import _build
         from ffcnn_tpu_torch.kernels import block_fused as bf
@@ -752,9 +844,9 @@ def main() -> int:
     # K2 at K on either side of its 32-anchor blocks, fast mode's and
     # parity mode's largest, batch 1 and 64, on three candidate sets: bit
     # for bit against the plain version on the card and on the CPU
-    nms_sets = {"candidates": sn.nms_candidates, "chains": sn.nms_chains,
+    nms_sets = {"candidates": nms_candidates, "chains": nms_chains,
                 "one class": lambda n, k, seed: (
-                    *sn.nms_candidates(n, k, seed)[:2],
+                    *nms_candidates(n, k, seed)[:2],
                     np.zeros((n, k), np.int32))}
     for k in NMS_CHECK_KS:
         for nb in (1, BATCH):
@@ -785,7 +877,7 @@ def main() -> int:
     # past the candidates K2 stages in shared memory (a parity-mode K at
     # larger inputs), against the plain version on the card
     tb, ts, tc = (torch.from_numpy(a).to(dev)
-                  for a in sn.nms_candidates(2, NMS_LARGE_K, seed=1))
+                  for a in nms_candidates(2, NMS_LARGE_K, seed=1))
     for kind in ("min", "union"):
         got = knms.nms_keep_mask(tb, ts, tc, threshold=0.5, iou_kind=kind)
         want = knms.keep_mask_plain(tb, ts, tc, 0.5, kind)
@@ -909,14 +1001,7 @@ def main() -> int:
     log(f"[6] K3 all 4 stride-2 blocks bf16 batch {BATCH}: kernel "
         f"{k3_ms:.4f} / {k3_ms2:.4f} ms, plain {k3_pms:.4f} / "
         f"{k3_pms2:.4f} ms")
-    (k6_ms, k6_ms2), (k6_pms, k6_pms2) = turns(
-        lambda: c0.conv0_cs(xu8, rc0, bf16),
-        lambda: c0.conv0_plain(xu8, rc0, bf16))
-    k6_alone = bb.kernel_alone_ms(lambda: c0.conv0_cs(xu8, rc0, bf16),
-                                  "conv0_kernel", 50)
-    log(f"[6] K6 stem u8 320x320 -> bf16 batch {BATCH}: kernel "
-        f"{k6_ms:.4f} / {k6_ms2:.4f} ms, kernel alone {k6_alone:.4f} ms "
-        f"(torch.profiler), plain {k6_pms:.4f} / {k6_pms2:.4f} ms")
+    sn = stem_nms_times(rc0, dev)
     # K7 at 10x10 and 13x13, batch 64 and 256, against its plain version
     # and against its yardstick: the same five layers as the default path
     # runs them, five cuDNN convs (ops.conv.conv2d_fused, TF32 on the
@@ -1007,20 +1092,6 @@ def main() -> int:
                 f"{ms2:.4f} ms ({ms * 1e3 / len(mbps):.1f} us a block), "
                 f"its 5 K1 launches {k1ms:.4f} ms, ratio {ms / k1ms:.2f}, "
                 f"plain {pms:.4f} / {pms2:.4f} ms")
-
-    nms_ms = {}
-    for k in NMS_KS:
-        tb, ts, tc = (torch.from_numpy(a).to(dev)
-                      for a in sn.nms_candidates(BATCH, k, seed=k))
-        ms = cuda_ms(lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5))
-        pms = cuda_ms(lambda: knms.keep_mask_plain(tb, ts, tc, 0.5),
-                      iters=3, warmup=1)
-        alone = bb.kernel_alone_ms(
-            lambda: knms.nms_keep_mask(tb, ts, tc, threshold=0.5),
-            "nms_keep_kernel", 50)
-        nms_ms[k] = (ms, pms, alone)
-        log(f"[6] K2 nms K={k} batch {BATCH}: kernel {ms:.4f} ms, kernel "
-            f"alone {alone:.4f} ms (torch.profiler), plain {pms:.4f} ms")
 
     # the whole fast forward: unfused cuDNN chain, the default fused runs,
     # the region, cascade and mega configurations, each as its Net runs it
@@ -1172,17 +1243,17 @@ def main() -> int:
               launches["K1"], rk1_ms, rk1_pms, works["K1"],
               cudnn_chain_ms=chain_b[1]),
         entry("nms_keep_mask", "K2", "nms.cu", "nms_pallas.py:26",
-              launches["K2"], nms_ms[nk][0], nms_ms[nk][1], works["K2", nk],
-              kernel_alone_ms=nms_ms[nk][2], ms_1500=nms_ms[1500][0],
-              plain_ms_1500=nms_ms[1500][1],
-              kernel_alone_ms_1500=nms_ms[1500][2],
+              launches["K2"], sn["K2"][nk][0], sn["K2"][nk][1],
+              works["K2", nk], kernel_alone_ms=sn["K2"][nk][2],
+              ms_1500=sn["K2"][1500][0], plain_ms_1500=sn["K2"][1500][1],
+              kernel_alone_ms_1500=sn["K2"][1500][2],
               bound_ms_1500=works["K2", 1500].bound()[0]),
         entry("block_fused_s2", "K3", "block_down.cu", "block_fused.py:299",
               launches["K3"], k3_ms, k3_pms, works["K3"],
               cudnn_chain_ms=chain_b[2]),
         entry("conv0_fused", "K6", "conv0_fused.cu", "conv0_fused.py:37",
-              launches["K6"], k6_ms, k6_pms, works["K6"],
-              kernel_alone_ms=k6_alone),
+              launches["K6"], sn["K6"]["ms"], sn["K6"]["plain_ms"],
+              works["K6"], kernel_alone_ms=sn["K6"]["alone"]),
         entry("head_fused", "K7", "head_fused.cu", "head_fused.py:119",
               launches["K7"], k7[hb.h, BATCH][0], k7[hb.h, BATCH][1],
               works["K7"], cudnn_chain_ms=k7[hb.h, BATCH][2],

@@ -28,12 +28,10 @@
 //   tested against the listed anchors only, p lanes a candidate (each
 //   taking every p-th anchor, the verdicts OR-ed by shuffles) where fewer
 //   candidates than threads are left.
-// * A CTA of 1,024 threads (512 up to K = 512, where the barriers of the
-//   larger CTA cost more than its threads win), and the candidates (boxes,
-//   areas, classes) staged in shared memory up to K = 8,192 (25 bytes a
-//   candidate);
-//   beyond that they are read from device memory, with only the keep
-//   flags (K bytes) in shared memory.  No device-memory scratch.
+// * A CTA of 1,024 threads, and the candidates (boxes, areas, classes)
+//   staged in shared memory up to K = 8,192 (25 bytes a candidate); beyond
+//   that they are read from device memory, with only the keep flags (K
+//   bytes) in shared memory.  No device-memory scratch.
 //
 // The mask must equal the plain PyTorch version bit for bit, so this file
 // is compiled with -fmad=false (no FMA contraction moves an IoU across the
@@ -48,7 +46,7 @@ namespace {
 
 constexpr int kBlock = 32;        // anchors resolved at a time: a warp's lanes
 constexpr int kMaxStaged = 8192;  // candidates staged in shared memory
-constexpr int kSmallK = 512;      // up to here, CTAs of 512 threads
+constexpr int kThreads = 1024;
 
 __device__ __forceinline__ float area(float4 a) {
   return (a.z - a.x) * (a.w - a.y);
@@ -95,9 +93,8 @@ struct Cands {
 };
 
 // masks[r] for the block of anchors b0 .. b0 + cnt - 1, rows by warps (a
-// ballot a row) in a CTA of NT threads; rows of anchors with score <= 0
-// (never kept) stay 0.
-template <int NT, bool S>
+// ballot a row); rows of anchors with score <= 0 (never kept) stay 0.
+template <bool S>
 __device__ __forceinline__ void block_masks(const Cands<S>& c,
                                             const float* __restrict__ score,
                                             int b0, int cnt, float thr,
@@ -109,7 +106,7 @@ __device__ __forceinline__ void block_masks(const Cands<S>& c,
   const float ab = c.ar(u);
   const int cb = c.cls(u);
 #pragma unroll
-  for (int r = warp; r < kBlock; r += NT / 32) {
+  for (int r = warp; r < kBlock; r += kThreads / 32) {
     const int ra = b0 + min(r, cnt - 1);
     const bool row = r < cnt && score[ra] > 0.f;  // the same in every lane
     const uint32_t m = __ballot_sync(
@@ -119,8 +116,8 @@ __device__ __forceinline__ void block_masks(const Cands<S>& c,
   }
 }
 
-template <bool S, int NT>
-__global__ void __launch_bounds__(NT)
+template <bool S>
+__global__ void __launch_bounds__(kThreads)
 nms_keep_kernel(const float4* __restrict__ boxes,
                 const float* __restrict__ scores,
                 const int* __restrict__ classes,
@@ -141,7 +138,7 @@ nms_keep_kernel(const float4* __restrict__ boxes,
                    reinterpret_cast<int*>(dyn + 20 * (size_t)k)};
   uint8_t* keep = dyn + (S ? 24 * (size_t)k : 0);
   const int lane = threadIdx.x & 31;
-  for (int j = threadIdx.x; j < k; j += NT) {
+  for (int j = threadIdx.x; j < k; j += kThreads) {
     keep[j] = sc[j] > 0.f;
     if constexpr (S) {
       const float4 b = cg.bx[j];
@@ -151,7 +148,7 @@ nms_keep_kernel(const float4* __restrict__ boxes,
     }
   }
   // block 0's masks from device memory: no barrier before them
-  block_masks<NT, false>(cg, sc, 0, min(kBlock, k), thr, union_iou, masks[0]);
+  block_masks<false>(cg, sc, 0, min(kBlock, k), thr, union_iou, masks[0]);
   __syncthreads();
 
   for (int b0 = 0, buf = 0; b0 < k; b0 += kBlock, buf ^= 1) {
@@ -184,9 +181,9 @@ nms_keep_kernel(const float4* __restrict__ boxes,
     if (nk && later > 0) {
       // p lanes a candidate (a power of two, at most a warp)
       int p = 1;
-      while (p < 32 && 2 * p * later <= NT) p *= 2;
+      while (p < 32 && 2 * p * later <= kThreads) p *= 2;
       const int part = threadIdx.x & (p - 1);
-      for (int jb = b0 + kBlock; jb < k; jb += NT / p) {
+      for (int jb = b0 + kBlock; jb < k; jb += kThreads / p) {
         const int j = jb + threadIdx.x / p;
         bool sup = false;
         if (j < k && keep[j]) {
@@ -208,26 +205,26 @@ nms_keep_kernel(const float4* __restrict__ boxes,
       }
     }
     if (later > 0)
-      block_masks<NT, S>(c, sc, b0 + kBlock, min(kBlock, later), thr, union_iou,
+      block_masks<S>(c, sc, b0 + kBlock, min(kBlock, later), thr, union_iou,
                      masks[buf ^ 1]);
     __syncthreads();
   }
-  for (int j = threadIdx.x; j < k; j += NT)
+  for (int j = threadIdx.x; j < k; j += kThreads)
     keep_out[base + j] = keep[j];
 }
 
-template <bool S, int NT>
+template <bool S>
 int launch(const void* boxes, const void* scores, const void* classes,
            void* keep, int n, int k, float thr, int union_iou,
            cudaStream_t st) {
   const size_t smem = (size_t)k * (S ? 25 : 1);
   if (smem > 40 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nms_keep_kernel<S, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nms_keep_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  nms_keep_kernel<S, NT><<<n, NT, smem, st>>>(
+  nms_keep_kernel<S><<<n, kThreads, smem, st>>>(
       (const float4*)boxes, (const float*)scores, (const int*)classes,
       (uint8_t*)keep, k, thr, union_iou);
   return (int)cudaGetLastError();
@@ -244,14 +241,10 @@ int ffcnn_nms_keep(const void* boxes, const void* scores, const void* classes,
                    void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  if (k <= kSmallK)
-    return launch<true, 512>(boxes, scores, classes, keep, n, k, thr,
-                             union_iou, st);
   if (k <= kMaxStaged)
-    return launch<true, 1024>(boxes, scores, classes, keep, n, k, thr,
-                              union_iou, st);
-  return launch<false, 1024>(boxes, scores, classes, keep, n, k, thr,
-                             union_iou, st);
+    return launch<true>(boxes, scores, classes, keep, n, k, thr, union_iou,
+                        st);
+  return launch<false>(boxes, scores, classes, keep, n, k, thr, union_iou, st);
 }
 
 const char* ffcnn_nms_error_string(int err) {

@@ -22,6 +22,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import chip_smoke
 import ffcnn_tpu_torch as pt
 from ffcnn_tpu.darknet import parse_cfg
 from ffcnn_tpu.darknet.weights import load_weights, synth_weights_bytes
@@ -29,7 +30,6 @@ from ffcnn_tpu.graph import build as jbuild
 from ffcnn_tpu.kernels import conv0_fused as jc0
 from ffcnn_tpu.kernels.nms_pallas import nms_keep_mask as jax_pallas_keep
 from ffcnn_tpu.ops import nms as jnms
-from ffcnn_tpu_torch import bench_stem_nms
 from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import conv0_fused as tc0
@@ -260,7 +260,7 @@ def _nan_set(n, k, seed):
     return b, s, c
 
 
-SETS = {"random": _random_set, "chain": bench_stem_nms.nms_chains,
+SETS = {"random": _random_set, "chain": chip_smoke.nms_chains,
         "one_class": _one_class_set, "nan": _nan_set}
 KS = [1, 31, 32, 33, 95]
 
@@ -383,7 +383,7 @@ def test_blocked_schedule_matches_plain(name, k):
 def test_chain_set_crosses_block_edges():
     """The chain set keeps every third box of a chain (min IoU) across the
     32-anchor edges, and every other box (union)."""
-    b, s, c = bench_stem_nms.nms_chains(1, 95, seed=5)
+    b, s, c = chip_smoke.nms_chains(1, 95, seed=5)
     for kind, step in (("min", 3), ("union", 2)):
         keep = keep_mask_plain(*(torch.from_numpy(v) for v in (b, s, c)),
                                0.5, kind).numpy()[0]
@@ -397,12 +397,16 @@ def test_chain_set_crosses_block_edges():
                for a, e in zip(starts, starts[1:] + [95]))
 
 
-def test_bench_stem_nms_runs_on_the_cpu():
-    """The bench's plain rows at a CPU size; the kernels equal their plain
-    versions there by construction."""
-    out = bench_stem_nms.run(torch.device("cpu"), batch=1, sizes=[64],
-                             ks=[33], iters=1, log=lambda line: None)
-    assert set(out) == {"K6 64x64 bfloat16", "K2 K=33"}
-    for r in out.values():
-        assert r["max_abs_err"] == 0 and r["ms"] > 0 and r["plain_ms"] > 0
-        assert "kernel_alone_ms" not in r
+@pytest.mark.parametrize("k", [1, 33, 128])
+def test_nms_candidates_are_sorted(k):
+    """The smoke's candidate sets come as the kernel takes them: scores
+    sorted descending, absent candidates (score 0) last, boxes with x1 <= x2
+    and y1 <= y2, five classes; seeded."""
+    b, s, c = chip_smoke.nms_candidates(3, k, seed=k)
+    assert b.shape == (3, k, 4) and s.shape == c.shape == (3, k)
+    assert (b.dtype, s.dtype, c.dtype) == (np.float32, np.float32, np.int32)
+    assert (np.diff(s, axis=1) <= 0).all()
+    assert (b[..., 2] >= b[..., 0]).all() and (b[..., 3] >= b[..., 1]).all()
+    assert c.min() >= 0 and c.max() < 5
+    for got, want in zip(chip_smoke.nms_candidates(3, k, seed=k), (b, s, c)):
+        np.testing.assert_array_equal(got, want)
