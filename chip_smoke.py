@@ -46,10 +46,17 @@ K9.  Phases, each of which exits non-zero on failure:
      suppression chains across its 32-anchor blocks and one class, min and
      union IoU, and at K 9,000 on the card, past what it stages)
   4. each path: ``detect`` on a batch of 64 frames and on one 640x448
-     frame, with every kernel launch count read around the call; heads and
-     detections against the same Net on the CPU; the region Net at
-     416x416 likewise
-  5. parity mode on the card against parity mode on the CPU
+     frame, with every kernel launch count read around the call, which
+     builds the bucket (two eager warm-up runs and the CUDA graph's
+     capture launch through the wrappers) and replays it; then a second
+     ``detect`` of each, a replay alone, with the kernels the card ran
+     counted by torch.profiler from their symbols: one forward's, as many
+     as an eager run of the pipeline ran and launched, and no launch from
+     Python; heads and detections against the same Net on the CPU; the
+     region Net at 416x416 likewise
+  5. parity mode on the card (a bucket per K as it grows K) against
+     parity mode on the CPU, and whether it equals the eager card path
+     bit for bit
   6. timings with CUDA events: kernels against their plain versions (K1
      and K3 also by geometry, in us a block; K4 by group, with the work
      its halo recompute adds; K5 at one CTA an image and at a cluster of
@@ -59,7 +66,10 @@ K9.  Phases, each of which exits non-zero on failure:
      layers; K6 at 320x320 and K2 at K 128 and 1,500, also by the
      kernel's device time alone, by torch.profiler, and K6 alone at
      320x320 in float32 and at 416x416 and 322x322), the whole forward of
-     every path, img/s of every path
+     every path; ``detect_device`` at batch 1, 64 and 256 on every path
+     (a bucket's replay), and for default and region also the eager
+     pipeline (the parent's ``detect_device``), in turns, each with its
+     host CPU and device time by torch.profiler
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
@@ -76,6 +86,18 @@ K9.  Phases, each of which exits non-zero on failure:
      whose template it launches, then each mode chained 20 times at batch
      256 in bf16, counted and timed beside the cuDNN chain and the layout
      round trip); P4 and P5 (``retest_backend_bugs.py``: bit-exact, timed)
+  9. serving (its ``detect_stream`` and server parts run after phase 5,
+     before the timings, whose traces torch.profiler's counts must
+     precede; its ``memory_stats`` and sync-debug parts run last): on
+     every path ``detect_stream`` at depth 2 and 3 over four
+     batches of one bucket, the kernels it ran counted by torch.profiler,
+     against serial ``detect``; the region bucket's ``memory_stats`` at
+     batch 1 and 64 (peak >= args + output) and a replay under sync-debug
+     mode "error"; then the HTTP server (``ffcnn_tpu_torch/serve.py``) on
+     the region Net, its batch buckets 1-64 warmed: 96 concurrent POST
+     /detect from 32 threads (the fixture BMP and seeded frames), the
+     kernels the card ran counted around them, each answer held against
+     the eager card path's candidates, /statz read
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
@@ -83,8 +105,9 @@ H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
 shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
 P1 and P2 with the kernel's device time alone, K2 with its times and bound
-at K 1,500 too); the line before
-it is the card's name and power limit; the last line of standard output
+at K 1,500 too; K1-K7's launches are their wrappers' counts over phase 4's
+first detect on the region, cascade and mega paths, which builds the
+bucket); the line before it is the card's name and power limit; the last line of standard output
 is one JSON object with the device.
 """
 
@@ -93,6 +116,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -131,6 +155,18 @@ WANT_COUNTS = {
 for _want in WANT_COUNTS.values():
     # no Net path runs the block bench's kernels or the probes'
     _want.update({k: 0 for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5")})
+# The path kernels' __global__ symbols, as torch.profiler names their device
+# events (demangled or mangled).  K1 and K3 are block_mma.cuh's template at
+# S = 1 and S = 2.  A replay runs no Python, so the kernels a graph's replay
+# ran are counted from these events, not by the wrappers.
+KERNEL_SYMBOLS = {
+    "K1": r"mma::block_kernel<1,|3mma12block_kernelILi1E",
+    "K2": r"(?<![A-Za-z_])nms_keep_kernel",
+    "K3": r"mma::block_kernel<2,|3mma12block_kernelILi2E",
+    "K4": r"(?<![A-Za-z_])cascade_kernel",
+    "K5": r"(?<![A-Za-z_])mega_kernel",
+    "K6": r"(?<![A-Za-z_])conv0_kernel",
+    "K7": r"(?<![A-Za-z_])head_kernel"}
 
 # Tolerances of a kernel against its plain version on the same inputs, for
 # every kernel but K2 (K1, K3, K6, K7: float32 math inside).  float32: the
@@ -159,6 +195,10 @@ MBCONV_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # storages.  P4 and P5 are copies: bit-exact.
 EXACT = {"float32": 0.0, "bfloat16": 0.0}
 P3_ITERS, P3_BATCH, P3_CHECK_BATCH = 20, 256, 64
+# Phase 9: the server's load (the fixture and seeded frames, each sent
+# SERVE_REQUESTS / SERVE_FRAMES times) and detect_stream's depths
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_FRAMES = 96, 32, 16
+STREAM_DEPTHS = (2, 3)
 
 
 def p3_tols(mode: str) -> dict:
@@ -314,6 +354,95 @@ def stem_nms_times(cp, dev) -> dict:
     return {"K6": k6, "K2": k2}
 
 
+def traced(fn):
+    """Run ``fn`` once under torch.profiler (host and device activity)
+    and return its result and the profiler's rows (``key_averages``).
+    A warm-up step comes first, whose events the profiler drops: without
+    it, the first device events of a trace went missing (an upload and
+    the first kernels of a replay)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    rows = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: rows.extend(p.key_averages())
+                 ) as prof:
+        torch.ones(1 << 20, device="cuda").sum().item()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    if not rows:
+        raise AssertionError("torch.profiler returned no trace")
+    return out, rows
+
+
+def profiled_ms(fn, iters: int):
+    """(host CPU ms, device ms) a call of ``fn``, by torch.profiler over
+    ``iters`` calls after one untraced call: the self CPU time of every
+    host event but the closing synchronise, and the time of every device
+    event (kernels, copies; a host op's own device time repeats its
+    kernels', so host rows are left out of that sum)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    host = sum(e.self_cpu_time_total for e in rows
+               if e.key != "cudaDeviceSynchronize")
+    device = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) for e in rows
+                 if e.device_type == DeviceType.CUDA)
+    return host / 1e3 / iters, device / 1e3 / iters
+
+
+def eager_bucket_times(nets, frames, dev) -> None:
+    """Phase 6's detect times, pixels on the card, at batch 1, 64 and 256:
+    every path's bucket (``detect_device``, one graph replay) by CUDA
+    events; for default and region also the eager pipeline
+    (``_Pipeline.run``: letterbox, forward, decode, arena cap, top-k and
+    K2 launched from Python, as ``detect_device`` ran them before the
+    buckets, now without its per-call host copies), the two in turns
+    (eager, bucket, bucket, eager), and each's host CPU and device time by
+    torch.profiler."""
+    import torch
+    for tag, n in nets.items():
+        for nb, iters in ((1, 50), (64, 20), (256, 8)):
+            batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
+                                     ).to(dev)
+            n.warmup(batch_sizes=(nb,))
+            bucket = lambda: n.detect_device(batch)
+            row = {}
+            if tag in ("default", "region"):
+                eager = lambda: bucket_of(n, batch).run(batch)
+                (row["eager"], row["eager2"]), (row["bucket"],
+                                                row["bucket2"]) = turns(
+                    eager, bucket, iters)
+                row["eager_host"], row["eager_device"] = profiled_ms(
+                    eager, min(iters, 10))
+                row["bucket_host"], row["bucket_device"] = profiled_ms(
+                    bucket, min(iters, 10))
+                log(f"[6] {tag} detect batch {nb}, eager / bucket: events "
+                    f"{row['eager']:.3f}, {row['eager2']:.3f} / "
+                    f"{row['bucket']:.3f}, {row['bucket2']:.3f} ms "
+                    f"({nb / row['bucket'] * 1e3:.1f} img/s bucket); "
+                    f"torch.profiler host CPU {row['eager_host']:.3f} / "
+                    f"{row['bucket_host']:.3f} ms, device "
+                    f"{row['eager_device']:.3f} / {row['bucket_device']:.3f}"
+                    f" ms a call")
+            else:
+                row["bucket"] = cuda_ms(bucket, iters=iters)
+                log(f"[6] {tag} detect batch {nb}, bucket: events "
+                    f"{row['bucket']:.3f} ms, {nb / row['bucket'] * 1e3:.1f}"
+                    f" img/s")
+
+
 def match_fraction(dets, boxes, scores, classes, px: float,
                    score_tol: float) -> float:
     """Share of ``dets`` that are among the candidates (``boxes`` (M, 4),
@@ -366,6 +495,36 @@ def counted(counters, fn):
     return out, {k: c.launches for k, c in counters.items()}
 
 
+def kernel_events(counters, fn):
+    """Run ``fn`` under torch.profiler (``traced``) with every launch
+    counter set to 0 just before it; return its result, the path kernels
+    the card ran (KERNEL_SYMBOLS, counted from the device events: a
+    graph's replays included) and the wrappers' counts (launches from
+    Python)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out, rows = traced(fn)
+    ran = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    # every device row, for the log of a check that fails
+    kernel_events.rows = [(e.key, e.count) for e in rows
+                          if e.device_type == DeviceType.CUDA]
+    for key, count in kernel_events.rows:
+        for k, pat in KERNEL_SYMBOLS.items():
+            if re.search(pat, key):
+                ran[k] += count
+    return out, ran, {k: c.launches for k, c in counters.items()}
+
+
+def log_device_rows() -> None:
+    """Log the device rows of the last ``kernel_events`` call."""
+    for key, count in kernel_events.rows:
+        log(f"    {count:6d}  {key[:160]}")
+
+
 def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
     """The card's heads and detections against the same Net on the CPU,
     on the first four frames (``dets``: the card's detections of all)."""
@@ -402,6 +561,59 @@ def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
             f"{fr[0]:.3f}, CPU {fr[1]:.3f} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag} detections disagree with the CPU")
+
+
+def bucket_of(net, frames, topk=None):
+    """The bucket (``net._pipeline_for``) that detects ``frames``."""
+    import ffcnn_tpu_torch as pt
+    return net._pipeline_for(frames.shape[1], frames.shape[2],
+                             pt.DEFAULT_MEAN, pt.DEFAULT_NORM, topk)
+
+
+def check_replay(tag: str, net, counters, frames, first) -> None:
+    """A second ``detect`` of ``frames`` (N, H, W, 3), a replay of the
+    bucket the first built: the kernels the card ran in it (torch.profiler)
+    are one forward's (WANT_COUNTS) and one K2, as many as one eager run of
+    the bucket's pipeline on the same batch ran (torch.profiler) and
+    launched (its wrappers' counts, which hold the symbols true); no wrapper
+    counts in the replay.  Whether it equals the first's (``first``, a
+    replay too) bit for bit is reported."""
+    import torch
+    want = WANT_COUNTS[tag.replace("416", "")]
+    xb = torch.from_numpy(frames).to("cuda")
+    dets, ran, wrapped = kernel_events(counters, lambda: net.detect(frames))
+    _, eager_ran, eager_wrapped = kernel_events(
+        counters, lambda: bucket_of(net, xb).run(xb))
+    log(f"[4] {tag} bucket batch {len(frames)} at {frames.shape[2]}x"
+        f"{frames.shape[1]}: kernels a replay ran "
+        + " ".join(f"{k} {v}" for k, v in ran.items() if v)
+        + "; an eager run's " + " ".join(
+            f"{k} {v}" for k, v in eager_ran.items() if v)
+        + ", its wrappers' " + " ".join(
+            f"{k} {v}" for k, v in eager_wrapped.items() if v)
+        + f"; the replay's wrapper counts {sum(wrapped.values())}; bit for "
+        f"bit with the first detect: {dets == first}")
+    ok = not any(wrapped.values()) and ran["K2"] == 1 and all(
+        ran[k] == want[k] for k in KERNEL_SYMBOLS if k != "K2") and \
+        ran == eager_ran == {k: eager_wrapped[k] for k in KERNEL_SYMBOLS}
+    if not ok:
+        log_device_rows()
+        raise AssertionError(f"{tag}: the bucket's replay did not run the "
+                             f"kernels an eager run launches")
+
+
+def eager_detect(net, frames):
+    """``detect`` through the eager pipeline, no graph (the parent's path):
+    parity mode grows K as ``Net._finish`` does."""
+    import torch
+    xb = torch.from_numpy(frames).to("cuda")
+    max_k = net._max_candidates()
+    k = min(net.topk, max_k)
+    res = bucket_of(net, frames).run(xb)
+    while net.mode == "parity" and bool(res.saturated.any()) and k < max_k:
+        k = min(max_k, k * 4)
+        res = bucket_of(net, frames, k).run(xb)
+    return net._to_detections(res)
 
 
 def check_dets(tag: str, dets) -> None:
@@ -631,6 +843,178 @@ def probe_phase(dev, counters) -> list:
                                  ("dynslice_carry", "P5", 92))]
 
 
+def bmp_bytes(img) -> bytes:
+    """A 24-bit BMP of a (H, W, 3) uint8 BGR frame, rows top-down (a
+    negative height), as ``bmp_decode`` reads it."""
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img.reshape(h, w * 3)
+    data = rows.tobytes()
+    return struct.pack("<HIHHIIiiHHIIIIII", 0x4D42, 54 + len(data), 0, 0,
+                       54, 40, w, -h, 1, 24, 0, len(data), 0, 0, 0,
+                       0) + data
+
+
+def check_path_counts(tag: str, ran, wrapped, want, calls: int) -> None:
+    """A path's kernels over ``calls`` detects that replay their buckets
+    (``ran``, ``kernel_events``): ``want`` (one forward's, WANT_COUNTS)
+    times ``calls``, one K2 a call, and no wrapper counts (``wrapped``: no
+    launch from Python, no bucket built)."""
+    log(f"[9] {tag}: kernels run " + " ".join(f"{k} {v}" for k, v in
+                                             ran.items())
+        + f"; wrapper counts {sum(wrapped.values())}")
+    if ran["K2"] != calls or any(wrapped.values()) or any(
+            ran[k] != want[k] * calls for k in KERNEL_SYMBOLS if k != "K2"):
+        log_device_rows()
+        raise AssertionError(f"{tag} did not run its kernels {calls} times")
+
+
+def stream_checks(nets, frames, counters) -> None:
+    """Each fast path: ``detect_stream`` at depth 2 and 3 over four batches
+    of one bucket, the kernels it ran counted (``kernel_events``), against
+    serial ``detect``, at
+    the CPU tests' tolerances (class, score to 1e-6, box to 1e-4 px)."""
+    batches = [frames[i * 8:(i + 1) * 8] for i in range(4)]
+    for tag, n in nets.items():
+        serial = [n.detect(b) for b in batches]
+        for depth in STREAM_DEPTHS:
+            got, ran, wrapped = kernel_events(counters, lambda: list(
+                n.detect_stream(batches, depth=depth)))
+            check_path_counts(f"{tag} detect_stream depth {depth}", ran,
+                              wrapped, WANT_COUNTS[tag], len(batches))
+            ok = len(got) == len(serial) and all(
+                len(gi) == len(si) and all(
+                    a.class_id == b.class_id and abs(a.score - b.score) < 1e-6
+                    and max(abs(u - v) for u, v in zip(a[2:], b[2:])) < 1e-4
+                    for a, b in zip(gi, si))
+                for g, s_ in zip(got, serial) for gi, si in zip(g, s_))
+            log(f"[9] {tag} detect_stream depth {depth}, 4 batches of 8: "
+                f"{sum(len(d) for g in got for d in g)} detections, bit for "
+                f"bit with serial detect: {got == serial} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} detect_stream differs from "
+                                     f"detect")
+
+
+def serve_phase(pt, rnet, frames, counters) -> dict:
+    """Phase 9: the HTTP server on the region Net.  Warm the batch buckets
+    1-64, send SERVE_REQUESTS concurrent POST /detect (the fixture BMP and
+    seeded frames, SERVE_CLIENTS client threads) with the kernels the card
+    ran counted around them (``kernel_events``), hold each answer against the eager card path's
+    candidates (phase 4's tolerances), read /statz.  Returns /statz."""
+    import concurrent.futures
+    import http.client
+    import threading
+    import torch
+    from ffcnn_tpu_torch.ops.yolo import concat_heads, decode_head
+    from ffcnn_tpu_torch.serve import DetectorService, make_server
+    imgs = frames[:SERVE_FRAMES]
+    with open(BMP, "rb") as f:
+        bodies = [f.read()] + [bmp_bytes(im) for im in imgs[1:]]
+    if not np.array_equal(pt.bmp_load(BMP), imgs[0]):
+        raise AssertionError("the first frame is not the fixture")
+    heads = [l for l in rnet.ir.layers if l.type == pt.LayerType.YOLO]
+    feats = rnet.forward_heads(torch.from_numpy(imgs).to(rnet.device))
+    b0 = rnet.ir.blobs[0]
+    cands = concat_heads([decode_head(h.float().cpu(), l, b0.w, b0.h)
+                          for h, l in zip(feats, heads)])
+    service = DetectorService(rnet, max_batch=BATCH)
+    t0 = time.perf_counter()
+    service.warmup()
+    log(f"[9] server warmup, batch buckets {list(service._warm_batches)}: "
+        f"{time.perf_counter() - t0:.2f} s; ready {service.ready}")
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+
+    def post(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/detect", body=bodies[i % len(bodies)])
+            r = conn.getresponse()
+            return i, r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            answers, ran, wrapped = kernel_events(counters, lambda: list(
+                ex.map(post, range(SERVE_REQUESTS))))
+        wall = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/statz")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service._batcher.close()
+        thread.join(timeout=30)
+    worst, ndet = 1.0, 0
+    for i, status, body in answers:
+        if status != 200:
+            raise AssertionError(f"request {i}: HTTP {status} {body}")
+        dets = [pt.Detection(d["score"], d["class_id"], *d["box"])
+                for d in body["detections"]]
+        ndet += len(dets)
+        j = i % len(bodies)
+        fr = match_fraction(dets, *(t[j].numpy() for t in cands),
+                            DET_MATCH_PX, DET_MATCH_SCORE)
+        worst = min(worst, fr)
+        if fr < DET_MATCH_FRAC:
+            raise AssertionError(f"request {i} (frame {j}): {fr:.3f} of its "
+                                 f"detections among the eager candidates")
+    log(f"[9] {SERVE_REQUESTS} POST /detect from {SERVE_CLIENTS} threads in "
+        f"{wall:.3f} s ({SERVE_REQUESTS / wall:.1f} requests/s): all 200, "
+        f"{ndet} detections, worst share among the eager card path's "
+        f"candidates {worst:.3f} ok")
+    log(f"[9] /statz: dispatches {stats['dispatches']}, images "
+        f"{stats['images']}, batch histogram {stats['batch_hist']}, "
+        f"dispatch p50 {stats['dispatch_p50_ms']} ms, p99 "
+        f"{stats['dispatch_p99_ms']} ms, errors {stats['dispatch_errors']}")
+    if stats["images"] < SERVE_REQUESTS or stats["dispatch_errors"]:
+        raise AssertionError(f"/statz disagrees: {stats}")
+    # the warmup's probes dispatched no round: every dispatch is a request
+    check_path_counts(f"server, {stats['dispatches']} dispatches", ran,
+                      wrapped, WANT_COUNTS["region"], stats["dispatches"])
+    return stats
+
+
+def graph_checks(rnet, frames) -> None:
+    """Phase 9: ``memory_stats`` at batch 1 and 64, and a replay (a batch on
+    the card, then a host batch) under sync-debug mode "error"."""
+    import torch
+    for nb in (1, BATCH):
+        m = rnet.memory_stats(batch_size=nb)
+        ok = m["peak"] >= m["args"] + m["output"] > 0 and m["temp"] >= 0
+        log(f"[9] region memory_stats batch {nb}: " + ", ".join(
+            f"{k} {v / 2**20:.3f} MiB" for k, v in m.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"memory_stats at batch {nb}: {m}")
+    xb = torch.from_numpy(frames).to("cuda")
+    want = rnet.detect_device(xb)
+    rnet.detect_device(frames)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rnet.detect_device(xb)
+        host = rnet.detect_device(frames)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, want, host))
+    log(f"[9] region detect_device batch {BATCH} under sync-debug 'error', "
+        f"a batch on the card and a host batch: no synchronising call; "
+        f"results equal the last replay's: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("replays of one batch differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -651,6 +1035,7 @@ def main() -> int:
         from ffcnn_tpu_torch.kernels import block_variants as bv
         from ffcnn_tpu_torch.kernels import mosaic_probes as mp
         from ffcnn_tpu_torch.kernels import pw_matmul as pw
+        from ffcnn_tpu_torch.net import WARMUP_RUNS
     except ImportError as e:
         print(f"chip_smoke: the repository is not here ({e})",
               file=sys.stderr)
@@ -896,27 +1281,41 @@ def main() -> int:
     for tag, n, cn, fr in [(t, nets[t], cpus[t], frames) for t in nets] + [
             ("region416", r416, r416cpu, frames416)]:
         want = WANT_COUNTS[tag.replace("416", "")]
+        # the first detect of a size builds its bucket: WARMUP_RUNS eager
+        # runs and the capture go through the wrappers, then it replays
+        built = WARMUP_RUNS + 1
+        t0 = time.perf_counter()
         dets, counts = counted(counters, lambda: n.detect(fr))
-        log(f"[4] {tag} fast detect batch {len(fr)}: {sum(map(len, dets))} "
+        log(f"[4] {tag} fast detect batch {len(fr)} at {fr.shape[2]}x"
+            f"{fr.shape[1]}, its bucket built in the call "
+            f"({time.perf_counter() - t0:.2f} s): {sum(map(len, dets))} "
             f"detections ({len(dets[0])} on the first); launches "
             + " ".join(f"{k} {v}" for k, v in counts.items()))
-        if any(counts[k] != v for k, v in want.items()) or counts["K2"] < 1:
+        if counts["K2"] != built or any(counts[k] != v * built
+                                        for k, v in want.items()):
             raise AssertionError(f"the {tag} path did not run its kernels")
         check_dets(tag, dets)
         main_counts[tag] = counts
+        check_replay(tag, n, counters, fr, dets)
         d640, counts = counted(counters, lambda: n.detect(wide))
-        log(f"[4] {tag} fast detect 640x448: {len(d640)} detections, "
-            f"launches " + " ".join(f"{k} {v}" for k, v in counts.items()))
-        if any(counts[k] != v for k, v in want.items()) \
+        log(f"[4] {tag} fast detect 640x448, its bucket built in the call: "
+            f"{len(d640)} detections, launches "
+            + " ".join(f"{k} {v}" for k, v in counts.items()))
+        if any(counts[k] != v * built for k, v in want.items()) \
                 or not all(0 < d.score <= 1 and np.isfinite(d[2:]).all()
                            for d in d640):
             raise AssertionError(f"{tag} 640x448 detect failed")
+        check_replay(tag, n, counters, wide[None], [d640])
         check_against_cpu(tag, n, cn, fr, dets)
 
-    # 5. parity mode, card against CPU
+    # 5. parity mode, card against CPU; the card's detect replays a bucket
+    # per K as parity mode grows it
     few = frames[:4]
-    pg = pt.load(CFG, wbytes, mode="parity", device="cuda").detect(few)
+    pnet = pt.load(CFG, wbytes, mode="parity", device="cuda")
+    pg = pnet.detect(few)
     pc = pt.load(CFG, wbytes, mode="parity", device="cpu").detect(few)
+    pks = sorted(k[3] for k in pnet._pipelines)
+    pe = eager_detect(pnet, few)
     flips = worst = 0
     for a, b in zip(pg, pc):
         if len(a) != len(b):
@@ -936,7 +1335,17 @@ def main() -> int:
             flips += sum(int(u) != int(v) for u, v in zip(g[2:], c[2:]))
     log(f"[5] parity card vs CPU: {sum(map(len, pg))} detections equal "
         f"(class, integer box), max |score diff| {worst:.2e}, integer "
-        f"flips within {PARITY_BOX_NOISE} px: {flips}")
+        f"flips within {PARITY_BOX_NOISE} px: {flips}; buckets replayed at "
+        f"K {pks}; bit for bit with the eager card path: {pg == pe}")
+
+    # 9, its parts that count kernels by torch.profiler: detect_stream on
+    # every path, then the HTTP server on the region Net.  They run here,
+    # before the timings: late in a run, after the timing phases' traces,
+    # torch.profiler dropped the first device events of some traces (an
+    # upload and a replay's first kernels, or two whole replays), which it
+    # did not in phase 4 or in a process of its own.
+    stream_checks(nets, frames, counters)
+    serve_phase(pt, rnet, frames, counters)
 
     # 6. timings (device time by CUDA events), bf16 as on the main paths
     bf16 = torch.bfloat16
@@ -1131,17 +1540,11 @@ def main() -> int:
         for line in table.splitlines():
             log("    " + line)
 
-    for tag, n in nets.items():
-        for nb, iters in ((1, 50), (64, 20), (256, 8)):
-            batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
-                                     ).to(dev)
-            ms = cuda_ms(lambda: n.detect_device(batch), iters=iters)
-            log(f"[6] {tag} fast detect_device batch {nb}: {ms:.3f} "
-                f"ms/batch, {nb / ms * 1e3:.1f} img/s (pixels on the card; "
-                f"decode+NMS included)")
+    eager_bucket_times(nets, frames, dev)
     torch.cuda.synchronize()
     log(f"[6] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB")
 
     # 7. the block A/B bench: the kernel pass counted (one K8 launch a
     # case, one K9 launch a stride-1 case), then the report, then float32
@@ -1275,6 +1678,10 @@ def main() -> int:
 
     # 8. the probe kernels P1-P5 behind the ports of their probes
     kernels += probe_phase(dev, counters)
+
+    # 9, the rest: the region bucket's memory (which resets the peak
+    # statistic phase 6 reads) and sync-freedom
+    graph_checks(rnet, frames)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,15 @@
     net_forward -> detect     (forward, YOLO decode, NMS, batched)
     net_dump    -> Net.dump   (byte-identical layer table)
 
+``detect_device`` runs one pixels-to-boxes pipeline per (image size, top-k,
+mean/norm) bucket, as the JAX package compiles one program per bucket.  On
+the card each bucket captures itself as one CUDA graph per batch size
+(letterbox, forward, decode, arena cap, top-k and the keep mask), fed from
+a static input buffer; a call copies its batch in, replays the graph and
+returns clones of the outputs.  ``warmup`` builds the buckets ahead of
+traffic; ``detect_async`` and ``detect_stream`` keep batches in flight;
+``forward_heads`` stays the eager path.
+
 Modes:
   * ``parity``: float32 with TF32 off for convs and matmuls (the JAX
     package's ``Precision.HIGHEST``); no fused kernels.
@@ -35,8 +44,11 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
+import time
 import typing
 import warnings
+from collections import deque
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -61,6 +73,35 @@ from .tuning import get_flag
 DEFAULT_MEAN = (0.0, 0.0, 0.0)
 DEFAULT_NORM = (1 / 255.0, 1 / 255.0, 1 / 255.0)
 NMS_THRESHOLD = 0.5          # hardcoded in the reference (ffcnn.c:519)
+
+# Eager runs of a pipeline before its capture: they take what the first
+# call of a kernel does once (a library's build and load, the raised
+# shared-memory caps, cuDNN's and cuBLAS's handles and workspaces).
+WARMUP_RUNS = 2
+
+
+def stream_detections(detect_async, batches, depth: int = 2):
+    """Keep up to ``depth`` batches in flight through a ``detect_async``-
+    shaped callable (one uint8 (N, H, W, 3) batch -> a zero-argument
+    completion callable); yields each batch's result in order.  The port's
+    copy of ``ffcnn_tpu/net.py::stream_detections``."""
+    # checked at call time: the generator's body runs at its first item
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+
+    def gen():
+        inflight: deque = deque()
+        for batch in batches:
+            batch = np.asarray(batch)
+            if batch.ndim != 4 or batch.shape[-1] != 3:
+                raise ValueError(f"expected (N, H, W, 3) uint8 "
+                                 f"batches, got {batch.shape}")
+            inflight.append(detect_async(batch))
+            if len(inflight) >= depth:
+                yield inflight.popleft()()
+        while inflight:
+            yield inflight.popleft()()
+    return gen()
 
 
 class Detection(typing.NamedTuple):
@@ -87,6 +128,99 @@ def _tf32(allow: bool):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _capture(graph, run, x: torch.Tensor, pool):
+    """Capture ``run(x)`` into ``graph``, its memory from ``pool``; returns
+    the captured outputs.  ``thread_local``: another thread's CUDA calls (a
+    server's request threads) cannot invalidate the capture."""
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        return run(x)
+
+
+class _Graph:
+    """One bucket captured as a CUDA graph at one batch size: the static
+    input its replays read and the outputs they overwrite.  A replay runs
+    no Python: the kernel wrappers count their launches at the warm-up
+    runs and at the capture, not at a replay."""
+
+    def __init__(self, run, n: int, h: int, w: int, device, pool):
+        # outside the graph's pool: no later capture reuses it
+        self.input = torch.zeros((n, h, w, 3), dtype=torch.uint8,
+                                 device=device)
+        # warm-up on a side stream, as PyTorch's graph docs prescribe
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                run(self.input)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        self.output = _capture(self.graph, run, self.input, pool)
+
+    def replay(self, batch: torch.Tensor) -> NMSResult:
+        """Copy ``batch`` in, replay, and return clones of the outputs (the
+        next replay overwrites them), all on the current stream."""
+        self.input.copy_(batch)
+        self.graph.replay()
+        return NMSResult(*(t.clone() for t in self.output))
+
+
+class _Pipeline:
+    """One bucket: the pixels-to-boxes pipeline for one original image size,
+    mean/norm and top-k, the counterpart of a program that
+    ``ffcnn_tpu/net.py::_build_pipeline`` compiles.  On the CPU a call runs
+    it eagerly; on the card each batch size is captured once as a
+    ``_Graph`` and replayed."""
+
+    def __init__(self, net: "Net", img_h: int, img_w: int, topk: int,
+                 mean, norm):
+        self.net, self.h, self.w = net, img_h, img_w
+        self.topk, self.mean, self.norm = topk, mean, norm
+        ir = net.ir
+        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
+        _, _, self.s1, self.s2 = letterbox_params(img_w, img_h, net_w, net_h)
+        self.graphs: Dict[int, _Graph] = {}
+
+    def run(self, batch: torch.Tensor) -> NMSResult:
+        """The eager pipeline: letterbox, forward, decode, arena cap, top-k
+        and the keep mask, on ``batch``'s device."""
+        ir = self.net.ir
+        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
+        feats = self.net.forward_heads(batch, self.mean, self.norm)
+        heads = [l for l in ir.layers if l.type == LayerType.YOLO]
+        decoded = concat_heads([decode_head(f, l, net_w, net_h)
+                                for f, l in zip(feats, heads)])
+        decoded = apply_arena_cap(decoded,
+                                  arena_capacity(net_w, net_h, ir.blobs[0].c))
+        return nms(decoded.boxes, decoded.scores, decoded.classes,
+                   k=self.topk, threshold=NMS_THRESHOLD, scale1=self.s1,
+                   scale2=self.s2, iou_kind="min")
+
+    def graph(self, n: int) -> _Graph:
+        """The graph at batch ``n``, captured at its first use (the caller
+        holds the Net's lock).  A capture that fails raises."""
+        g = self.graphs.get(n)
+        if g is None:
+            g = self.graphs[n] = _Graph(self.run, n, self.h, self.w,
+                                        self.net.device,
+                                        self.net._graph_pool)
+        return g
+
+    def __call__(self, batch: torch.Tensor) -> NMSResult:
+        if batch.device.type != "cuda":
+            return self.run(batch)
+        net = self.net
+        with net._lock:
+            g = self.graph(batch.shape[0])
+            # the buckets share one graph pool: a replay waits for the
+            # last one, whichever stream that ran on
+            stream = torch.cuda.current_stream(net.device)
+            stream.wait_event(net._replayed)
+            res = g.replay(batch)
+            net._replayed.record(stream)
+        return res
 
 
 class Net:
@@ -160,6 +294,16 @@ class Net:
         self._folded: Dict[tuple, tuple] = {}
         if self._can_fold_input():
             self._folded_params(DEFAULT_MEAN, DEFAULT_NORM)
+        # the buckets, keyed as JAX keys its pipelines (topk at index 3)
+        self._pipelines: Dict[tuple, _Pipeline] = {}
+        self.timeused: Dict[str, float] = {}
+        # One lock serialises making a bucket and each "copy in, replay,
+        # clone out": the buckets' graphs share one memory pool, so no two
+        # may run at once, and a replay overwrites its graph's outputs.
+        self._lock = threading.Lock()
+        if self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._replayed = torch.cuda.Event()
 
     def _check_chains_fit(self) -> None:
         """Raise if a cascade group or a mega run cannot run on the card
@@ -183,17 +327,22 @@ class Net:
     @classmethod
     def load(cls, cfg_path: str, weights=None, input_w: int = 0,
              input_h: int = 0, *, mode: str = "fast", topk: int = 128,
-             allow_missing_weights: bool = False, device="cuda") -> "Net":
+             allow_missing_weights: bool = False,
+             cache_dir: Optional[str] = None, device="cuda") -> "Net":
         """Parse cfg + weights (a path or the file's bytes).  ``input_w/h``
         override the [net] dims with ALIGN(dim, 32) like net_load
-        (ffcnn.c:133-134).  ``device``: the card unless the caller asks
-        for ``"cpu"``."""
+        (ffcnn.c:133-134).  ``cache_dir`` turns on the folded-params cache
+        (``darknet/cache.py``), keyed by the cfg+weights content hash.
+        ``device``: the card unless the caller asks for ``"cpu"``."""
         ir = cfg_mod.parse_cfg(cfg_path, input_w, input_h)
         if weights is None:
             if not allow_missing_weights:
                 raise ValueError("weights required "
                                  "(or pass allow_missing_weights=True)")
             params = weights_mod.zero_weights(ir)
+        elif cache_dir is not None:
+            from .darknet.cache import load_or_build
+            params, _ = load_or_build(ir, cfg_path, weights, cache_dir)
         else:
             params, _ = weights_mod.load_weights(ir, weights)
         return cls(ir, params, mode=mode, topk=topk, device=device)
@@ -258,26 +407,124 @@ class Net:
                                     conv0_pallas=c0 is not None,
                                     conv0_params=c0)
 
+    def _pipeline_for(self, img_h: int, img_w: int, mean, norm,
+                      topk: Optional[int] = None) -> _Pipeline:
+        """The bucket for one image size, mean/norm and top-k, made at its
+        first use (``ffcnn_tpu/net.py::_pipeline_for``).  JAX's key ends
+        with the flags it reads at trace; a Net fixes its flags when it is
+        built, so the key leaves them out (topk stays at index 3)."""
+        mean_t = tuple(float(v) for v in np.asarray(mean).reshape(3))
+        norm_t = tuple(float(v) for v in np.asarray(norm).reshape(3))
+        folded = self._can_fold_input() and mean_t == DEFAULT_MEAN
+        key = (img_h, img_w, folded, topk or self.topk, mean_t, norm_t)
+        with self._lock:
+            pipe = self._pipelines.get(key)
+            if pipe is None:
+                pipe = self._pipelines[key] = _Pipeline(
+                    self, img_h, img_w, key[3], mean_t, norm_t)
+        return pipe
+
     def detect_device(self, batch, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
                       topk: Optional[int] = None) -> NMSResult:
         """Device-level entry: uint8 (N, H, W, 3) BGR (numpy or a tensor) ->
-        NMSResult tensors on the net's device (no host sync)."""
-        batch = torch.as_tensor(np.asarray(batch) if not isinstance(
-            batch, torch.Tensor) else batch).to(self.device)
+        NMSResult tensors on the net's device.  ``topk`` overrides the net
+        default for this call (a new value makes a new bucket).
+
+        On the card: a host batch goes up through pinned memory without
+        waiting, and the bucket's graph replays; the call waits for the
+        device nowhere (a batch's first call at a new size captures its
+        graph, which synchronises)."""
+        if isinstance(batch, torch.Tensor):
+            batch = batch.to(self.device)
+        else:
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+            if self.device.type == "cuda":
+                batch = batch.pin_memory().to(self.device, non_blocking=True)
         n, h, w, _ = batch.shape
-        ir = self.ir
-        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
-        _, _, s1, s2 = letterbox_params(w, h, net_w, net_h)
-        feats = self.forward_heads(batch, mean, norm)
-        heads = [l for l in ir.layers if l.type == LayerType.YOLO]
-        decoded = concat_heads([decode_head(f, l, net_w, net_h)
-                                for f, l in zip(feats, heads)])
-        decoded = apply_arena_cap(decoded,
-                                  arena_capacity(net_w, net_h, ir.blobs[0].c))
-        return nms(decoded.boxes, decoded.scores, decoded.classes,
-                   k=self.topk if topk is None else topk,
-                   threshold=NMS_THRESHOLD, scale1=s1, scale2=s2,
-                   iou_kind="min")
+        pipe = self._pipeline_for(h, w, mean, norm, topk)
+        t0 = time.perf_counter()
+        res = pipe(batch)
+        self.timeused["detect"] = self.timeused.get("detect", 0.0) + (
+            time.perf_counter() - t0)
+        return res
+
+    def warmup(self, image_sizes=None, batch_sizes=(1,),
+               topk_ladder: bool = False) -> None:
+        """Build the buckets for the given (H, W) image sizes and batch
+        sizes ahead of traffic (on the card: capture their graphs), as
+        ``ffcnn_tpu/net.py::Net.warmup`` compiles them.  Defaults to the
+        model's own input size.  ``topk_ladder=True`` also builds every K
+        bucket parity mode's saturation retry can reach (topk * 4^i up to
+        the model's candidate count)."""
+        net_w, net_h = self.ir.blobs[0].w, self.ir.blobs[0].h
+        max_k = self._max_candidates()
+        ks = [None]
+        if topk_ladder:
+            k = min(self.topk, max_k)
+            while k < max_k:
+                k = min(max_k, k * 4)
+                ks.append(k)
+        for (h, w) in (image_sizes or [(net_h, net_w)]):
+            for n in batch_sizes:
+                for k in ks:
+                    self.detect_device(np.zeros((n, h, w, 3), np.uint8),
+                                       topk=k)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def memory_stats(self, batch_size: int = 1, image_size=None,
+                     mean=None, norm=None) -> Dict[str, int]:
+        """Device memory of one bucket, in bytes, with the keys of
+        ``ffcnn_tpu/net.py::Net.memory_stats``: ``args`` (the static input),
+        ``output`` (the result), ``temp`` (the most the graph's other
+        tensors hold at once), ``code`` (0: a graph holds no code of its
+        own; the kernels' libraries are shared by every bucket) and
+        ``peak`` (the static input, the graph's high-water mark and what
+        one replay allocates).  Builds the bucket if needed, then reads the
+        CUDA allocator's peak statistic around a second capture of the
+        bucket's pipeline (into the Net's pool, never replayed) and around
+        one replay.  It resets that process-wide statistic to do so; no
+        other entry point of the package touches it.  A CPU Net raises."""
+        if self.device.type != "cuda":
+            raise RuntimeError("memory_stats reads the CUDA allocator; this "
+                               "Net runs on the CPU")
+        net_w, net_h = self.ir.blobs[0].w, self.ir.blobs[0].h
+        img_h, img_w = image_size or (net_h, net_w)
+        pipe = self._pipeline_for(
+            img_h, img_w, mean if mean is not None else DEFAULT_MEAN,
+            norm if norm is not None else DEFAULT_NORM)
+        batch = torch.zeros((batch_size, img_h, img_w, 3), dtype=torch.uint8,
+                            device=self.device)
+        dev = self.device
+        with self._lock:
+            g = pipe.graph(batch_size)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = _capture(torch.cuda.CUDAGraph(), pipe.run, g.input,
+                           self._graph_pool)
+            held = torch.cuda.max_memory_allocated(dev) - base
+            del out
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = pipe(batch)
+        torch.cuda.synchronize(dev)
+        replay = torch.cuda.max_memory_allocated(dev) - base
+        output = sum(t.numel() * t.element_size() for t in res)
+        args = g.input.numel()
+        return {"args": args, "temp": held - output, "output": output,
+                "code": 0, "peak": args + held + replay}
+
+    def forward_raw(self, x) -> List[torch.Tensor]:
+        """Raw yolo head maps for a preprocessed (N, H, W, C) net input, in
+        the net's dtype, with no fused run (``ffcnn_tpu/net.py::
+        forward_raw``): the net_forward equivalent without postprocess."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        with _tf32(self.mode == "fast"):
+            return forward_features(self.ir, self.params,
+                                    x.to(self.device, self._dtype))
 
     # ----------------------------------------------------------------- detect
     def detect(self, images, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
@@ -292,6 +539,26 @@ class Net:
         res = self.detect_device(batch, mean, norm)
         out = self._finish(res, batch, mean, norm)
         return out[0] if single else out
+
+    def detect_async(self, batch, mean=DEFAULT_MEAN, norm=DEFAULT_NORM):
+        """Start one uint8 (N, H, W, 3) batch without waiting for it and
+        return a zero-argument callable that gives its
+        ``List[List[Detection]]``.  The upload and the replay run while the
+        caller does other work; the serving micro-batcher overlaps its
+        rounds with it."""
+        res = self.detect_device(batch, mean, norm)
+        return lambda: self._finish(res, batch, mean, norm)
+
+    def detect_stream(self, batches, mean=DEFAULT_MEAN, norm=DEFAULT_NORM,
+                      depth: int = 2):
+        """Pipelined detection over an iterable of uint8 (N, H, W, 3)
+        batches: up to ``depth`` batches in flight, one
+        ``List[List[Detection]]`` yielded per batch, in order.  Batch i+1 is
+        uploaded and started before batch i's results are read, so the
+        copies and the host's decode ride under device compute.  Dense
+        scenes as in ``detect``: parity mode grows K, fast mode warns."""
+        return stream_detections(
+            lambda b: self.detect_async(b, mean, norm), batches, depth)
 
     def _finish(self, res: NMSResult, batch, mean, norm
                 ) -> List[List[Detection]]:

@@ -4,9 +4,21 @@ activation id is a plain int fixed by the cfg."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..darknet.ir import Activation
+
+
+@functools.cache
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a tensor times
+    this scalar computes as JAX's ``x * jnp.asarray(value, x.dtype)`` does
+    (the product of two values of the dtype, rounded once), and no tensor
+    is built from a host value on the call, which on the card would copy
+    it over and synchronise the stream."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def activate(x: torch.Tensor, act: int) -> torch.Tensor:
@@ -16,9 +28,7 @@ def activate(x: torch.Tensor, act: int) -> torch.Tensor:
         return torch.clamp_min(x, 0)
     if act == Activation.LEAKY:
         # slope 0.1 in the tensor's own dtype (utils.h:19)
-        return torch.where(x > 0, x,
-                           x * torch.tensor(0.1, dtype=x.dtype,
-                                            device=x.device))
+        return torch.where(x > 0, x, x * in_dtype(0.1, x.dtype))
     if act in (Activation.SIGMOID, Activation.LOGISTIC):
         return torch.reciprocal(1 + torch.exp(-x))
     if act == Activation.MISH:

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .activations import in_dtype
+
 
 def _padding(size: int, fs: int, stride: int):
     """Low/high padding so window i sits at ``i*stride - (fs-1)//2`` and the
@@ -44,7 +46,7 @@ def avgpool2d(x: torch.Tensor, fs: int, stride: int) -> torch.Tensor:
     """(N, H, W, C) centered avg pool with the constant fs*fs divisor."""
     xp, oh, ow = _padded_nchw(x, fs, stride, 0.0)
     s = F.avg_pool2d(xp, fs, stride, divisor_override=1)   # window sums
-    y = s * torch.tensor(1.0 / (fs * fs), dtype=s.dtype, device=s.device)
+    y = s * in_dtype(1.0 / (fs * fs), s.dtype)
     return y[:, :, :oh, :ow].permute(0, 2, 3, 1).contiguous()
 
 

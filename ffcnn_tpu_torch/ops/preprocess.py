@@ -9,6 +9,7 @@ host->device transfer.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,14 +30,32 @@ def letterbox_params(img_w: int, img_h: int, net_w: int, net_h: int
     return sw, sh, s1, s2
 
 
+@functools.cache
+def _source_rows(n: int, s1: int, s2: int, device: torch.device
+                 ) -> torch.Tensor:
+    """The source index of each of ``n`` resized rows (or columns),
+    ``i * s1 // s2`` (ffcnn.c:276-277), on ``device``: made once per
+    geometry and device, not copied over per call."""
+    return torch.from_numpy((np.arange(n) * s1) // s2).to(device)
+
+
+@functools.cache
+def _channel_constants(mean, norm, dtype: torch.dtype,
+                       device: torch.device):
+    """``mean`` and ``norm`` as (3,) tensors of ``dtype`` on ``device``,
+    made once per value, dtype and device."""
+    return (torch.as_tensor(mean, dtype=dtype, device=device),
+            torch.as_tensor(norm, dtype=dtype, device=device))
+
+
 def _resize_pad(bgr: torch.Tensor, net_w: int, net_h: int) -> torch.Tensor:
     """Nearest resize (top-left anchored) + zero pad right/bottom, in the
     input dtype.  Identity when the image already has the net dims."""
     n, h, w, c = bgr.shape
     sw, sh, s1, s2 = letterbox_params(w, h, net_w, net_h)
     if (sw, sh) != (w, h):
-        ys = torch.from_numpy((np.arange(sh) * s1) // s2).to(bgr.device)
-        xs = torch.from_numpy((np.arange(sw) * s1) // s2).to(bgr.device)
+        ys = _source_rows(sh, s1, s2, bgr.device)
+        xs = _source_rows(sw, s1, s2, bgr.device)
         bgr = bgr[:, ys][:, :, xs]                    # (N, sh, sw, 3) BGR
     if (sw, sh) != (net_w, net_h):
         out = torch.zeros((n, net_h, net_w, c), dtype=bgr.dtype,
@@ -61,8 +80,9 @@ def letterbox(bgr: torch.Tensor, net_w: int, net_h: int,
     sw, sh, s1, s2 = letterbox_params(w, h, net_w, net_h)
     patch = _resize_pad(bgr, net_w, net_h)
     rgb = patch.flip(-1).to(dtype)
-    mean_t = torch.as_tensor(mean, dtype=dtype, device=bgr.device)
-    norm_t = torch.as_tensor(norm, dtype=dtype, device=bgr.device)
+    mean_t, norm_t = _channel_constants(
+        *(tuple(float(v) for v in np.asarray(c).reshape(3))
+          for c in (mean, norm)), dtype, bgr.device)
     val = (rgb - mean_t) * norm_t
     if (sw, sh) == (net_w, net_h):
         return val

@@ -15,7 +15,8 @@ Boxes below ``ignore_thres`` get score 0; NMS treats score 0 as absent.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +35,16 @@ def _argmax_max(x: torch.Tensor):
     both come back as float32."""
     val, idx = torch.max(x, dim=-1)
     return idx.float(), val.float()
+
+
+@functools.cache
+def _anchor_wh(anchors: Tuple[Tuple[int, int], ...], scale_x_y: float,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A head's anchor widths and heights times ``scale_x_y``, float32 on
+    ``device``: made once per head and device, not copied over per call."""
+    a = np.asarray(anchors, np.float32)                  # (3, 2)
+    return (torch.from_numpy(a[:, 0] * scale_x_y).to(device),
+            torch.from_numpy(a[:, 1] * scale_x_y).to(device))
 
 
 def decode_head(feat: torch.Tensor, layer: Layer, net_w: int, net_h: int
@@ -60,9 +71,8 @@ def decode_head(feat: torch.Tensor, layer: Layer, net_w: int, net_h: int
     sig = lambda v: torch.reciprocal(1.0 + torch.exp(-v))
     cx = (jj + sig(tx)) * (net_w / w)
     cy = (ii + sig(ty)) * (net_h / h)
-    anchors = np.asarray(layer.anchors, np.float32)      # (3, 2)
-    aw = torch.from_numpy(anchors[:, 0] * layer.scale_x_y).to(dev)
-    ah = torch.from_numpy(anchors[:, 1] * layer.scale_x_y).to(dev)
+    aw, ah = _anchor_wh(tuple(map(tuple, layer.anchors)), layer.scale_x_y,
+                        dev)
     bw = torch.exp(tw) * aw
     bh = torch.exp(th) * ah
 

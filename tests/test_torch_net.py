@@ -172,19 +172,29 @@ def test_cuda_device_without_cuda_raises():
         pt.Net(tir, params, device="cuda")
 
 
-def test_entry_points_default_to_the_card():
-    """Net, Net.load and load run on the card unless the caller asks for
-    the CPU: with no card they raise instead of running on the CPU."""
+def test_entry_points_default_to_the_card(tmp_path):
+    """Net, Net.load (also through the params cache), load and the
+    server's main run on the card unless the caller asks for the CPU: with
+    no card they raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from ffcnn_tpu_torch import serve
     _, tir, params = _model(MICRO, 64)
     w = pt.synth_weights_bytes(tir, seed=42)
+    wpath = str(tmp_path / "micro.weights")
+    with open(wpath, "wb") as f:
+        f.write(w)
+    cache = str(tmp_path / "cache")
     for make in (lambda: pt.Net(tir, params),
                  lambda: pt.Net.load(MICRO, w),
-                 lambda: pt.load(MICRO, w, mode="parity")):
+                 lambda: pt.Net.load(MICRO, wpath, cache_dir=cache),
+                 lambda: pt.load(MICRO, w, mode="parity"),
+                 lambda: serve.main(["--cfg", MICRO, "--weights", wpath])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert pt.load(MICRO, w, device="cpu").device.type == "cpu"
+    assert pt.Net.load(MICRO, wpath, cache_dir=cache,
+                       device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_names_only_the_port():
