@@ -98,6 +98,18 @@ K9.  Phases, each of which exits non-zero on failure:
      /detect from 32 threads (the fixture BMP and seeded frames), the
      kernels the card ran counted around them, each answer held against
      the eager card path's candidates, /statz read
+ 10. the command line (``ffcnn_tpu_torch/cli.py``) through ``cli.main``,
+     on the card: ``detect`` in parity and fast mode (its score lines
+     against ``Net.detect``'s, its output BMP against ``draw_rectangle``'s
+     bytes), ``dump`` against ``Net.dump``, ``roofline`` and ``profile`` at
+     batch 64 under the region flags (``Net.profile_layers``: every K1, K3,
+     K6 and K7 event in its layer range, K2 outside them; the ten largest
+     rows and the bucket's replay time), a strided batch through the
+     region stem bit for bit with the dense one, ``batch`` over three BMPs
+     against ``Net.detect``; the cost of a layer range to the eager path;
+     a 1 GiB copy's rate; then the port's bench
+     (``ffcnn_tpu_torch/bench.py``, ``--batches 64,256 --windows 3``)
+     with no flag and with the region flags, each printing its JSON line
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
@@ -113,12 +125,16 @@ is one JSON object with the device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import struct
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -199,6 +215,10 @@ P3_ITERS, P3_BATCH, P3_CHECK_BATCH = 20, 256, 64
 # SERVE_REQUESTS / SERVE_FRAMES times) and detect_stream's depths
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_FRAMES = 96, 32, 16
 STREAM_DEPTHS = (2, 3)
+# Phase 10: the steps of the layer profile held to its ranges
+PROFILE_ITERS = 10
+# seconds between a trace's window opening and the traced call (``traced``)
+TRACE_SETTLE_S = 0.2
 
 
 def p3_tols(mode: str) -> dict:
@@ -359,7 +379,11 @@ def traced(fn):
     and return its result and the profiler's rows (``key_averages``).
     A warm-up step comes first, whose events the profiler drops: without
     it, the first device events of a trace went missing (an upload and
-    the first kernels of a replay)."""
+    the first kernels of a replay).  Then ``fn`` starts TRACE_SETTLE_S
+    after the trace's window opens: late in a run the profiler still
+    dropped the device events of a trace's first milliseconds (most of
+    an eager batch-1 forward, its last kernels kept), as if the card's
+    timestamps fell before the window's start."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     rows = []
@@ -369,6 +393,7 @@ def traced(fn):
                  ) as prof:
         torch.ones(1 << 20, device="cuda").sum().item()
         prof.step()
+        time.sleep(TRACE_SETTLE_S)
         out = fn()
         torch.cuda.synchronize()
         prof.step()
@@ -382,7 +407,8 @@ def profiled_ms(fn, iters: int):
     ``iters`` calls after one untraced call: the self CPU time of every
     host event but the closing synchronise, and the time of every device
     event (kernels, copies; a host op's own device time repeats its
-    kernels', so host rows are left out of that sum)."""
+    kernels', so host rows are left out of that sum, as are the device
+    spans of the eager forward's layer ranges, which repeat theirs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -398,7 +424,8 @@ def profiled_ms(fn, iters: int):
                if e.key != "cudaDeviceSynchronize")
     device = sum(getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0) for e in rows
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA
+                 and not re.fullmatch(r"L\d{3}_\w+", e.key))
     return host / 1e3 / iters, device / 1e3 / iters
 
 
@@ -623,20 +650,27 @@ def check_dets(tag: str, dets) -> None:
             raise AssertionError(f"{tag}: bad detection {d}")
 
 
-def load_net(pt, wbytes, flags, device, size=320):
-    """A fast Net of xl built with ``flags`` set in the environment (a Net
-    reads them once, when it is built), which are then restored."""
+@contextlib.contextmanager
+def environ(flags):
+    """``flags`` set in the environment for the block, then restored."""
     saved = {k: os.environ.get(k) for k in flags}
     os.environ.update(flags)
     try:
-        return pt.load(CFG, wbytes, input_w=size, input_h=size, mode="fast",
-                       device=device)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def load_net(pt, wbytes, flags, device, size=320):
+    """A fast Net of xl built with ``flags`` set in the environment (a Net
+    reads them once, when it is built), which are then restored."""
+    with environ(flags):
+        return pt.load(CFG, wbytes, input_w=size, input_h=size, mode="fast",
+                       device=device)
 
 
 def group_params(net):
@@ -1013,6 +1047,206 @@ def graph_checks(rnet, frames) -> None:
         f"results equal the last replay's: {same} {'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("replays of one batch differ")
+
+
+def run_cli(argv) -> str:
+    """``ffcnn_tpu_torch.cli.main(argv)`` (on the card: no ``--device``)
+    with its standard output captured and returned."""
+    from ffcnn_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return buf.getvalue()
+
+
+def det_lines(dets, indent: str = "") -> list:
+    """Detections as the CLI prints them."""
+    return [indent + "score: %.2f, category: %2d, rect: (%3d %3d %3d %3d)"
+            % (d.score, d.class_id, int(d.x1), int(d.y1), int(d.x2),
+               int(d.y2)) for d in dets]
+
+
+def scope_counts(rep) -> dict:
+    """{kernel: {layer range or -1: events}} of a profile report, the path
+    kernels found by their symbols (KERNEL_SYMBOLS)."""
+    out = {k: {} for k in KERNEL_SYMBOLS}
+    for li, names in rep.kernels.items():
+        for name, n in names.items():
+            for k, pat in KERNEL_SYMBOLS.items():
+                if re.search(pat, name):
+                    out[k][li] = out[k].get(li, 0) + n
+    return out
+
+
+def cli_phase(pt, frames) -> None:
+    """Phase 10, the command line on the card through ``cli.main``: detect
+    in parity and fast mode against ``Net.detect`` (score lines) and
+    ``draw_rectangle`` (the output BMP's bytes); dump against
+    ``Net.dump``; roofline and profile at batch 64 under the region flags,
+    the profile's kernels in their layer ranges; batch over three BMPs
+    against ``Net.detect``, one image a chunk and all three in one."""
+    import torch
+    from ffcnn_tpu_torch.imageio.bmp import bmp_save, draw_rectangle
+    bgr = pt.bmp_load(BMP)
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = os.path.join(tmp, "xl.weights")
+        with open(wpath, "wb") as f:
+            f.write(pt.synth_weights_bytes(pt.parse_cfg(CFG), seed=SEED,
+                                           obj_bias=2.0))
+        for mode in ("parity", "fast"):
+            out = os.path.join(tmp, f"{mode}.bmp")
+            got = run_cli(["detect", BMP, "--cfg", CFG, "--weights", wpath,
+                           "--mode", mode, "-o", out]).splitlines()
+            net = pt.load(CFG, wpath, input_w=320, input_h=320, mode=mode,
+                          device="cuda")
+            dets = net.detect(bgr)
+            drawn = bgr.copy()
+            for d in dets:
+                draw_rectangle(drawn, int(d.x1), int(d.y1), int(d.x2),
+                               int(d.y2), 0, 255, 0)
+            ref = os.path.join(tmp, f"{mode}_drawn.bmp")
+            bmp_save(ref, drawn)
+            with open(out, "rb") as a, open(ref, "rb") as b:
+                same_bmp = a.read() == b.read()
+            same = got[1:] == det_lines(dets)
+            log(f"[10] cli detect --mode {mode}: '{got[0]}', {len(dets)} "
+                f"detections; score lines equal Net.detect's: {same}; -o "
+                f"BMP equals draw_rectangle's bytes: {same_bmp}")
+            if not (same and same_bmp and dets):
+                raise AssertionError(f"cli detect {mode} disagrees")
+        dump = run_cli(["dump", "--cfg", CFG])
+        log(f"[10] cli dump: {len(dump.splitlines())} lines, equal to "
+            f"Net.dump(): {dump == net.dump()}")
+        if dump != net.dump():
+            raise AssertionError("cli dump differs from Net.dump")
+        with environ(REGION_FLAGS):
+            roof = run_cli(["roofline", "--cfg", CFG, "--batch", "64"])
+            ok = "TOTAL" in roof and "fused runs: L1-80, L81-108" in roof
+            for line in roof.splitlines():
+                log(f"[10] cli roofline: {line}")
+            if not ok:
+                raise AssertionError("cli roofline lacks TOTAL or the runs")
+            t0 = time.perf_counter()
+            prof = run_cli(["profile", "--cfg", CFG, "--weights", wpath,
+                            "--batch", str(BATCH)])
+            log(f"[10] cli profile --batch {BATCH} under the region flags "
+                f"({time.perf_counter() - t0:.1f} s):")
+            for line in prof.splitlines():
+                log(f"[10]   {line}")
+            want = (f"profile (device us per step on "
+                    f"{torch.cuda.get_device_name(0)}, 10 steps averaged)")
+            if not prof.startswith(want) or "replay" not in prof \
+                    or f"memory (batch {BATCH}): peak" not in prof:
+                raise AssertionError("cli profile printed no device table")
+            rnet = pt.load(CFG, wpath, mode="fast", device="cuda")
+        profile_check(rnet, PROFILE_ITERS)
+        # a strided batch (as numpy lays out some broadcast sums) takes the
+        # stem kernel's path too, bit for bit with the dense one
+        dense = torch.from_numpy(frames[:4]).to("cuda")
+        strided = dense.transpose(1, 2).contiguous().transpose(1, 2)
+        same = all(torch.equal(a, b) for a, b in zip(
+            rnet.forward_heads(strided), rnet.forward_heads(dense)))
+        log(f"[10] region forward_heads of a strided batch (strides "
+            f"{strided.stride()}) equal the dense batch's: {same}")
+        if strided.is_contiguous() or not same:
+            raise AssertionError("the strided batch's heads differ")
+        paths = [BMP]
+        for i in (1, 2):
+            paths.append(os.path.join(tmp, f"frame{i}.bmp"))
+            bmp_save(paths[-1], frames[i])
+        imgs = np.stack([pt.bmp_load(p) for p in paths])
+        fnet = pt.load(CFG, wpath, mode="fast", device="cuda")
+        for chunk, dets in ((1, [fnet.detect(im) for im in imgs]),
+                            (BATCH, fnet.detect(imgs))):
+            got = run_cli(["batch", *paths, "--cfg", CFG, "--weights",
+                           wpath, "--batch", str(chunk)]).splitlines()
+            want = [x for p, d in zip(paths, dets)
+                    for x in [p] + det_lines(d, "  ")]
+            log(f"[10] cli batch of 3 BMPs, chunks of {min(chunk, 3)}: "
+                f"'{got[0]}'; {sum(map(len, dets))} detections, equal to "
+                f"Net.detect's on each: {got[1:] == want}")
+            if got[1:] != want:
+                raise AssertionError("cli batch differs from Net.detect")
+
+
+def profile_check(rnet, iters: int) -> None:
+    """``Net.profile_layers`` on the region Net at batch 64 (the call the
+    CLI's profile makes): every K1, K3, K6 and K7 event in the layer range
+    of its dispatch (the stem's L000, the runs' L001 and L081, the chain's
+    L116), as many as ``iters`` forwards launch; K2 outside every range
+    (other), K4, K5 nowhere; the ten largest rows and the replay's time."""
+    rep = rnet.profile_layers(batch=np.zeros((BATCH, 320, 320, 3), np.uint8),
+                              iters=iters)
+    counts = scope_counts(rep)
+    where = {"K1": {1, 81}, "K3": {1, 81}, "K6": {0}, "K7": {116},
+             "K2": {-1}, "K4": set(), "K5": set()}
+    want = dict(WANT_COUNTS["region"], K2=1)
+    top = sorted(rep.layers, key=lambda lp: -lp.us_per_step)[:10]
+    for lp in top:
+        log(f"[10]   row L{lp.index:03d} {lp.type_name:9s} {lp.desc:40s} "
+            f"{lp.us_per_step:10.1f} us, floor "
+            f"{rep.floors_us.get(lp.index, 0.0):9.1f} us")
+    log(f"[10] profile_layers region batch {BATCH}, {iters} steps on "
+        f"{rep.device}: total {rep.total_us:.1f} us a step (device), other "
+        f"{rep.other_us:.1f} us, the bucket's replay {rep.replay_us:.1f} us;"
+        f" path kernels by range: {counts}")
+    ok = all(set(counts[k]) <= where[k]
+             and sum(counts[k].values()) == want[k] * iters
+             for k in where) and all(
+        rep.layers[li].us_per_step > 0 for li in (0, 1, 81, 116))
+    if not ok:
+        raise AssertionError("a path kernel fell outside its layer range")
+
+
+def scope_cost(nets) -> None:
+    """What the layer ranges cost the eager path: one record_function
+    entered and left with the profiler off, times the ranges of one
+    forward on each path."""
+    from torch.profiler import record_function
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with record_function("L000_conv"):
+            pass
+    us = (time.perf_counter() - t0) / n * 1e6
+    for tag, net in nets.items():
+        runs = list(net._fused_runs) + list(net._head_runs)
+        ranges = len(net.ir.layers) - sum(r.end - r.start for r in runs)
+        log(f"[10] a layer range (record_function, profiler off): {us:.3f} "
+            f"us on the host; {tag}'s eager forward enters {ranges}: "
+            f"{us * ranges / 1e3:.4f} ms")
+
+
+def copy_rate(dev) -> None:
+    """A device-to-device copy of 1 GiB by CUDA events: the card's memory
+    rate as PyTorch's copy reaches it (read and write counted)."""
+    import torch
+    src = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), iters=20)
+    log(f"[10] copy of 1 GiB on the card: {ms:.4f} ms, "
+        f"{2 * src.numel() / ms / 1e6:.1f} GB/s read and written (published"
+        f" peak 3350)")
+    del src, dst
+
+
+def bench_phase() -> None:
+    """Phase 10, the port's bench, short: ``--batches 64,256 --windows 3``
+    with no flag, then with the region flags; each prints its JSON line."""
+    from ffcnn_tpu_torch import bench
+    for tag, flags in (("default", {}), ("region", REGION_FLAGS)):
+        t0 = time.perf_counter()
+        with environ(flags):
+            row = bench.main(["--batches", "64,256", "--windows", "3"])
+        log(f"[10] bench {tag} ({time.perf_counter() - t0:.1f} s): "
+            f"{row['value']:.1f} img/s at batch {row['batch']}, mfu "
+            f"{row['mfu']:.4%}, parity {row['parity_img_s']:.1f}, stream "
+            f"{row['stream_host_input_img_s']:.1f}, 640x448 "
+            f"{row['demo_640x448_img_s']:.1f}, batch 1 p50 "
+            f"{row['p50_batch1_ms']:.3f} ms, device "
+            f"{row['batch1_device_ms']:.3f} ms")
 
 
 def main() -> int:
@@ -1682,6 +1916,14 @@ def main() -> int:
     # 9, the rest: the region bucket's memory (which resets the peak
     # statistic phase 6 reads) and sync-freedom
     graph_checks(rnet, frames)
+
+    # 10. the command line and the bench, through their entry functions
+    t0 = time.perf_counter()
+    cli_phase(pt, frames)
+    scope_cost({t: nets[t] for t in ("default", "region")})
+    copy_rate(dev)
+    bench_phase()
+    log(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

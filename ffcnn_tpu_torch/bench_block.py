@@ -50,6 +50,7 @@ from .kernels import block_fused as bf
 from .kernels import mbconv as k8
 from .kernels import mbconv_cs as k9
 from .ops.conv import conv2d_fused
+from .roofline import F32_FLOP_S, HBM_BYTES_S, TC_BF16_FLOP_S
 
 XL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "models", "yolo-fastest-xl.cfg")
@@ -64,13 +65,6 @@ CONFIGS = [
     (256, 40, 40, 16, 96, 24, 2, False),
 ]
 LEAKY, LINEAR = int(Activation.LEAKY), int(Activation.LINEAR)
-
-# One H100 SXM's published peaks (NVIDIA's data sheet; dense, at the full
-# 700 W): device memory, bf16 on the tensor cores, float32 on the CUDA
-# cores.
-HBM_BYTES_S = 3.35e12
-TC_BF16_FLOP_S = 989e12
-F32_FLOP_S = 67e12
 
 
 @dataclasses.dataclass(frozen=True)

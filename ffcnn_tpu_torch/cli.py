@@ -1,0 +1,295 @@
+"""``ffcnn-torch`` command-line demo, the port of ``ffcnn_tpu/cli.py``: the
+reference main() (ffcnn.c:552-593) on PyTorch, on the card unless
+``--device cpu`` is given.
+
+    python -m ffcnn_tpu_torch.cli detect [image.bmp] [-n ITERS] [--cfg FILE] \\
+        [--weights FILE] [--mode fast|parity] [-o out.bmp] [--device cpu]
+    python -m ffcnn_tpu_torch.cli dump   [--cfg FILE] [--width W] [--height H]
+    python -m ffcnn_tpu_torch.cli batch  IMAGE... [--batch N] [--cache-dir D]
+    python -m ffcnn_tpu_torch.cli bench  [--batch N] [--size S] [--iters I]
+    python -m ffcnn_tpu_torch.cli profile [--batch N] [--size S] [--iters I]
+    python -m ffcnn_tpu_torch.cli roofline [--batch N] [--size S|WxH]
+
+Output format (scores, categories, int-cast rects, drawn rectangles, timing
+line) matches the reference demo and the JAX package's CLI, so the three
+are diffable.  Not ported yet, refused by name: ``--mode int8`` (ROADMAP
+M12), ``bench --dp``/``--sp`` (M14), ``export`` (M15), ``convert-v8``
+(M13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import roofline
+from .darknet import dump, parse_cfg
+from .imageio.bmp import bmp_load, bmp_save, draw_rectangle
+from .imageio.loader import load_batch
+from .net import Net, planned_runs
+from .tuning import get_flag
+
+# the reference model's files, where the JAX package's CLI looks for them
+REFERENCE = "/root/reference"
+DEFAULT_CFG = os.path.join(REFERENCE, "yolo-fastest-1.1.cfg")
+DEFAULT_WEIGHTS = os.path.join(REFERENCE, "yolo-fastest-1.1.weights")
+
+# the commands that load a Net, and so need the card without --device cpu
+_DEVICE_COMMANDS = {"detect", "bench", "profile", "batch"}
+
+
+def _add_model_args(p):
+    p.add_argument("--cfg", default=DEFAULT_CFG)
+    p.add_argument("--weights", default=DEFAULT_WEIGHTS)
+    p.add_argument("--mode", choices=("fast", "parity", "int8"),
+                   default="parity")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="the card unless 'cpu' is asked for")
+
+
+def _load(args, w: int, h: int, **kw):
+    return Net.load(args.cfg, args.weights, w, h, mode=args.mode,
+                    device=args.device, **kw)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_detect(args) -> int:
+    bgr = bmp_load(args.image)
+    net = _load(args, bgr.shape[1], bgr.shape[0])
+    if args.dump:
+        sys.stdout.write(net.dump())
+    t0 = time.perf_counter()
+    for _ in range(args.n):
+        dets = net.detect(bgr)
+    ms = (time.perf_counter() - t0) * 1000
+    print("%d times inference: %d ms" % (args.n, int(ms)))
+    for d in dets:
+        print("score: %.2f, category: %2d, rect: (%3d %3d %3d %3d)"
+              % (d.score, d.class_id, int(d.x1), int(d.y1),
+                 int(d.x2), int(d.y2)))
+        draw_rectangle(bgr, int(d.x1), int(d.y1), int(d.x2), int(d.y2),
+                       0, 255, 0)
+    bmp_save(args.output, bgr)
+    return 0
+
+
+def cmd_dump(args) -> int:
+    ir = parse_cfg(args.cfg, args.width, args.height)
+    sys.stdout.write(dump(ir))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """A device-resident batch through ``detect_device`` (a bucket's graph
+    replay on the card), ``--iters`` calls timed with one synchronise."""
+    net = _load(args, args.size, args.size)
+    batch = np.random.RandomState(0).randint(
+        0, 255, (args.batch, args.size, args.size, 3), np.uint8)
+    # one upload: re-sending the host batch each call would time the copy
+    xb = torch.from_numpy(batch).to(net.device)
+    net.detect_device(xb)
+    _sync(net.device)
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        net.detect_device(xb)
+    _sync(net.device)
+    dt = (time.perf_counter() - t0) / args.iters
+    print("batch %d @%dx%d %s: %.2f ms/batch, %.0f img/s"
+          % (args.batch, args.size, args.size, args.mode, dt * 1000,
+             args.batch / dt))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    net = _load(args, args.size, args.size)
+    rep = net.profile_layers(
+        batch=np.zeros((args.batch, args.size, args.size, 3), np.uint8),
+        iters=args.iters)
+    sys.stdout.write(rep.render())
+    # stage-level roofline with the measured times merged in
+    sys.stdout.write("\n" + roofline.render(
+        net.ir, net.roofline_costs(args.batch), args.batch,
+        measured_us={lp.index: lp.us_per_step for lp in rep.layers},
+        measured_label=f"{rep.clock} us"))
+    if net.device.type != "cuda":
+        print("memory: not measured (CPU Net)")
+        return 0
+    m = net.memory_stats(batch_size=args.batch)
+    print("memory (batch %d): peak %.1f MB  (args %.1f, temp %.1f, "
+          "output %.1f, code %.1f)"
+          % (args.batch, m["peak"] / 1e6, m["args"] / 1e6, m["temp"] / 1e6,
+             m["output"] / 1e6, m["code"] / 1e6))
+    return 0
+
+
+def cmd_batch(args) -> int:
+    """Batch detection over many BMPs: fixed-size chunks streamed through
+    ``Net.detect_stream`` (two chunks in flight), so the loader decodes
+    chunk i+1 while the card runs chunk i.  One bucket whatever the image
+    count."""
+    paths = args.images
+    bs = max(1, min(args.batch, len(paths)))
+    probe = load_batch(paths[:1])       # dims only; the net needs a size
+    net = _load(args, probe.shape[2], probe.shape[1],
+                cache_dir=args.cache_dir)
+
+    def chunks():
+        for i in range(0, len(paths), bs):
+            imgs = load_batch(paths[i:i + bs], args.threads)
+            if imgs.shape[0] < bs:      # pad the tail into the same bucket
+                pad = np.zeros((bs - imgs.shape[0],) + imgs.shape[1:],
+                               np.uint8)
+                imgs = np.concatenate([imgs, pad])
+            yield imgs
+
+    # the timed region covers every chunk's decode and detection; only the
+    # one-image dims probe and the model load sit outside it
+    t0 = time.perf_counter()
+    results = []
+    for dets in net.detect_stream(chunks(), depth=2):
+        results.extend(dets)
+    results = results[: len(paths)]
+    ms = (time.perf_counter() - t0) * 1000
+    print("%d images: %d ms (%.1f img/s)"
+          % (len(results), int(ms), len(results) / (ms / 1000)))
+    for path, dets in zip(paths, results):
+        print(path)
+        for d in dets:
+            print("  score: %.2f, category: %2d, rect: (%3d %3d %3d %3d)"
+                  % (d.score, d.class_id, int(d.x1), int(d.y1),
+                     int(d.x2), int(d.y2)))
+    return 0
+
+
+def cmd_roofline(args) -> int:
+    """Static device-memory/FLOP roofline for a cfg, with no device and no
+    weights: bytes moved, FLOPs and the time floor per resolution stage
+    (``roofline.py``), for the plan a fast Net would run under the
+    ``FFCNN_FUSED*`` flags set (the port runs its runs at every batch)."""
+    geo = str(args.size)
+    w, h = (map(int, geo.split("x")) if "x" in geo
+            else (int(geo), int(geo)))
+    ir = parse_cfg(args.cfg, w, h)
+    runs, heads = planned_runs(ir, not args.no_fused
+                               and args.dtype == "bf16")
+    store = get_flag("FFCNN_FUSED_STORE", "")
+    costs = roofline.layer_costs(
+        ir, args.batch, args.dtype, fused_runs=(runs + heads) or None,
+        store_dtype=store if store == "f32" else None)
+    sys.stdout.write(roofline.render(ir, costs, args.batch))
+    if runs:
+        print("fused runs: %s" % ", ".join(
+            "L%d-%d" % (r.start, r.end) for r in runs))
+    if heads:
+        print("head runs: %s" % ", ".join(
+            "L%d-%d" % (r.start, r.end) for r in heads))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="ffcnn-torch", description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    pd = sub.add_parser("detect", help="detect objects in a BMP image")
+    pd.add_argument("image", nargs="?",
+                    default=os.path.join(REFERENCE, "test.bmp"))
+    pd.add_argument("-n", type=int, default=1, help="inference iterations")
+    pd.add_argument("-o", "--output", default="out.bmp")
+    pd.add_argument("--dump", action="store_true",
+                    help="print the layer table first (like the C demo)")
+    _add_model_args(pd)
+
+    pp = sub.add_parser("dump", help="print the net_dump layer table")
+    pp.add_argument("--cfg", default=DEFAULT_CFG)
+    pp.add_argument("--width", type=int, default=0)
+    pp.add_argument("--height", type=int, default=0)
+
+    pb = sub.add_parser("bench", help="throughput micro-benchmark")
+    pb.add_argument("--batch", type=int, default=256)
+    pb.add_argument("--size", type=int, default=320)
+    pb.add_argument("--iters", type=int, default=10)
+    pb.add_argument("--dp", action="store_true",
+                    help="not ported yet (ROADMAP M14)")
+    pb.add_argument("--sp", type=int, default=1, metavar="N",
+                    help="not ported yet (ROADMAP M14)")
+    _add_model_args(pb)
+    pb.set_defaults(mode="fast")
+
+    pf = sub.add_parser("profile", help="per-layer time profile "
+                                        "(net_profile)")
+    pf.add_argument("--batch", type=int, default=64)
+    pf.add_argument("--size", type=int, default=320)
+    pf.add_argument("--iters", type=int, default=10)
+    _add_model_args(pf)
+    pf.set_defaults(mode="fast")
+
+    pe = sub.add_parser("export", help="not ported yet (ROADMAP M15)")
+    pe.add_argument("out", help="artifact output path")
+    pe.add_argument("--batch", default="1")
+    pe.add_argument("--size", type=int, default=0)
+    pe.add_argument("--platforms", default=None)
+    _add_model_args(pe)
+    pe.set_defaults(mode="fast")
+
+    pr = sub.add_parser(
+        "roofline", help="static device-memory/FLOP traffic and time-floor "
+                         "table (no device needed)")
+    pr.add_argument("--cfg", default=DEFAULT_CFG)
+    pr.add_argument("--batch", type=int, default=256)
+    pr.add_argument("--size", default="320",
+                    help="square size or WxH (e.g. 640x448, the "
+                         "reference demo geometry)")
+    pr.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    pr.add_argument("--no-fused", action="store_true",
+                    help="model per-layer materialization instead of the "
+                         "fused-run plan")
+
+    pm = sub.add_parser("batch", help="batch detection over many BMPs")
+    pm.add_argument("images", nargs="+")
+    pm.add_argument("--batch", type=int, default=64,
+                    help="chunk size streamed per dispatch (the loader "
+                         "overlaps device compute)")
+    pm.add_argument("--threads", type=int, default=0,
+                    help="loader threads (0 = all cores)")
+    pm.add_argument("--cache-dir", default=None,
+                    help="folded-params npz cache directory")
+    _add_model_args(pm)
+    pm.set_defaults(mode="fast")
+
+    pv = sub.add_parser("convert-v8", help="not ported yet (ROADMAP M13)")
+    pv.add_argument("sd")
+    pv.add_argument("-o", "--out", default="yolov8")
+    pv.add_argument("--nc", type=int, default=80)
+    pv.add_argument("--scale", default="n", choices=("n", "s", "m", "l", "x"))
+    pv.add_argument("--size", type=int, default=640)
+    pv.add_argument("--conf", type=float, default=0.25)
+
+    args = ap.parse_args(argv)
+    if args.cmd == "export":
+        ap.error("export is not ported yet (ROADMAP M15)")
+    if args.cmd == "convert-v8":
+        ap.error("convert-v8 is not ported yet (ROADMAP M13)")
+    if getattr(args, "mode", None) == "int8":
+        ap.error("--mode int8 is not ported yet (ROADMAP M12)")
+    if args.cmd == "bench" and (args.dp or args.sp != 1):
+        ap.error("--dp and --sp are not ported yet (ROADMAP M14)")
+    if args.cmd in _DEVICE_COMMANDS and args.device == "cuda" \
+            and not torch.cuda.is_available():
+        ap.error("no CUDA device: the port runs on the card unless "
+                 "--device cpu is given")
+    return {"detect": cmd_detect, "dump": cmd_dump, "bench": cmd_bench,
+            "profile": cmd_profile, "batch": cmd_batch,
+            "roofline": cmd_roofline}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,10 @@ blocks go through ``kernels/block_fused.py`` (one launch per block, per
 cascade group or per run), fused head chains through
 ``kernels/head_fused.py`` (one launch per chain), and the uint8 stem
 through ``kernels/conv0_fused.py``; every other layer is a plain PyTorch
-op.
+op.  Every dispatch runs under a ``torch.profiler.record_function`` range
+named as the JAX package's ``jax.named_scope`` (``L{li:03d}_{type}``,
+``L{li:03d}_fusedrun_to_{end:03d}``, ``L{li:03d}_headrun_to_{end:03d}``,
+``L000_conv0_pallas``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..darknet.ir import LayerType, NetIR
 
@@ -169,6 +173,9 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
             blob_hook(end + 1, blobs[end + 1])
         return end + 1
 
+    # Each dispatch runs under a profiler range named as the JAX package's
+    # jax.named_scope names it (profiling.py attributes device time to
+    # them); a CUDA graph's replay runs no Python and so no range.
     skip_until = -1
     for li, layer in enumerate(ir.layers):
         if li < skip_until:
@@ -176,22 +183,28 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
         if li == 0 and use_c0p:
             # the stem's output (blob 1) goes straight into the run at 1
             r = run_map[1]
-            y0 = conv0_cs(x, conv0_params, float_dtype)
-            skip_until = finish_run(r.end, run_blocks(
-                y0, r, fused_params[1], groups.get(1), fused_mid_dtype))
+            with record_function("L000_conv0_pallas"):
+                # the kernel reads dense rows; a strided batch is copied
+                y0 = conv0_cs(x.contiguous(), conv0_params, float_dtype)
+            with record_function(f"L001_fusedrun_to_{r.end:03d}"):
+                skip_until = finish_run(r.end, run_blocks(
+                    y0, r, fused_params[1], groups.get(1), fused_mid_dtype))
             continue
         if li in head_map:
             r = head_map[li]
-            skip_until = finish_run(r.end, apply_head_run(
-                blobs[li], r, head_params[li]))
+            with record_function(f"L{li:03d}_headrun_to_{r.end:03d}"):
+                skip_until = finish_run(r.end, apply_head_run(
+                    blobs[li], r, head_params[li]))
             continue
         if li in run_map:
             r = run_map[li]
-            skip_until = finish_run(r.end, apply_run(
-                blobs[li], r, fused_params[li], groups=groups.get(li),
-                mega=li in mega_runs, mid_dtype=fused_mid_dtype))
+            with record_function(f"L{li:03d}_fusedrun_to_{r.end:03d}"):
+                skip_until = finish_run(r.end, apply_run(
+                    blobs[li], r, fused_params[li], groups=groups.get(li),
+                    mega=li in mega_runs, mid_dtype=fused_mid_dtype))
             continue
-        blobs[li + 1] = run_layer(li, layer, blobs[li])
+        with record_function(f"L{li:03d}_{layer.type.name.lower()}"):
+            blobs[li + 1] = run_layer(li, layer, blobs[li])
         if blob_hook is not None and blobs[li + 1] is not None:
             blob_hook(li + 1, blobs[li + 1])
     return heads

@@ -1,6 +1,8 @@
-"""24-bit BMP reader, the port's copy of ``ffcnn_tpu/imageio/bmp.py``
-(``bmp_decode``/``bmp_load``; the JAX package's native codec and the writer
-and drawing helpers are not needed by the port).
+"""24-bit BMP codec, the port's copy of ``ffcnn_tpu/imageio/bmp.py``:
+``bmp_decode``/``bmp_load``, the writer ``bmp_save`` and the demo's drawing
+helpers ``setpixel``/``getpixel``/``draw_rectangle`` (bmpfile.c:121-156).
+The JAX package's native codec (``native/bmp_codec.c``) is not built for the
+port; these are its pure-numpy paths, which write the same bytes.
 
 The reference reads a packed 54-byte header and then pixel rows bottom-up with
 4-byte-aligned strides (bmpfile.c:42-69), yielding a top-down BGR buffer in
@@ -53,3 +55,57 @@ def bmp_load(path: str) -> np.ndarray:
         return bmp_decode(raw)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+def bmp_save(path: str, img: np.ndarray) -> None:
+    """Save a top-down (H, W, 3) uint8 BGR array as a bottom-up 24-bit BMP."""
+    h, w = img.shape[:2]
+    stride = _align4(w * 3)
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = img.reshape(h, w * 3)
+    header = struct.pack(
+        _HEADER_FMT,
+        0x4D42, _HEADER_BYTES + stride * h, 0, 0, _HEADER_BYTES,
+        40, w, h, 1, 24, 0, stride * h, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(rows[::-1].tobytes())
+
+
+def setpixel(img: np.ndarray, x: int, y: int, r: int, g: int, b: int) -> None:
+    """bmp_setpixel (bmpfile.c:121-131): write one RGB pixel into the BGR
+    buffer, silently dropped when out of bounds, color clamped to [0, 255].
+    Mutates *img* in place."""
+    h, w = img.shape[:2]
+    if 0 <= x < w and 0 <= y < h:
+        img[y, x] = tuple(min(255, max(0, v)) for v in (b, g, r))
+
+
+def getpixel(img: np.ndarray, x: int, y: int):
+    """bmp_getpixel (bmpfile.c:133-143): read one pixel.  Returns the bytes
+    at offsets +0/+1/+2 under the reference's (r, g, b) OUT-parameter names,
+    which in the BGR buffer are (blue, green, red); the quirk is reproduced
+    as written.  Out-of-bounds reads return (0, 0, 0)."""
+    h, w = img.shape[:2]
+    if 0 <= x < w and 0 <= y < h:
+        bgr = img[y, x]
+        return int(bgr[0]), int(bgr[1]), int(bgr[2])
+    return 0, 0, 0
+
+
+def draw_rectangle(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+                   r: int, g: int, b: int) -> None:
+    """Outline rectangle, clipped per pixel like bmp_rectangle
+    (bmpfile.c:145-156).  Mutates *img* (BGR) in place."""
+    h, w = img.shape[:2]
+    color = np.array([b, g, r], np.uint8)
+    xs = np.arange(min(x1, x2), max(x1, x2) + 1)
+    xs = xs[(xs >= 0) & (xs < w)]
+    ys = np.arange(min(y1, y2), max(y1, y2) + 1)
+    ys = ys[(ys >= 0) & (ys < h)]
+    for y in (y1, y2):
+        if 0 <= y < h:
+            img[y, xs] = color
+    for x in (x1, x2):
+        if 0 <= x < w:
+            img[ys, x] = color

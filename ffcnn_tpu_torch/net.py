@@ -5,6 +5,7 @@
     net_input   -> detect     (letterbox on the device)
     net_forward -> detect     (forward, YOLO decode, NMS, batched)
     net_dump    -> Net.dump   (byte-identical layer table)
+    net_profile -> Net.profile, Net.profile_layers (per layer, profiling.py)
 
 ``detect_device`` runs one pixels-to-boxes pipeline per (image size, top-k,
 mean/norm) bucket, as the JAX package compiles one program per bucket.  On
@@ -54,6 +55,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from . import profiling, roofline
 from .darknet import cfg as cfg_mod
 from .darknet import weights as weights_mod
 from .darknet.ir import LayerType, NetIR
@@ -102,6 +104,18 @@ def stream_detections(detect_async, batches, depth: int = 2):
         while inflight:
             yield inflight.popleft()()
     return gen()
+
+
+def planned_runs(ir: NetIR, fast: bool = True):
+    """(block runs, head chains) a Net of ``ir`` plans, from the JAX
+    package's flags as they stand: none in parity mode (``fast`` False);
+    ``FFCNN_FUSED=0`` plans no block run, ``FFCNN_FUSED_HEADS=1`` the head
+    chains."""
+    runs = plan_runs(ir) if fast and os.environ.get(
+        "FFCNN_FUSED", "1") != "0" else []
+    heads = plan_head_runs(ir) if fast and os.environ.get(
+        "FFCNN_FUSED_HEADS", "0") == "1" else []
+    return runs, heads
 
 
 class Detection(typing.NamedTuple):
@@ -260,8 +274,7 @@ class Net:
         # fast mode resolves the flags here, as the JAX Net does in its
         # constructor and when it traces a pipeline (FFCNN_FUSED=0: JAX's
         # runs_usable turns every run off)
-        self._fused_runs = plan_runs(ir) if fast and os.environ.get(
-            "FFCNN_FUSED", "1") != "0" else []
+        self._fused_runs, self._head_runs = planned_runs(ir, fast)
         self._fused_params = {r.start: [block_params(ir, self.params, b)
                                         for b in r.blocks]
                               for r in self._fused_runs}
@@ -279,8 +292,6 @@ class Net:
             and mega_fits(ir, r))
         self._mid_dtype = torch.float32 if get_flag(
             "FFCNN_FUSED_STORE", "input") == "f32" else None
-        self._head_runs = plan_head_runs(ir) if fast and os.environ.get(
-            "FFCNN_FUSED_HEADS", "0") == "1" else []
         self._head_params = {r.start: head_params(ir, self.params, r)
                              for r in self._head_runs}
         if self.device.type == "cuda":
@@ -350,6 +361,63 @@ class Net:
     def dump(self) -> str:
         """net_dump-compatible layer table (ffcnn.c:522-548)."""
         return cfg_mod.dump(self.ir)
+
+    # ----------------------------------------------------------- observability
+    def profile(self, per_type: bool = False, batch=None) -> str:
+        """net_profile-style report (ffcnn.c:550): cumulative host wall ms
+        per API bucket across detect() calls; ``per_type=True`` adds the
+        per-layer-TYPE table of a short profiled burst
+        (:meth:`profile_layers`)."""
+        lines = [f"{k:>12s}: {v * 1000:8.1f} ms" for k, v in
+                 self.timeused.items()]
+        out = "\n".join(lines) + ("\n" if lines else "")
+        if per_type:
+            out += self.profile_layers(batch=batch).render(per_layer=False)
+        return out
+
+    def roofline_costs(self, batch_size: int):
+        """Static per-layer bytes/FLOP costs (``roofline.py``) of this Net's
+        plan at ``batch_size``: its block runs and head chains (the port
+        runs them at every batch) and its run boundary storage."""
+        runs = list(self._fused_runs) + list(self._head_runs)
+        return roofline.layer_costs(
+            self.ir, batch_size,
+            dtype="f32" if self.mode == "parity" else "bf16",
+            fused_runs=runs or None,
+            store_dtype="f32" if self._mid_dtype == torch.float32 else None)
+
+    def profile_layers(self, batch=None, iters: int = 10):
+        """Per-layer profile (``profiling.py``) of ``iters`` runs of the
+        eager pipeline on ``batch`` (default 8 blank frames at the net's
+        size), with the roofline floors attached (a fused region's row gets
+        the region's floor).  A CUDA graph's replay runs no Python, so no
+        layer range encloses its kernels: the eager pipeline
+        (``_Pipeline.run``) is profiled, and on the card the report also
+        carries the bucket's replay device time on the same batch."""
+        if batch is None:
+            net_w, net_h = self.ir.blobs[0].w, self.ir.blobs[0].h
+            batch = np.zeros((8, net_h, net_w, 3), np.uint8)
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+        batch = batch.to(self.device)
+        n, h, w, _ = batch.shape
+        pipe = self._pipeline_for(h, w, DEFAULT_MEAN, DEFAULT_NORM)
+        runs = [(r.start, r.end)
+                for r in list(self._fused_runs) + list(self._head_runs)]
+        pipe.run(batch)                      # warm: libraries, workspaces
+        rep = profiling.profile_layers(lambda: pipe.run(batch), self.ir,
+                                       iters, runs=runs or None,
+                                       device=self.device)
+        if self.device.type == "cuda":
+            self.detect_device(batch)        # capture outside the trace
+            torch.cuda.synchronize(self.device)
+            rep.replay_us = 1e3 * profiling.device_op_time_ms(
+                lambda: self.detect_device(batch), iters)
+        costs = self.roofline_costs(n)
+        rep.floors_us = {c.index: c.floor_us() for c in costs}
+        for s, e in runs:
+            rep.floors_us[s] = roofline.region_floor_us(costs, s, e)
+        return rep
 
     # ------------------------------------------------------------- pipeline
     def _can_fold_input(self) -> bool:

@@ -1,7 +1,8 @@
 """The port's own host code (``ffcnn_tpu_torch/darknet``, ``imageio``,
 ``tuning``) against the JAX package's, which it copies: the same IR for
 every ``models/*.cfg``, the same folded weights, the same pixels, the same
-flag resolution; and no file of the port imports the JAX package."""
+BMP bytes written and drawn, the same batches loaded, the same flag
+resolution; and no file of the port imports the JAX package."""
 
 import ast
 import dataclasses
@@ -15,10 +16,12 @@ from ffcnn_tpu import tuning as jtuning
 from ffcnn_tpu.darknet import cfg as jcfg
 from ffcnn_tpu.darknet import weights as jweights
 from ffcnn_tpu.imageio import bmp as jbmp
+from ffcnn_tpu.imageio import loader as jloader
 from ffcnn_tpu_torch import tuning as ttuning
 from ffcnn_tpu_torch.darknet import cfg as tcfg
 from ffcnn_tpu_torch.darknet import weights as tweights
 from ffcnn_tpu_torch.imageio import bmp as tbmp
+from ffcnn_tpu_torch.imageio import loader as tloader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))
@@ -113,6 +116,55 @@ def test_bmp_load_equals_jax(tmp_path):
         tbmp.bmp_decode(b"XX" + raw[2:])
 
 
+@pytest.mark.parametrize("shape", [(3, 5), (7, 4), (64, 64)])
+def test_bmp_writer_and_drawing_equal_jax(shape, tmp_path):
+    """bmp_save writes the JAX package's bytes (odd widths pad their rows);
+    setpixel (clamped, clipped), getpixel (the reference's B/G/R quirk,
+    zeros outside) and draw_rectangle (clipped outlines, any corner order)
+    leave the same pixels."""
+    rng = np.random.RandomState(sum(shape))
+    img = rng.randint(0, 256, shape + (3,), dtype=np.uint8)
+    t, j = img.copy(), img.copy()
+    h, w = shape
+    for x1, y1, x2, y2 in ((1, 1, w - 2, h - 2), (-3, 2, w + 4, h // 2),
+                           (w - 1, h - 1, 0, 0), (2, -5, 2, h + 5)):
+        tbmp.draw_rectangle(t, x1, y1, x2, y2, 0, 255, 0)
+        jbmp.draw_rectangle(j, x1, y1, x2, y2, 0, 255, 0)
+    for x, y, rgb in ((0, 0, (300, -4, 17)), (w - 1, h - 1, (1, 2, 3)),
+                      (w, 0, (9, 9, 9)), (-1, h // 2, (7, 7, 7))):
+        tbmp.setpixel(t, x, y, *rgb)
+        jbmp.setpixel(j, x, y, *rgb)
+    np.testing.assert_array_equal(t, j)
+    for x, y in ((0, 0), (w - 1, h - 1), (w, 0), (-1, -1), (w // 2, h // 2)):
+        assert tbmp.getpixel(t, x, y) == jbmp.getpixel(j, x, y)
+    tp, jp = str(tmp_path / "t.bmp"), str(tmp_path / "j.bmp")
+    tbmp.bmp_save(tp, t)
+    jbmp.bmp_save(jp, j)
+    with open(tp, "rb") as a, open(jp, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_load_batch_equals_jax(tmp_path):
+    """Same-sized BMPs into one batch, in path order, with any thread
+    count; mixed sizes and an empty list refused."""
+    rng = np.random.RandomState(3)
+    paths = []
+    for i in range(5):
+        paths.append(str(tmp_path / f"{i}.bmp"))
+        jbmp.bmp_save(paths[-1], rng.randint(0, 256, (6, 9, 3),
+                                             dtype=np.uint8))
+    want = jloader.load_batch(paths)
+    for threads in (0, 1, 3):
+        got = tloader.load_batch(paths, threads)
+        assert got.dtype == np.uint8 and got.shape == (5, 6, 9, 3)
+        np.testing.assert_array_equal(got, want)
+    jbmp.bmp_save(str(tmp_path / "odd.bmp"), np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(IOError):
+        tloader.load_batch(paths + [str(tmp_path / "odd.bmp")])
+    with pytest.raises(ValueError):
+        tloader.load_batch([])
+
+
 def test_get_flag_follows_the_environment(monkeypatch):
     """The environment wins, else the default; with the tuned file pinned
     off (as the tests pin it), the JAX package resolves alike."""
@@ -140,6 +192,14 @@ def _port_files():
 _FORBIDDEN = {"jax", "jaxlib", "ffcnn_tpu", "tools"} | {
     os.path.splitext(os.path.basename(p))[0]
     for p in glob.glob(os.path.join(REPO, "tools", "*.py"))}
+
+
+def test_scan_covers_the_cli_and_its_modules():
+    """The command line, the bench and the modules they call are scanned."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in ("cli.py", "profiling.py", "roofline.py", "bench.py",
+                 "imageio/loader.py"):
+        assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
