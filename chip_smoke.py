@@ -110,6 +110,28 @@ K9.  Phases, each of which exits non-zero on failure:
      a 1 GiB copy's rate; then the port's bench
      (``ffcnn_tpu_torch/bench.py``, ``--batches 64,256 --windows 3``)
      with no flag and with the region flags, each printing its JSON line
+ 11. YOLOv8n at 640x640 (``ffcnn_tpu_torch/yolov8.py``: a state dict from
+     ``synthesize_state_dict(80, "n", seed=0)``, converted with its heads'
+     score gate at 0.10): its checks run after phase 9's server, before
+     the timings' traces; its ``detect_device`` timings run last.  Parity
+     on the card against parity on the CPU (two seeded frames and the
+     letterboxed fixture): the synthesized v8n ties scores, so every
+     pre-NMS candidate (class, score to 1e-4, box to 1e-4 of the range)
+     and the card's tail on the CPU's candidates bit for bit
+     (``bench.parity_candidates``); fast on the card against the CPU
+     (phase 4's tolerances); the first fast detect's launches (K2 alone,
+     the bucket built) and a replay's kernels against an eager run's (K2
+     once a call); K2 in union IoU bit for bit against its plain version
+     at K 128 and 2,048 (batch 1 and 64) and 8,400 (batch 64, past the
+     8,192 candidates it stages), each timed at batch 64 (events, alone,
+     the plain call, bound); ``forward_features`` in two segments at two
+     cuts bit for bit with the whole forward, xl and v8n in parity; xl's
+     region Net under ``FFCNN_HEAD_F32=1`` and under
+     ``FFCNN_F32_STAGES=20``, its launches equal to its plan after the
+     drop and its detections held to the CPU's; ``cli convert-v8`` on a
+     saved state dict, then ``cli detect`` and ``cli roofline`` on its
+     files.  Last, v8n's ``detect_device`` at batch 1 and 64, fast and
+     parity, bucket and eager, with host CPU and device time
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
@@ -117,7 +139,7 @@ H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
 shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
 P1 and P2 with the kernel's device time alone, K2 with its times and bound
-at K 1,500 too; K1-K7's launches are their wrappers' counts over phase 4's
+at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's launches are their wrappers' counts over phase 4's
 first detect on the region, cascade and mega paths, which builds the
 bucket); the line before it is the card's name and power limit; the last line of standard output
 is one JSON object with the device.
@@ -168,6 +190,18 @@ WANT_COUNTS = {
     "region": {"K1": 20, "K3": 4, "K4": 0, "K5": 0, "K6": 1, "K7": 1},
     "cascade": {"K1": 2, "K3": 4, "K4": 7, "K5": 0, "K6": 1, "K7": 1},
     "mega": {"K1": 8, "K3": 0, "K4": 0, "K5": 1, "K6": 0, "K7": 0}}
+# Phase 11: YOLOv8n at 640x640, 80 classes, from synthesize_state_dict(80,
+# "n", seed=0).  The heads' score gate is 0.10, as tests/test_yolov8.py
+# converts them: the synthetic class head (biases near -4) scores about
+# 0.1, so the converter's default 0.25 would leave nothing to compare.
+# C2f plans no fused run: a v8n forward launches no K1-K7, one K2 a call.
+V8_SIZE, V8_CONF = 640, 0.10
+V8_KS = (128, 2048, 8400)       # the top-k ladder; 8,400 = v8n's candidates
+V8_IOU = 0.7                    # a pure-v8 graph's union-IoU threshold
+WANT_COUNTS["v8n"] = {"K1": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+# the float32 knobs on the region configuration (the region flags set)
+KNOB_FLAGS = {"head_f32": {**REGION_FLAGS, "FFCNN_HEAD_F32": "1"},
+              "stages_20": {**REGION_FLAGS, "FFCNN_F32_STAGES": "20"}}
 for _want in WANT_COUNTS.values():
     # no Net path runs the block bench's kernels or the probes'
     _want.update({k: 0 for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5")})
@@ -552,12 +586,12 @@ def log_device_rows() -> None:
         log(f"    {count:6d}  {key[:160]}")
 
 
-def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
+def check_against_cpu(tag: str, net, cpu_net, frames, dets,
+                      phase: int = 4) -> None:
     """The card's heads and detections against the same Net on the CPU,
     on the first four frames (``dets``: the card's detections of all)."""
     import torch
-    import ffcnn_tpu_torch as pt
-    from ffcnn_tpu_torch.ops.yolo import concat_heads, decode_head
+    from ffcnn_tpu_torch.ops.yolo import decode_heads
     few = frames[:4]
     hg = net.forward_heads(torch.from_numpy(few).to("cuda"))
     hc = cpu_net.forward_heads(torch.from_numpy(few))
@@ -568,22 +602,22 @@ def check_against_cpu(tag: str, net, cpu_net, frames, dets) -> None:
         ok = bool(torch.isfinite(g).all()) and \
             err.max().item() <= HEAD_MAX_TOL * scale and \
             err.mean().item() <= HEAD_MEAN_TOL * scale
-        log(f"[4] {tag} head {i} {tuple(g.shape)} card vs CPU: max|err| "
+        log(f"[{phase}] {tag} head {i} {tuple(g.shape)} card vs CPU: max|err| "
             f"{err.max().item():.3e} mean {err.mean().item():.3e} (scale "
             f"{scale:.2f}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag} heads disagree with the CPU")
     dc = cpu_net.detect(few)
-    heads = [l for l in net.ir.layers if l.type == pt.LayerType.YOLO]
     net_w, net_h = net.ir.blobs[0].w, net.ir.blobs[0].h
-    cands = [concat_heads([decode_head(h.float().cpu(), l, net_w, net_h)
-                           for h, l in zip(hs, heads)]) for hs in (hg, hc)]
+    cands = [decode_heads(net.ir, [h.float().cpu() for h in hs], net_w,
+                          net_h) for hs in (hg, hc)]
     for i in range(len(few)):
         fr = [match_fraction(d[i], *(t[i].numpy() for t in c), DET_MATCH_PX,
                              DET_MATCH_SCORE)
               for d, c in ((dets, cands[1]), (dc, cands[0]))]
         ok = min(fr) >= DET_MATCH_FRAC
-        log(f"[4] {tag} image {i}: card {len(dets[i])} CPU {len(dc[i])} "
+        log(f"[{phase}] {tag} image {i}: card {len(dets[i])} CPU "
+            f"{len(dc[i])} "
             f"detections; among the other side's candidates: card "
             f"{fr[0]:.3f}, CPU {fr[1]:.3f} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1249,6 +1283,251 @@ def bench_phase() -> None:
             f"{row['batch1_device_ms']:.3f} ms")
 
 
+def plan_counts(net) -> dict:
+    """The K1, K3, K6 and K7 launches one forward of a region-style Net
+    makes, from its plan (each block one launch, no cascade or mega)."""
+    import ffcnn_tpu_torch as pt
+    blocks = [b for r in net._fused_runs for b in r.blocks]
+    c0 = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[1]
+    return {"K1": sum(not b.down for b in blocks),
+            "K3": sum(b.down for b in blocks), "K4": 0, "K5": 0,
+            "K6": int(c0 is not None), "K7": len(net._head_runs)}
+
+
+def segments_check(tag: str, net, x, cuts) -> None:
+    """``forward_features`` of a parity Net on the card in two segments at
+    each cut (the first passing on ``live_blobs``) against the whole
+    forward, bit for bit."""
+    import torch
+    from ffcnn_tpu_torch.graph.build import forward_features, live_blobs
+    from ffcnn_tpu_torch.net import _tf32
+    ir = net.ir
+    with _tf32(False):
+        whole = forward_features(ir, net.params, x)
+        for cut in cuts:
+            h1, kept = forward_features(ir, net.params, x, stop=cut,
+                                        keep_blobs=live_blobs(ir, cut))
+            h2 = forward_features(ir, net.params, None, start=cut,
+                                  blobs_in=kept)
+            same = len(h1 + h2) == len(whole) and all(
+                torch.equal(a, b) for a, b in zip(h1 + h2, whole))
+            log(f"[11] {tag} parity forward_features in two segments, cut "
+                f"at layer {cut} (blobs {sorted(kept)} passed on): "
+                f"{len(h1)} + {len(h2)} heads, bit for bit with the whole "
+                f"forward: {same}")
+            if not same:
+                raise AssertionError(f"{tag} segments at {cut} differ")
+
+
+def v8_phase(pt, counters, xl_wbytes, xl_frames, xl_pnet) -> dict:
+    """Phase 11, its checks (run after phase 9's server, before the timing
+    phases' traces): YOLOv8n at 640x640 converted from a synthesized state
+    dict, in parity and fast mode on the card against the CPU; its bucket's
+    replay (K2 once a call); K2 in union IoU bit for bit at V8_KS, and
+    timed; the segments of xl and v8n; the float32 knobs on xl's region
+    Net; ``cli convert-v8``, ``detect`` and ``roofline``.  Returns what
+    the timings (``v8_times``) take and K2's union times."""
+    import torch
+    from ffcnn_tpu_torch import yolov8
+    from ffcnn_tpu_torch.darknet.weights import load_weights
+    from ffcnn_tpu_torch.kernels import nms as knms
+    from ffcnn_tpu_torch.net import WARMUP_RUNS
+    t0 = time.perf_counter()
+    sd = yolov8.synthesize_state_dict(80, "n", seed=0)
+    cfg, wbytes = yolov8.convert(sd, 80, "n", size=V8_SIZE, conf=V8_CONF)
+    ir = pt.parse_cfg(cfg, is_path=False)
+    params, _ = load_weights(ir, wbytes)
+    nets = {(m, d): pt.Net(ir, params, mode=m, device=d)
+            for m in ("parity", "fast") for d in ("cuda", "cpu")}
+    heads = [(li, l.stride) for li, l in enumerate(ir.layers)
+             if l.type == pt.LayerType.YOLOV8]
+    max_k = nets["fast", "cuda"]._max_candidates()
+    log(f"[11] v8n {V8_SIZE}x{V8_SIZE}: {len(ir.layers)} layers, heads "
+        f"{heads}, {len(wbytes)} weight bytes, candidates {max_k}, fused "
+        f"runs {nets['fast', 'cuda']._fused_runs}")
+    if max_k != V8_KS[-1] or nets["fast", "cuda"]._fused_runs:
+        raise AssertionError("unexpected v8n graph")
+    rng = np.random.RandomState(SEED)
+    seeded = rng.randint(0, 256, (2, V8_SIZE, V8_SIZE, 3), dtype=np.uint8)
+    fixture = pt.bmp_load(BMP)[None]
+
+    # parity on the card against parity on the CPU, the seeded frames and
+    # the letterboxed fixture.  The synthesized v8n collapses over its
+    # depth (2,000 live candidates of two classes on a seeded frame, the
+    # top scores equal to 1e-8), so greedy NMS keeps one of two tied
+    # candidates by float32 noise: parity is held on the candidates and
+    # the tail (bench.parity_candidates), as tests/test_model_zoo.py holds
+    # its TIE_PRONE model; the card's detect (a bucket per K as parity
+    # mode grows it) must find detections
+    from ffcnn_tpu_torch.bench import parity_candidates
+    pnet = nets["parity", "cuda"]
+    for what, batch in (("2 seeded frames", seeded[:2]),
+                        ("the 320x320 fixture", fixture)):
+        n = parity_candidates(pnet, nets["parity", "cpu"], batch)
+        pg = pnet.detect(batch)
+        ks = sorted(k[3] for k in pnet._pipelines if k[0] == batch.shape[1])
+        log(f"[11] v8n parity card vs CPU, {what}: {n} live candidates "
+            f"equal (class, score to {PARITY_SCORE_TOL}, box to 1e-4 of the"
+            f" range), the card's tail on the CPU's candidates bit for bit;"
+            f" the card's detect: {[len(d) for d in pg]} detections, "
+            f"buckets replayed at K {ks}")
+        if not (n and any(pg)):
+            raise AssertionError("v8n parity found nothing to compare")
+        check_dets("v8n parity", pg)
+
+    # fast: the first detect builds the bucket (no K1-K7, K2 each run),
+    # its replay runs one K2, and the card holds to the CPU
+    fnet = nets["fast", "cuda"]
+    built = WARMUP_RUNS + 1
+    dets, counts = counted(counters, lambda: fnet.detect(seeded))
+    log(f"[11] v8n fast detect batch {len(seeded)}, its bucket built in "
+        f"the call: {[len(d) for d in dets]} detections; launches "
+        + " ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts["K2"] != built or any(v for k, v in counts.items()
+                                    if k != "K2"):
+        raise AssertionError("the v8n path did not launch K2 alone")
+    check_dets("v8n fast", dets)
+    check_replay("v8n", fnet, counters, seeded, dets)
+    check_against_cpu("v8n", fnet, nets["fast", "cpu"], seeded, dets, 11)
+
+    # K2 in union IoU against its plain version, bit for bit, up to v8n's
+    # 8,400 candidates (past the 8,192 it stages in shared memory); at
+    # batch 64 also timed (here, before the timing phases' traces: late in
+    # a run torch.profiler dropped some of the kernel's events) by CUDA
+    # events, by the kernel's device time alone and beside its bound, the
+    # plain version's one checked call timed by events
+    from ffcnn_tpu_torch import bench_block as bb
+    from ffcnn_tpu_torch.bench_block import kernel_alone_ms
+    k2 = {}
+    for k in V8_KS:
+        for nb in ((1, BATCH) if k < 8192 else (BATCH,)):
+            tb, ts, tc = (torch.from_numpy(a).to("cuda")
+                          for a in nms_candidates(nb, k, seed=k))
+            run = lambda: knms.nms_keep_mask(tb, ts, tc, threshold=V8_IOU,
+                                             iou_kind="union")
+            got = run()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = knms.keep_mask_plain(tb, ts, tc, V8_IOU, "union")
+            end.record()
+            end.synchronize()
+            same = torch.equal(got, want)
+            log(f"[11] K2 nms union K={k} batch {nb} ({int((ts > 0).sum())}"
+                f" live): kept {int(got.sum())}, mismatches "
+                f"{int((got != want).sum())}"
+                + (", candidates in device memory" if k > 8192 else "")
+                + f" {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"K2 union differs from plain at K={k}")
+            if nb != BATCH:
+                continue
+            ms = cuda_ms(run)
+            alone = kernel_alone_ms(run, "nms_keep_kernel", 20)
+            pms = start.elapsed_time(end)
+            bound = bb.Work(BATCH * k * 28,
+                            f32_flop=12 * BATCH * k * (k - 1) / 2).bound()[0]
+            k2.update({f"union_ms_{k}": ms,
+                       f"union_kernel_alone_ms_{k}": alone,
+                       f"union_plain_ms_{k}": pms,
+                       f"union_bound_ms_{k}": bound})
+            log(f"[11] K2 nms union K={k} batch {BATCH}: kernel {ms:.4f} ms,"
+                f" kernel alone {alone:.4f} ms (torch.profiler), plain "
+                f"{pms:.4f} ms (one call), bound {bound:.4f} ms")
+
+    # segments: two cuts each, xl and v8n in parity
+    from ffcnn_tpu_torch.ops.preprocess import letterbox
+    for tag, net, fr in (("xl", xl_pnet, xl_frames[:2]), ("v8n", pnet,
+                                                          seeded[:2])):
+        # the middle, and the last head (the heads split between segments)
+        last = max(li for li, l in enumerate(net.ir.layers)
+                   if l.type in (pt.LayerType.YOLO, pt.LayerType.YOLOV8))
+        x = letterbox(torch.from_numpy(fr).to("cuda"), fr.shape[2],
+                      fr.shape[1])
+        segments_check(tag, net, x, (len(net.ir.layers) // 2, last))
+
+    # the float32 knobs on xl's region Net: the launches its plan makes
+    # after the drop, and the card against the CPU under the same flags
+    region = WANT_COUNTS["region"]
+    for tag, flags in KNOB_FLAGS.items():
+        n = load_net(pt, xl_wbytes, flags, "cuda")
+        c = load_net(pt, xl_wbytes, flags, "cpu")
+        want = plan_counts(n)
+        few = xl_frames[:8]
+        dets, counts = counted(counters, lambda: n.detect(few))
+        log(f"[11] {tag} ({' '.join(f'{k}={v}' for k, v in flags.items())})"
+            f": {len(n._f32_layers)} float32 layers; runs "
+            f"{[(r.start, r.end) for r in n._fused_runs]}, head chains "
+            f"{[(r.start, r.end) for r in n._head_runs]}; one forward's "
+            f"launches by the plan {want}; the first detect (bucket built) "
+            + " ".join(f"{k} {v}" for k, v in counts.items()))
+        dropped = (want["K7"] == 0 and all(want[k] == region[k] for k in
+                                           ("K1", "K3", "K6"))
+                   if tag == "head_f32" else want["K1"] < region["K1"])
+        if not dropped or counts["K2"] != built or any(
+                counts[k] != want[k] * built for k in want) or any(
+                counts[k] for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5")):
+            raise AssertionError(f"{tag}: launches differ from the plan")
+        check_dets(tag, dets)
+        check_against_cpu(tag, n, c, few, dets, 11)
+
+    # the command line: convert-v8 on a torch.save'd state dict, then
+    # detect and roofline on its two files
+    with tempfile.TemporaryDirectory() as tmp:
+        sdp, base = os.path.join(tmp, "v8n_sd.pt"), os.path.join(tmp, "v8n")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, sdp)
+        out = run_cli(["convert-v8", sdp, "-o", base, "--size",
+                       str(V8_SIZE), "--conf", str(V8_CONF)])
+        with open(base + ".cfg") as f, open(base + ".weights", "rb") as g:
+            same = f.read() == cfg and g.read() == wbytes
+        log(f"[11] cli convert-v8: '{out.splitlines()[0]}'; files equal "
+            f"convert()'s: {same}")
+        bgr = pt.bmp_load(BMP)
+        got = run_cli(["detect", BMP, "--cfg", base + ".cfg", "--weights",
+                       base + ".weights", "-o", os.path.join(tmp, "o.bmp")]
+                      ).splitlines()
+        dnet = pt.load(base + ".cfg", base + ".weights", input_w=bgr.shape[1],
+                       input_h=bgr.shape[0], mode="parity", device="cuda")
+        want = det_lines(dnet.detect(bgr))
+        log(f"[11] cli detect (parity) on its files: '{got[0]}', "
+            f"{len(want)} detections; score lines equal Net.detect's: "
+            f"{got[1:] == want}")
+        roof = run_cli(["roofline", "--cfg", base + ".cfg", "--batch", "64",
+                        "--size", str(V8_SIZE)])
+        total = [line for line in roof.splitlines() if "TOTAL" in line]
+        log(f"[11] cli roofline on its cfg, batch 64: {total}")
+        if not (same and got[1:] == want and want and total):
+            raise AssertionError("cli convert-v8 / detect / roofline failed")
+    log(f"[11] phase 11 checks took {time.perf_counter() - t0:.1f} s")
+    return {"nets": nets, "seeded": seeded, "k2": k2}
+
+
+def v8_times(v8, dev) -> None:
+    """Phase 11, its timings (run last): v8n's ``detect_device`` at batch
+    1 and 64, fast and parity, the bucket's replay and the eager pipeline
+    in turns by CUDA events, each with its host CPU and device time
+    (torch.profiler)."""
+    import torch
+    t0 = time.perf_counter()
+    for mode in ("fast", "parity"):
+        net = v8["nets"][mode, "cuda"]
+        for nb, iters in ((1, 10), (BATCH, 3)):
+            batch = torch.from_numpy(np.resize(
+                v8["seeded"], (nb, V8_SIZE, V8_SIZE, 3))).to(dev)
+            net.warmup(image_sizes=[(V8_SIZE, V8_SIZE)], batch_sizes=(nb,))
+            bucket = lambda: net.detect_device(batch)
+            eager = lambda: bucket_of(net, batch).run(batch)
+            (e1, e2), (b1, b2) = turns(eager, bucket, iters)
+            eh, ed = profiled_ms(eager, 3)
+            bh, bd = profiled_ms(bucket, 3)
+            log(f"[11] v8n {mode} detect batch {nb}, eager / bucket: events "
+                f"{e1:.3f}, {e2:.3f} / {b1:.3f}, {b2:.3f} ms "
+                f"({nb / b1 * 1e3:.1f} img/s bucket); torch.profiler host "
+                f"CPU {eh:.3f} / {bh:.3f} ms, device {ed:.3f} / {bd:.3f} ms "
+                f"a call")
+    log(f"[11] phase 11 timings took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1580,6 +1859,11 @@ def main() -> int:
     # did not in phase 4 or in a process of its own.
     stream_checks(nets, frames, counters)
     serve_phase(pt, rnet, frames, counters)
+
+    # 11, its checks: YOLOv8n at 640x640, K2 in union IoU, the segments,
+    # the float32 knobs and convert-v8 (counted by torch.profiler, so here,
+    # before the timings' traces); its timings run last
+    v8 = v8_phase(pt, counters, wbytes, frames, pnet)
 
     # 6. timings (device time by CUDA events), bf16 as on the main paths
     bf16 = torch.bfloat16
@@ -1924,6 +2208,12 @@ def main() -> int:
     copy_rate(dev)
     bench_phase()
     log(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # 11, its timings: v8n's detect_device; K2's union times (taken in its
+    # checks) join K2's entry
+    v8_times(v8, dev)
+    next(k for k in kernels if k["name"] == "nms_keep_mask").update(
+        v8["k2"])
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

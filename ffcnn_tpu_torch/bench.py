@@ -13,7 +13,11 @@ when the Nets are built, and the JSON line names those set.
 
 Gates first, each raising on failure:
   1. parity on the device equals parity on the CPU on four frames (class,
-     integer box, score to 1e-4, paired as sets);
+     integer box, score to 1e-4, paired as sets); with ``--parity-gate
+     candidates`` (a model whose synthetic weights tie scores, such as a
+     synthesized YOLOv8n) the pre-NMS candidates instead, and the
+     device's tail on the CPU's candidates bit for bit
+     (``parity_candidates``);
   2. fast mode on the device against fast mode on the CPU: 90% of each
      side's detections among the other side's candidates (same class,
      within 4 px and 0.02 in score);
@@ -56,12 +60,11 @@ import torch
 from . import profiling, roofline
 from .cli import DEFAULT_CFG, DEFAULT_WEIGHTS, REFERENCE
 from .darknet.cfg import parse_cfg
-from .darknet.ir import LayerType
 from .darknet.weights import synth_weights_bytes
 from .imageio.bmp import bmp_load
 from .net import Net
 from .ops.preprocess import letterbox_params
-from .ops.yolo import concat_heads, decode_head
+from .ops.yolo import decode_heads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "models", "yolo-fastest-xl.cfg")
@@ -140,6 +143,48 @@ def parity_gate(cfg, wbytes, device, frames) -> int:
     return n
 
 
+def parity_candidates(net: Net, cpu_net: Net, frames) -> int:
+    """Parity on ``net``'s device against the CPU for a model whose
+    synthetic weights tie scores (tests/test_model_zoo.py's TIE_PRONE: the
+    random input's influence washes out over the depth, and greedy NMS
+    then keeps one of two tied candidates by float32 noise), on ``frames``:
+
+      1. every pre-NMS candidate of the parity forward equals the CPU's:
+         class, score to PARITY_SCORE_TOL, box to 1e-4 of the boxes'
+         range (float32 through the whole net in another sum order);
+      2. the device's pipeline tail (``Net.postprocess`` at the model's
+         candidate count: top-k, the keep mask) on the CPU's candidates
+         gives the CPU's result bit for bit.
+
+    Returns the live candidates compared."""
+    nw, nh = net.ir.blobs[0].w, net.ir.blobs[0].h
+    _, _, s1, s2 = letterbox_params(frames.shape[2], frames.shape[1], nw, nh)
+    cands = [decode_heads(n.ir, [f.cpu() for f in n.forward_heads(
+        torch.from_numpy(frames).to(n.device))], nw, nh)
+        for n in (net, cpu_net)]
+    (gb, gs, gc), (wb, ws, wc) = cands
+    live = (gs > 0) | (ws > 0)
+    box_tol = 1e-4 * float(wb.abs().max())
+    bad = [f"{name} {err:.3e} > {tol:.3e}" for name, err, tol in (
+        ("score", float((gs - ws).abs().max()), PARITY_SCORE_TOL),
+        ("box", float((gb - wb).abs().max()), box_tol)) if err > tol]
+    if not torch.equal(gc[live], wc[live]):
+        bad.append(f"{int((gc != wc)[live].sum())} classes")
+    if bad:
+        raise AssertionError("parity gate: candidates differ from the "
+                             "CPU's: " + ", ".join(bad))
+    k = cpu_net._max_candidates()
+    got = net.postprocess(cands[1]._replace(**{
+        f: t.to(net.device) for f, t in cands[1]._asdict().items()}),
+        k, s1, s2)
+    want = cpu_net.postprocess(cands[1], k, s1, s2)
+    for f, a, b in zip(want._fields, got, want):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"parity gate: the device's tail on the "
+                                 f"CPU's candidates differs in {f}")
+    return int(live.sum())
+
+
 def _match_fraction(dets, boxes, scores, classes) -> float:
     """Share of ``dets`` among the candidates: same class, every coordinate
     within DET_MATCH_PX, score within DET_MATCH_SCORE."""
@@ -158,15 +203,13 @@ def fast_gate(net: Net, cpu_net: Net, frames) -> float:
     """Fast mode on the net's device against fast mode on the CPU: each
     side's detections among the other side's candidates (the decoded boxes
     before NMS, in the frames' pixels).  Returns the smaller share."""
-    heads = [l for l in net.ir.layers if l.type == LayerType.YOLO]
     nw, nh = net.ir.blobs[0].w, net.ir.blobs[0].h
     _, _, s1, s2 = letterbox_params(frames.shape[2], frames.shape[1], nw, nh)
     dets, cands = [], []
     for n in (net, cpu_net):
         dets.append(n.detect(frames))
         feats = n.forward_heads(torch.from_numpy(frames).to(n.device))
-        c = concat_heads([decode_head(f.float().cpu(), l, nw, nh)
-                          for f, l in zip(feats, heads)])
+        c = decode_heads(n.ir, [f.float().cpu() for f in feats], nw, nh)
         cands.append((c.boxes * float(np.float32(s1) / np.float32(s2)),
                       c.scores, c.classes))
     worst = 1.0
@@ -339,6 +382,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="timed windows at the winning batch")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="detect_device calls a window")
+    ap.add_argument("--parity-gate", choices=("detections", "candidates"),
+                    default="detections",
+                    help="candidates: hold a model whose synthetic weights "
+                         "tie scores on its pre-NMS candidates and its "
+                         "tail (parity_candidates), not its detections")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -357,9 +405,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     log(f"bench on {device}: {os.path.basename(args.cfg)}, flags {flags}")
 
     frames = _gate_frames(img)
-    n = parity_gate(args.cfg, wbytes, device, frames)
-    log(f"parity gate: {n} detections on {len(frames)} frames equal the "
-        f"CPU's")
+    if args.parity_gate == "candidates":
+        n = parity_candidates(
+            *(Net.load(args.cfg, wbytes, mode="parity", device=d)
+              for d in (device, "cpu")), frames)
+        log(f"parity gate: {n} candidates on {len(frames)} frames equal "
+            f"the CPU's; the tail on the CPU's candidates bit for bit")
+    else:
+        n = parity_gate(args.cfg, wbytes, device, frames)
+        log(f"parity gate: {n} detections on {len(frames)} frames equal "
+            f"the CPU's")
     net = Net.load(args.cfg, wbytes, mode="fast", device=device)
     cpu_net = Net.load(args.cfg, wbytes, mode="fast", device="cpu")
     worst = fast_gate(net, cpu_net, frames)
@@ -415,7 +470,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 if device.type == "cuda" else None),
         "device": card(device),
         "flags": flags,
-        "gates": "parity on the device == the CPU's; fast within phase 4's "
+        "gates": ("parity on the device == the CPU's"
+                  if args.parity_gate == "detections" else
+                  "parity candidates on the device == the CPU's, the tail "
+                  "bit for bit") + "; fast within phase 4's "
                  "tolerances" + ("; golden boxes exact"
                                  if os.path.isdir(REFERENCE) else ""),
     }

@@ -9,12 +9,15 @@ reference main() (ffcnn.c:552-593) on PyTorch, on the card unless
     python -m ffcnn_tpu_torch.cli bench  [--batch N] [--size S] [--iters I]
     python -m ffcnn_tpu_torch.cli profile [--batch N] [--size S] [--iters I]
     python -m ffcnn_tpu_torch.cli roofline [--batch N] [--size S|WxH]
+    python -m ffcnn_tpu_torch.cli convert-v8 SD.pt [-o OUT] [--nc N] \
+        [--scale n|s|m|l|x] [--size S] [--conf C]
 
 Output format (scores, categories, int-cast rects, drawn rectangles, timing
 line) matches the reference demo and the JAX package's CLI, so the three
-are diffable.  Not ported yet, refused by name: ``--mode int8`` (ROADMAP
-M12), ``bench --dp``/``--sp`` (M14), ``export`` (M15), ``convert-v8``
-(M13).
+are diffable.  ``convert-v8`` turns a YOLOv8 state dict into ``OUT.cfg`` and
+``OUT.weights`` on the host (``yolov8.py``); every other command then serves
+those files.  Not ported yet, refused by name: ``--mode int8`` (ROADMAP
+M12), ``bench --dp``/``--sp`` (M14), ``export`` (M15).
 """
 
 from __future__ import annotations
@@ -170,6 +173,36 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_convert_v8(args) -> int:
+    """YOLOv8 state dict -> ``<out>.cfg`` and ``<out>.weights``
+    (``yolov8.py``), on the host only, as ``ffcnn_tpu/cli.py::
+    cmd_convert_v8``: detect, batch, dump, profile, roofline and bench then
+    serve the two files as they are."""
+    from . import yolov8
+    from .darknet.weights import load_weights
+
+    sd = torch.load(args.sd, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict):
+        print("error: expected a plain state dict "
+              "(torch.save(model.state_dict(), path))", file=sys.stderr)
+        return 1
+    cfg_text, wbytes = yolov8.convert(sd, args.nc, args.scale,
+                                      size=args.size, conf=args.conf)
+    ir = parse_cfg(cfg_text, is_path=False)
+    load_weights(ir, wbytes)       # raises on any float-census mismatch
+    cfg_path, w_path = args.out + ".cfg", args.out + ".weights"
+    with open(cfg_path, "w") as f:
+        f.write(cfg_text)
+    with open(w_path, "wb") as f:
+        f.write(wbytes)
+    heads = sum(1 for l in ir.layers if l.type.name == "YOLOV8")
+    print(f"wrote {cfg_path} ({len(ir.layers)} layers, {heads} v8 heads) "
+          f"+ {w_path} ({len(wbytes)} bytes, census-validated)")
+    print(f"try: python -m ffcnn_tpu_torch.cli detect img.bmp --cfg "
+          f"{cfg_path} --weights {w_path}")
+    return 0
+
+
 def cmd_roofline(args) -> int:
     """Static device-memory/FLOP roofline for a cfg, with no device and no
     weights: bytes moved, FLOPs and the time floor per resolution stage
@@ -265,19 +298,22 @@ def main(argv=None) -> int:
     _add_model_args(pm)
     pm.set_defaults(mode="fast")
 
-    pv = sub.add_parser("convert-v8", help="not ported yet (ROADMAP M13)")
-    pv.add_argument("sd")
-    pv.add_argument("-o", "--out", default="yolov8")
-    pv.add_argument("--nc", type=int, default=80)
+    pv = sub.add_parser(
+        "convert-v8", help="YOLOv8 state dict -> darknet cfg + .weights "
+                           "(then every other command serves the output)")
+    pv.add_argument("sd", help="torch-saved PLAIN state dict "
+                               "(torch.save(model.state_dict(), path))")
+    pv.add_argument("-o", "--out", default="yolov8",
+                    help="output basename (writes <out>.cfg + <out>.weights)")
+    pv.add_argument("--nc", type=int, default=80, help="class count")
     pv.add_argument("--scale", default="n", choices=("n", "s", "m", "l", "x"))
-    pv.add_argument("--size", type=int, default=640)
-    pv.add_argument("--conf", type=float, default=0.25)
+    pv.add_argument("--size", type=int, default=640, help="net input size")
+    pv.add_argument("--conf", type=float, default=0.25,
+                    help="score threshold baked into the [yolov8] heads")
 
     args = ap.parse_args(argv)
     if args.cmd == "export":
         ap.error("export is not ported yet (ROADMAP M15)")
-    if args.cmd == "convert-v8":
-        ap.error("convert-v8 is not ported yet (ROADMAP M13)")
     if getattr(args, "mode", None) == "int8":
         ap.error("--mode int8 is not ported yet (ROADMAP M12)")
     if args.cmd == "bench" and (args.dp or args.sp != 1):
@@ -288,7 +324,8 @@ def main(argv=None) -> int:
                  "--device cpu is given")
     return {"detect": cmd_detect, "dump": cmd_dump, "bench": cmd_bench,
             "profile": cmd_profile, "batch": cmd_batch,
-            "roofline": cmd_roofline}[args.cmd](args)
+            "roofline": cmd_roofline,
+            "convert-v8": cmd_convert_v8}[args.cmd](args)
 
 
 if __name__ == "__main__":

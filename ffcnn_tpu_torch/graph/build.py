@@ -12,10 +12,16 @@ op.  Every dispatch runs under a ``torch.profiler.record_function`` range
 named as the JAX package's ``jax.named_scope`` (``L{li:03d}_{type}``,
 ``L{li:03d}_fusedrun_to_{end:03d}``, ``L{li:03d}_headrun_to_{end:03d}``,
 ``L000_conv0_pallas``).
+
+``forward_features`` also runs a segment of the graph (``start``, ``stop``,
+``blobs_in``, ``keep_blobs``), and computes the layers of ``f32_layers`` in
+float32 (the ``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` knobs; the sets come
+from ``head_chain_layers`` and ``stage_layer_set``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -75,17 +81,86 @@ def fold_input_transform(ir: NetIR, params: Params, mean, norm) -> Params:
     return out
 
 
-def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
+def stage_layer_set(ir: NetIR, stages_csv: str) -> frozenset:
+    """``FFCNN_F32_STAGES`` value (e.g. '20' or '160,80') -> the conv and
+    shortcut layers whose output blob has one of those spatial widths: the
+    stage-local float32 set (``ffcnn_tpu/graph/build.py::stage_layer_set``).
+    """
+    widths = {int(s) for s in str(stages_csv).split(",") if s.strip()}
+    return frozenset(
+        li for li, l in enumerate(ir.layers)
+        if ir.blobs[li + 1].w in widths
+        and l.type in (LayerType.CONV, LayerType.SHORTCUT))
+
+
+def head_chain_layers(ir: NetIR) -> frozenset:
+    """Every conv of the linear chains feeding a ``[yolo]`` head: from each
+    yolo layer back over convs whose output has that one consumer (xl: the
+    dw/pw chains 116-120 and 125-129), the ``FFCNN_HEAD_F32`` set
+    (``ffcnn_tpu/graph/build.py::head_chain_layers``)."""
+    cons = _chain_consumers(ir)
+    out = set()
+    for yi, l in enumerate(ir.layers):
+        if l.type != LayerType.YOLO:
+            continue
+        j = yi - 1
+        # layer j writes blob j + 1, which only layer j + 1 may read
+        while (j >= 0 and ir.layers[j].type == LayerType.CONV
+               and cons.get(j + 1, []) == [j + 1]):
+            out.add(j)
+            j -= 1
+    return frozenset(out)
+
+
+def _chain_consumers(ir: NetIR) -> Dict[int, List[int]]:
+    """blob index -> the layers reading it (the direct input, and route and
+    shortcut sources), as ``forward_features`` reads them."""
+    cons: Dict[int, List[int]] = {}
+    for li, l in enumerate(ir.layers):
+        if l.type == LayerType.ROUTE:
+            for d in l.depends:
+                cons.setdefault(d + 1, []).append(li)
+        else:
+            cons.setdefault(li, []).append(li)
+            if l.type == LayerType.SHORTCUT:
+                cons.setdefault(l.depends[0] + 1, []).append(li)
+    return cons
+
+
+def live_blobs(ir: NetIR, cut: int) -> List[int]:
+    """The blobs made before layer ``cut`` and read at or after it: what a
+    segment ending at ``cut`` passes on (``keep_blobs``) and the next one
+    takes (``blobs_in``), as ``ffcnn_tpu/parallel/pp.py::_live_at``."""
+    return sorted(bi for bi, users in _chain_consumers(ir).items()
+                  if bi <= cut and any(li >= cut for li in users))
+
+
+@contextlib.contextmanager
+def _cudnn_tf32(allow: bool):
+    """cuDNN's TF32 switch set for the block, then restored."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                      input_dtype: Optional[torch.dtype] = None,
                      blob_hook=None, fused_runs=None, fused_params=None,
                      fused_groups=None, mega_runs=(), fused_mid_dtype=None,
                      head_runs=None, head_params=None,
                      conv0_pallas: bool = False,
-                     conv0_params=None) -> List[torch.Tensor]:
+                     conv0_params=None, f32_layers=None,
+                     start: int = 0, stop: Optional[int] = None,
+                     blobs_in: Optional[Dict[int, torch.Tensor]] = None,
+                     keep_blobs: Optional[List[int]] = None):
     """Run the graph body.  ``x``: (N, H, W, C) net input; a non-float ``x``
     (raw uint8 pixels on the folded fast path) is cast to ``input_dtype``,
-    unless the stem kernel takes it as it is.  Returns the raw
-    (N, h, w, 3*(5+classes)) map feeding each yolo layer, in graph order.
+    unless the stem kernel takes it as it is.  Returns the raw map feeding
+    each head (``[yolo]``: (N, h, w, 3*(5+classes)); ``[yolov8]``: (N, h, w,
+    4*reg_max+classes)), in graph order.
 
     ``blob_hook(blob_index, value)``: called with every blob materialised,
     NHWC, as the JAX package's hook is.
@@ -111,12 +186,42 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
     3x3/s2/pad-1 dense stem over even sizes, a run at layer 1, blob 1 read
     by no route or shortcut); otherwise the normal path runs.
     ``conv0_params``: the stem's ``Conv0Params``, from the same (folded)
-    ``params``."""
+    ``params``.
+
+    ``f32_layers``: a set of layer indices computed in float32, as JAX's
+    ``run_layer`` computes them: a conv in the set casts its input to
+    float32 (its output blob stays float32; on the card with cuDNN's TF32
+    off), a shortcut in the set adds in float32 and keeps the sum float32,
+    and a conv outside the set casts its input back to the blob dtype, so
+    a forced stage stays local to that stage.  The caller drops the fused
+    runs that overlap the set (``net.Net`` does).
+
+    Segments (``ffcnn_tpu/graph/build.py``'s, for pipeline stages):
+    ``start``/``stop`` bound the layers run, [start, stop); ``blobs_in``
+    seeds the blob table with the blobs that cross into the segment (``x``
+    may then be None); ``keep_blobs`` returns those blobs besides the heads,
+    as ``(heads, {blob: value})``.  The defaults run the whole graph with
+    its return type.  A fused run, a head chain or the stem that straddles
+    ``start`` or ``stop`` is refused (ValueError): its interior blobs never
+    exist."""
+    nlayers = len(ir.layers)
+    stop = nlayers if stop is None else stop
+    if not 0 <= start <= stop <= nlayers:
+        raise ValueError(f"segment [{start}, {stop}) outside the graph's "
+                         f"{nlayers} layers")
+    for kind, rs in (("fused run", fused_runs), ("head chain", head_runs)):
+        for r in rs or ():
+            for cut in (start, stop):
+                if r.start < cut <= r.end:
+                    raise ValueError(
+                        f"the {kind} L{r.start}-L{r.end} straddles the "
+                        f"segment edge at layer {cut}; split between runs")
     run_map = {r.start: r for r in (fused_runs or [])}
     groups = fused_groups or {}
     head_map = {r.start: r for r in (head_runs or [])}
     l0 = ir.layers[0]
-    use_c0p = (conv0_pallas and x.dtype == torch.uint8 and 1 in run_map
+    use_c0p = (conv0_pallas and start == 0 and x is not None
+               and x.dtype == torch.uint8 and 1 in run_map
                and l0.type == LayerType.CONV and l0.groups == 1
                and l0.fs == 3 and l0.stride == 2 and l0.pad == 1
                and ir.blobs[0].w % 2 == 0 and ir.blobs[0].h % 2 == 0
@@ -124,23 +229,35 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
                            for l in ir.layers
                            if l.type in (LayerType.ROUTE,
                                          LayerType.SHORTCUT)))
-    if use_c0p:
+    if use_c0p and stop <= run_map[1].end:
+        raise ValueError(f"the stem (layer 0 into the fused run L1-"
+                         f"L{run_map[1].end}) straddles the segment edge at "
+                         f"layer {stop}")
+    if use_c0p or x is None:
         float_dtype = input_dtype or torch.float32
     else:
         if not torch.is_floating_point(x):
             x = x.to(input_dtype or torch.float32)
         float_dtype = x.dtype
-    blobs: List[Optional[torch.Tensor]] = [None] * (len(ir.layers) + 1)
+    blobs: List[Optional[torch.Tensor]] = [None] * (nlayers + 1)
     blobs[0] = x
+    for bi, v in (blobs_in or {}).items():
+        blobs[bi] = v
     heads: List[torch.Tensor] = []
 
     def run_layer(li, layer, inp):
         t = layer.type
         if t == LayerType.CONV:
             p = params[li]
-            return conv2d_fused(inp, p["weights"], p["scale"], p["bias"],
-                                stride=layer.stride, pad=layer.pad,
-                                groups=layer.groups, act=layer.activation)
+            forced = f32_layers is not None and li in f32_layers
+            if f32_layers is not None:
+                inp = inp.to(torch.float32 if forced else float_dtype)
+            with (_cudnn_tf32(False) if forced and inp.is_cuda
+                  else contextlib.nullcontext()):
+                return conv2d_fused(inp, p["weights"], p["scale"], p["bias"],
+                                    stride=layer.stride, pad=layer.pad,
+                                    groups=layer.groups,
+                                    act=layer.activation)
         if t == LayerType.MAXPOOL:
             return maxpool2d(inp, layer.fs, layer.stride)
         if t == LayerType.AVGPOOL:
@@ -150,7 +267,12 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
         if t == LayerType.DROPOUT:
             return inp                     # inference no-op (ffcnn.c:412-416)
         if t == LayerType.SHORTCUT:
-            y = activate(inp + blobs[layer.depends[0] + 1], layer.activation)
+            other = blobs[layer.depends[0] + 1]
+            if f32_layers is not None and li in f32_layers:
+                # in a forced stage: the residual chain stays float32
+                return activate(inp.float() + other.float(),
+                                layer.activation)
+            y = activate(inp + other, layer.activation)
             return y.to(float_dtype)
         if t == LayerType.ROUTE:
             parts = [blobs[d + 1] for d in layer.depends]
@@ -160,11 +282,9 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
                 out = out[..., layer.route_group_id * gc:
                           (layer.route_group_id + 1) * gc].contiguous()
             return out
-        if t == LayerType.YOLO:
+        if t in (LayerType.YOLO, LayerType.YOLOV8):
             heads.append(inp)
             return None                    # yolo produces no blob (ffcnn.c:489)
-        if t == LayerType.YOLOV8:
-            raise NotImplementedError("[yolov8] heads are not ported yet")
         raise ValueError(f"unsupported layer type {t}")
 
     def finish_run(end, y):
@@ -177,7 +297,8 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
     # jax.named_scope names it (profiling.py attributes device time to
     # them); a CUDA graph's replay runs no Python and so no range.
     skip_until = -1
-    for li, layer in enumerate(ir.layers):
+    for li in range(start, stop):
+        layer = ir.layers[li]
         if li < skip_until:
             continue
         if li == 0 and use_c0p:
@@ -207,4 +328,6 @@ def forward_features(ir: NetIR, params: Params, x: torch.Tensor, *,
             blobs[li + 1] = run_layer(li, layer, blobs[li])
         if blob_hook is not None and blobs[li + 1] is not None:
             blob_hook(li + 1, blobs[li + 1])
+    if keep_blobs is not None:
+        return heads, {bi: blobs[bi] for bi in keep_blobs}
     return heads

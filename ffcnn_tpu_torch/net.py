@@ -35,10 +35,25 @@ more choose how a run's blocks launch: ``FFCNN_FUSED_CASCADE=k`` (up to k
 consecutive stride-1 blocks in one launch, K4), ``FFCNN_FUSED_MEGA`` (a run
 of stride-1 blocks that passes ``mega_fits`` in one launch, K5) and
 ``FFCNN_FUSED_STORE=f32`` (the boundaries between launches in float32).
-``FFCNN_HEAD_F32``, ``FFCNN_F32_STAGES`` and ``FFCNN_CONV0_INT8=1`` (conv-1
-in int8) are not ported: a fast Net refuses them.  A parity Net refuses
-``FFCNN_PARITY_PRECISION=high`` (JAX's 3-pass bf16 convs; TF32 would be a
-different rounding, not the same one).
+
+Two float32 accuracy knobs change what fast mode computes (parity mode
+ignores them, as the JAX package does).  JAX reads them when it traces a
+pipeline; a Net here reads them once, when it is built:
+``FFCNN_HEAD_F32=1`` computes the conv chains feeding each ``[yolo]`` head
+in float32 and supersedes the fused head chains (K7);
+``FFCNN_F32_STAGES=20`` (a comma list of widths) computes every conv and
+shortcut whose output has that width in float32, stage-locally, and drops
+every fused run (K1/K3/K4/K5, K7) that overlaps a forced layer.  The two
+compose by union.  A forced conv on the card runs with cuDNN's TF32 off.
+``FFCNN_CONV0_INT8=1`` (conv-1 in int8) is not ported: a fast Net refuses
+it.  A parity Net refuses ``FFCNN_PARITY_PRECISION=high`` (JAX's 3-pass
+bf16 convs; TF32 would be a different rounding, not the same one).
+
+YOLOv8 graphs (``[yolov8]`` heads, from ``yolov8.py``'s converter) decode
+by ``decode_head_v8``; a graph with no ``[yolo]`` head skips the
+reference's bbox arena and suppresses by union IoU at
+``ops.nms.v8_nms_threshold()`` (``FFCNN_V8_NMS_IOU``, read when the Net is
+built), as ``ffcnn_tpu/net.py`` does.
 """
 
 from __future__ import annotations
@@ -60,15 +75,15 @@ from .darknet import cfg as cfg_mod
 from .darknet import weights as weights_mod
 from .darknet.ir import LayerType, NetIR
 from .graph.build import (fold_input_transform, forward_features,
-                          params_from_numpy)
+                          head_chain_layers, params_from_numpy,
+                          stage_layer_set)
 from .kernels.block_fused import (block_params, cascade_groups,
                                   check_chain_fits, mega_fits, plan_runs)
 from .kernels.conv0_fused import conv0_params
 from .kernels.head_fused import check_fits, head_params, plan_head_runs
-from .ops.nms import NMSResult, nms
+from .ops.nms import NMSResult, nms, v8_nms_threshold
 from .ops.preprocess import letterbox, letterbox_params, letterbox_uint8
-from .ops.yolo import (apply_arena_cap, arena_capacity, concat_heads,
-                       decode_head)
+from .ops.yolo import apply_arena_cap, arena_capacity, decode_heads
 from .tuning import get_flag
 
 # Demo defaults (ffcnn.c:556-557)
@@ -106,15 +121,41 @@ def stream_detections(detect_async, batches, depth: int = 2):
     return gen()
 
 
+def float32_layers(ir: NetIR, fast: bool = True) -> Optional[frozenset]:
+    """The layers the float32 knobs force, as the flags stand (None where
+    neither is set, and in parity mode): ``FFCNN_HEAD_F32=1`` the head
+    chains (``head_chain_layers``), ``FFCNN_F32_STAGES`` its stages
+    (``stage_layer_set``), the two by union, as JAX's ``_build_pipeline``
+    composes them."""
+    if not fast:
+        return None
+    f32set = (head_chain_layers(ir)
+              if get_flag("FFCNN_HEAD_F32", "0") == "1" else None)
+    stages = get_flag("FFCNN_F32_STAGES", "")
+    if stages:
+        f32set = frozenset(stage_layer_set(ir, stages) | set(f32set or ()))
+    return f32set
+
+
 def planned_runs(ir: NetIR, fast: bool = True):
     """(block runs, head chains) a Net of ``ir`` plans, from the JAX
     package's flags as they stand: none in parity mode (``fast`` False);
     ``FFCNN_FUSED=0`` plans no block run, ``FFCNN_FUSED_HEADS=1`` the head
-    chains."""
+    chains.  The float32 knobs drop runs as JAX's pipeline drops them:
+    ``FFCNN_HEAD_F32=1`` every head chain, ``FFCNN_F32_STAGES`` every run
+    that overlaps a forced layer."""
     runs = plan_runs(ir) if fast and os.environ.get(
         "FFCNN_FUSED", "1") != "0" else []
     heads = plan_head_runs(ir) if fast and os.environ.get(
         "FFCNN_FUSED_HEADS", "0") == "1" else []
+    if fast and get_flag("FFCNN_HEAD_F32", "0") == "1":
+        heads = []
+    if fast and get_flag("FFCNN_F32_STAGES", ""):
+        f32set = float32_layers(ir, fast)
+        runs, heads = ([r for r in rs
+                        if not any(li in f32set
+                                   for li in range(r.start, r.end + 1))]
+                       for rs in (runs, heads))
     return runs, heads
 
 
@@ -200,17 +241,11 @@ class _Pipeline:
     def run(self, batch: torch.Tensor) -> NMSResult:
         """The eager pipeline: letterbox, forward, decode, arena cap, top-k
         and the keep mask, on ``batch``'s device."""
-        ir = self.net.ir
-        net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
-        feats = self.net.forward_heads(batch, self.mean, self.norm)
-        heads = [l for l in ir.layers if l.type == LayerType.YOLO]
-        decoded = concat_heads([decode_head(f, l, net_w, net_h)
-                                for f, l in zip(feats, heads)])
-        decoded = apply_arena_cap(decoded,
-                                  arena_capacity(net_w, net_h, ir.blobs[0].c))
-        return nms(decoded.boxes, decoded.scores, decoded.classes,
-                   k=self.topk, threshold=NMS_THRESHOLD, scale1=self.s1,
-                   scale2=self.s2, iou_kind="min")
+        net = self.net
+        net_w, net_h = net.ir.blobs[0].w, net.ir.blobs[0].h
+        feats = net.forward_heads(batch, self.mean, self.norm)
+        return net.postprocess(decode_heads(net.ir, feats, net_w, net_h),
+                               self.topk, self.s1, self.s2)
 
     def graph(self, n: int) -> _Graph:
         """The graph at batch ``n``, captured at its first use (the caller
@@ -241,20 +276,11 @@ class Net:
     def __init__(self, ir: NetIR, params: Dict, *, mode: str = "fast",
                  topk: int = 128, device="cuda"):
         if mode == "int8":
-            raise NotImplementedError("int8 mode is not ported yet")
+            raise NotImplementedError("int8 mode is not ported yet "
+                                      "(ROADMAP M12)")
         if mode not in ("fast", "parity"):
             raise ValueError(f"mode must be 'fast' or 'parity', got {mode!r}")
-        if any(l.type == LayerType.YOLOV8 for l in ir.layers):
-            raise NotImplementedError("[yolov8] heads are not ported yet")
         fast = mode == "fast"
-        # the JAX package's float32 accuracy knobs change what fast mode
-        # computes (parity mode ignores them, as there)
-        if fast and get_flag("FFCNN_HEAD_F32", "0") == "1":
-            raise NotImplementedError("FFCNN_HEAD_F32 (head chains in "
-                                      "float32) is not ported yet")
-        if fast and get_flag("FFCNN_F32_STAGES", ""):
-            raise NotImplementedError("FFCNN_F32_STAGES (float32 stages) is "
-                                      "not ported yet")
         if fast and get_flag("FFCNN_CONV0_INT8", "0") == "1":
             raise NotImplementedError("FFCNN_CONV0_INT8 (conv-1 in int8) is "
                                       "not ported yet")
@@ -275,6 +301,12 @@ class Net:
         # constructor and when it traces a pipeline (FFCNN_FUSED=0: JAX's
         # runs_usable turns every run off)
         self._fused_runs, self._head_runs = planned_runs(ir, fast)
+        # the float32 knobs (read here; JAX reads them at trace time), whose
+        # runs planned_runs has dropped
+        self._f32_layers = float32_layers(ir, fast)
+        self._has_yolo_heads = any(l.type == LayerType.YOLO
+                                   for l in ir.layers)
+        self._v8_iou = v8_nms_threshold()
         self._fused_params = {r.start: [block_params(ir, self.params, b)
                                         for b in r.blocks]
                               for r in self._fused_runs}
@@ -378,7 +410,8 @@ class Net:
     def roofline_costs(self, batch_size: int):
         """Static per-layer bytes/FLOP costs (``roofline.py``) of this Net's
         plan at ``batch_size``: its block runs and head chains (the port
-        runs them at every batch) and its run boundary storage."""
+        runs them at every batch; the float32 knobs' drops already made)
+        and its run boundary storage."""
         runs = list(self._fused_runs) + list(self._head_runs)
         return roofline.layer_costs(
             self.ir, batch_size,
@@ -440,13 +473,38 @@ class Net:
         return self._folded[key]
 
     def _max_candidates(self) -> int:
-        """Most head candidates the model can emit at its input size,
-        clamped by the reference's bbox arena (ffcnn.c:243)."""
-        total = sum(self.ir.blobs[li].w * self.ir.blobs[li].h * 3
+        """Most head candidates the model can emit at its input size: the
+        head grids' total (3 anchors a cell for ``[yolo]``, 1 for
+        ``[yolov8]``), clamped by the reference's bbox arena (ffcnn.c:243)
+        only where the graph has a ``[yolo]`` head, as
+        ``ffcnn_tpu/net.py::_max_candidates``."""
+        total = sum(self.ir.blobs[li].w * self.ir.blobs[li].h
+                    * (3 if l.type == LayerType.YOLO else 1)
                     for li, l in enumerate(self.ir.layers)
-                    if l.type == LayerType.YOLO)
+                    if l.type in (LayerType.YOLO, LayerType.YOLOV8))
+        if not self._has_yolo_heads:
+            return total
         b0 = self.ir.blobs[0]
         return min(total, arena_capacity(b0.w, b0.h, b0.c))
+
+    def postprocess(self, decoded, topk: int, scale1: int = 1,
+                    scale2: int = 1) -> NMSResult:
+        """The pipeline's tail on decoded candidates (``decode_heads``): the
+        bbox arena and min IoU at NMS_THRESHOLD where the graph has a
+        ``[yolo]`` head (the arena is a quirk of the reference's graphs,
+        ffcnn.c:242-244), else union IoU at ``v8_nms_threshold()``; then
+        top-k and the keep mask (K2 on the card), boxes rescaled by
+        ``scale1 / scale2``."""
+        if self._has_yolo_heads:
+            b0 = self.ir.blobs[0]
+            decoded = apply_arena_cap(decoded,
+                                      arena_capacity(b0.w, b0.h, b0.c))
+            threshold, kind = NMS_THRESHOLD, "min"
+        else:
+            threshold, kind = self._v8_iou, "union"
+        return nms(decoded.boxes, decoded.scores, decoded.classes, k=topk,
+                   threshold=threshold, scale1=scale1, scale2=scale2,
+                   iou_kind=kind)
 
     def forward_heads(self, batch: torch.Tensor, mean=DEFAULT_MEAN,
                       norm=DEFAULT_NORM) -> List[torch.Tensor]:
@@ -473,7 +531,8 @@ class Net:
                                     head_runs=self._head_runs,
                                     head_params=self._head_params,
                                     conv0_pallas=c0 is not None,
-                                    conv0_params=c0)
+                                    conv0_params=c0,
+                                    f32_layers=self._f32_layers)
 
     def _pipeline_for(self, img_h: int, img_w: int, mean, norm,
                       topk: Optional[int] = None) -> _Pipeline:

@@ -17,6 +17,16 @@ import numpy as np
 import torch
 
 from ..kernels.nms import nms_keep_mask
+from ..tuning import get_flag
+
+V8_NMS_THRESHOLD = 0.7     # pure-YOLOv8 graphs: the public default IoU
+
+
+def v8_nms_threshold() -> float:
+    """The union-IoU threshold of a pure-v8 graph: ``FFCNN_V8_NMS_IOU``,
+    else V8_NMS_THRESHOLD (``ffcnn_tpu/ops/nms.py::v8_nms_threshold``).  A
+    ``Net`` reads it once, when it is built."""
+    return float(get_flag("FFCNN_V8_NMS_IOU", str(V8_NMS_THRESHOLD)))
 
 
 class NMSResult(NamedTuple):

@@ -11,6 +11,10 @@ ffcnn.c:438-474):
   * candidate order = (row, col, anchor) scan order, heads in graph order
 
 Boxes below ``ignore_thres`` get score 0; NMS treats score 0 as absent.
+
+``decode_head_v8`` decodes the anchor-free ``[yolov8]`` head (an extension
+with no reference counterpart): the DFL expectation over ``reg_max`` bins a
+box side, one candidate a cell.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..darknet.ir import Layer
+from ..darknet.ir import Layer, LayerType
 
 
 class DecodedBoxes(NamedTuple):
@@ -81,6 +85,55 @@ def decode_head(feat: torch.Tensor, layer: Layer, net_w: int, net_h: int
     m = h * w * 3
     return DecodedBoxes(boxes.reshape(n, m, 4), conf.reshape(n, m),
                         cidx.reshape(n, m))
+
+
+def decode_head_v8(feat: torch.Tensor, layer: Layer, net_w: int, net_h: int
+                   ) -> DecodedBoxes:
+    """feat: (N, h, w, 4*reg_max + classes), the box branch's DFL logits
+    (4 sides x reg_max bins) then the class logits, as
+    ``ffcnn_tpu/ops/yolo.py::decode_head_v8`` decodes it:
+
+      * DFL in float32 whatever the feat's dtype: the logits less their
+        logsumexp, exponentiated and dotted with the bin indices, giving
+        the (l, t, r, b) distances in stride units (not ``torch.softmax``,
+        whose rounding differs);
+      * anchor points at the cell centres, ``(j + 0.5, i + 0.5) * stride``;
+      * score = sigmoid(the largest class logit), class = its first-max
+        index, in the feat's own dtype; no objectness term; scores below
+        ``ignore_thres`` (the cfg's ``conf``) give 0.
+
+    Boxes come out in net-input pixels, as ``decode_head``'s do."""
+    n, h, w, _ = feat.shape
+    rm, stride = layer.reg_max, layer.stride
+    box = feat[..., :4 * rm].float().reshape(n, h, w, 4, rm)
+    box = box - torch.logsumexp(box, dim=-1, keepdim=True)
+    bins = torch.arange(rm, dtype=torch.float32, device=feat.device)
+    dist = torch.sum(torch.exp(box) * bins, dim=-1)      # (N, h, w, 4)
+    cidx, cs = _argmax_max(feat[..., 4 * rm:])
+    conf = torch.reciprocal(1.0 + torch.exp(-cs))
+    conf = torch.where(conf >= layer.ignore_thres, conf,
+                       torch.zeros((), dtype=conf.dtype, device=conf.device))
+    dev = feat.device
+    jj = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, None]
+    ii = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[None, :,
+                                                                   None]
+    boxes = torch.stack([(jj - dist[..., 0]) * stride,
+                         (ii - dist[..., 1]) * stride,
+                         (jj + dist[..., 2]) * stride,
+                         (ii + dist[..., 3]) * stride], dim=-1)
+    m = h * w
+    return DecodedBoxes(boxes.reshape(n, m, 4), conf.reshape(n, m),
+                        cidx.reshape(n, m))
+
+
+def decode_heads(ir, feats, net_w: int, net_h: int) -> DecodedBoxes:
+    """Every head's candidates, each decoded by its type (``[yolo]`` or
+    ``[yolov8]``), in graph order: the list ``forward_features`` returns."""
+    heads = [l for l in ir.layers
+             if l.type in (LayerType.YOLO, LayerType.YOLOV8)]
+    return concat_heads([
+        decode_head_v8(f, l, net_w, net_h) if l.type == LayerType.YOLOV8
+        else decode_head(f, l, net_w, net_h) for f, l in zip(feats, heads)])
 
 
 def concat_heads(heads) -> DecodedBoxes:

@@ -5,7 +5,8 @@ and the plain version both kernels share (``chain_plain``) must compute
 what ``_make_cascade_kernel`` and ``_make_mega_kernel`` compute in
 interpret mode, alone and in the whole forward.  Also the flags the port
 takes from the JAX package with them: ``FFCNN_FUSED_STORE=f32`` (ported),
-``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` (refused), and the head chain
+``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` (taken; ``test_torch_graph.py``
+holds what they compute), and the head chain
 (K7) at 416x416, whose stage buffers no longer need to fit shared
 memory."""
 
@@ -524,20 +525,25 @@ def test_region_net_at_416(monkeypatch):
     assert all(bool(torch.isfinite(h.float()).all()) for h in heads)
 
 
-# --------------------------------------------------------- flags refused
+# ------------------------------------------- float32 knobs, once refused
 @pytest.mark.parametrize("flag,value", [("FFCNN_HEAD_F32", "1"),
                                         ("FFCNN_F32_STAGES", "160"),
                                         ("FFCNN_F32_STAGES", "160,80")])
 def test_unported_f32_flags_refused(flag, value, monkeypatch):
-    """A fast Net refuses the JAX package's float32 accuracy knobs it does
-    not port, instead of ignoring them; parity mode takes no knob."""
-    _, ir, params = _model(64)
+    """The JAX package's float32 accuracy knobs, which a fast Net refused
+    before they were ported, are taken now: a fast Net reads them when it
+    is built and forces the layers JAX's pipeline forces (the head chains,
+    or the stages' convs and shortcuts); parity mode takes no knob, and
+    with the flag unset no layer is forced."""
+    jir, ir, params = _model(320)
     monkeypatch.setenv(flag, value)
-    with pytest.raises(NotImplementedError, match=flag):
-        pt.Net(ir, params, mode="fast", device="cpu")
-    pt.Net(ir, params, mode="parity", device="cpu")
+    want = (jbuild.head_chain_layers(jir) if flag == "FFCNN_HEAD_F32"
+            else jbuild.stage_layer_set(jir, value))
+    assert want
+    assert pt.Net(ir, params, mode="fast", device="cpu")._f32_layers == want
+    assert pt.Net(ir, params, mode="parity", device="cpu")._f32_layers is None
     monkeypatch.setenv(flag, "0" if flag == "FFCNN_HEAD_F32" else "")
-    pt.Net(ir, params, mode="fast", device="cpu")
+    assert pt.Net(ir, params, mode="fast", device="cpu")._f32_layers is None
 
 
 # ------------------------------------------------------------- no fallback

@@ -169,8 +169,7 @@ def test_roofline_prints_the_region_plan(monkeypatch, capsys):
     (["bench", "--dp", "--device", "cpu"], "M14"),
     (["bench", "--sp", "2", "--device", "cpu"], "M14"),
     (["export", "out.pt2"], "M15"),
-    (["convert-v8", "sd.pt"], "M13"),
-], ids=["int8", "dp", "sp", "export", "convert-v8"])
+], ids=["int8", "dp", "sp", "export"])
 def test_unported_commands_name_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)

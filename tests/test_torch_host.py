@@ -195,10 +195,11 @@ _FORBIDDEN = {"jax", "jaxlib", "ffcnn_tpu", "tools"} | {
 
 
 def test_scan_covers_the_cli_and_its_modules():
-    """The command line, the bench and the modules they call are scanned."""
+    """The command line, the bench, the YOLOv8 converter and the modules
+    they call are scanned."""
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for name in ("cli.py", "profiling.py", "roofline.py", "bench.py",
-                 "imageio/loader.py"):
+                 "imageio/loader.py", "yolov8.py"):
         assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
 
 
