@@ -16,6 +16,10 @@ yolo-fastest-xl at 320x320 with synthesized weights (seed 42):
   of 2-3 blocks through the halo cascade K4, 2 K1 and 4 K3 blocks, K7;
 * mega (``FFCNN_FUSED_MEGA=1``): run 84-108 in one K5 launch, 8 K1 blocks.
 
+Two int8-mode paths (phase 12) run the same model under one calibrated
+plan: int8 default (29 convs through the int8 conv, ``csrc/conv_int8.cu``,
+and K1 with int8 boundaries) and int8 region (9 int8 convs, K6, K1 and K3).
+
 K1, K3, K4 and K5 run both pointwise products on the tensor cores
 (``mma.sync`` in 3xTF32, ``csrc/tf32_mma.cuh``); K4 and K5 keep every
 boundary of their chain in shared memory in float32, K5 with a cluster of
@@ -132,6 +136,29 @@ K9.  Phases, each of which exits non-zero on failure:
      saved state dict, then ``cli detect`` and ``cli roofline`` on its
      files.  Last, v8n's ``detect_device`` at batch 1 and 64, fast and
      parity, bucket and eager, with host CPU and device time
+ 12. int8 mode (``Net(mode="int8")``, ``quant.py``), its checks after phase
+     11's, its timings last: ``Net.calibrate`` on the card against the CPU
+     on 8 seeded frames (blob scales to 1e-5, wq codes 99.9% equal); the
+     int8 conv (``csrc/conv_int8.cu``) against its plain version at batch
+     64 on every unfused int8 conv of xl's default plan (29: dense 1x1,
+     depthwise 3x3 and 5x5) and three seeded dense convs (3x3 at stride 1
+     and 2, C64->128 SiLU; a per-channel requantize): int32 accumulators
+     bit for bit, codes equal or one apart at a tie of the plain version's
+     float32 value; each of xl's shapes timed alone (20 launches in one
+     CUDA graph, its replays between CUDA events), the plain version by
+     events, the 1x1 ones beside ``torch._int_mm`` with the epilogue; K1 (run 84-108 block by block), K4 (in groups of three) and
+     K3 (block 81) with the plan's int8 boundaries against their plain
+     versions, timed beside the same launches with bf16 boundaries; int8
+     default and int8 region on the card against the CPU under one plan
+     installed with ``set_quant_plan`` (the first detect's launches equal
+     to the plan's: the int8 conv on each unfused int8 conv, K1/K3/K6 as
+     the plan, K5 = K7 = 0; a replay's kernels equal an eager run's;
+     phase 4's tolerances); v8n at 640x640 in int8 on one frame, card
+     against CPU; ``cli detect --mode int8`` against ``Net.detect``;
+     ``serve --mode int8 --quant-plan`` with a saved plan, four POSTs
+     against ``Net.detect``.  Last, ``detect_device`` of both int8 nets at
+     batch 1 and 64, bucket and eager, with host CPU and device time.
+     Phase 10's bench runs its int8 gate and its informational int8 row.
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
@@ -139,10 +166,14 @@ H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
 shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
 P1 and P2 with the kernel's device time alone, K2 with its times and bound
-at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's launches are their wrappers' counts over phase 4's
-first detect on the region, cascade and mega paths, which builds the
-bucket); the line before it is the card's name and power limit; the last line of standard output
-is one JSON object with the device.
+at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's
+launches are their wrappers' counts over phase 4's first detect on the
+region, cascade and mega paths, which builds the bucket; K1, K3 and K4
+also with their int8-boundary times; the int8 conv, its launches counted
+over phase 12's first int8 default detect, its times summed over xl's 29
+unfused int8 convs); the line before it is the card's name and power
+limit; the last line of standard output is one JSON object with the
+device.
 """
 
 from __future__ import annotations
@@ -203,13 +234,16 @@ WANT_COUNTS["v8n"] = {"K1": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
 KNOB_FLAGS = {"head_f32": {**REGION_FLAGS, "FFCNN_HEAD_F32": "1"},
               "stages_20": {**REGION_FLAGS, "FFCNN_F32_STAGES": "20"}}
 for _want in WANT_COUNTS.values():
-    # no Net path runs the block bench's kernels or the probes'
-    _want.update({k: 0 for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5")})
+    # no Net path runs the block bench's kernels or the probes', and no
+    # float path the int8 conv
+    _want.update({k: 0 for k in ("K8", "K9", "P1/P2", "P3", "P4", "P5",
+                                 "conv_int8")})
 # The path kernels' __global__ symbols, as torch.profiler names their device
 # events (demangled or mangled).  K1 and K3 are block_mma.cuh's template at
 # S = 1 and S = 2.  A replay runs no Python, so the kernels a graph's replay
 # ran are counted from these events, not by the wrappers.
 KERNEL_SYMBOLS = {
+    "conv_int8": r"conv_int8_(dense|dw4|grouped)_kernel",
     "K1": r"mma::block_kernel<1,|3mma12block_kernelILi1E",
     "K2": r"(?<![A-Za-z_])nms_keep_kernel",
     "K3": r"mma::block_kernel<2,|3mma12block_kernelILi2E",
@@ -631,16 +665,18 @@ def bucket_of(net, frames, topk=None):
                              pt.DEFAULT_MEAN, pt.DEFAULT_NORM, topk)
 
 
-def check_replay(tag: str, net, counters, frames, first) -> None:
+def check_replay(tag: str, net, counters, frames, first,
+                 want=None) -> None:
     """A second ``detect`` of ``frames`` (N, H, W, 3), a replay of the
     bucket the first built: the kernels the card ran in it (torch.profiler)
     are one forward's (WANT_COUNTS) and one K2, as many as one eager run of
     the bucket's pipeline on the same batch ran (torch.profiler) and
     launched (its wrappers' counts, which hold the symbols true); no wrapper
     counts in the replay.  Whether it equals the first's (``first``, a
-    replay too) bit for bit is reported."""
+    replay too) bit for bit is reported.  ``want``: one forward's launches
+    (default WANT_COUNTS of the tag)."""
     import torch
-    want = WANT_COUNTS[tag.replace("416", "")]
+    want = want or WANT_COUNTS[tag.replace("416", "")]
     xb = torch.from_numpy(frames).to("cuda")
     dets, ran, wrapped = kernel_events(counters, lambda: net.detect(frames))
     _, eager_ran, eager_wrapped = kernel_events(
@@ -1280,18 +1316,31 @@ def bench_phase() -> None:
             f"{row['stream_host_input_img_s']:.1f}, 640x448 "
             f"{row['demo_640x448_img_s']:.1f}, batch 1 p50 "
             f"{row['p50_batch1_ms']:.3f} ms, device "
-            f"{row['batch1_device_ms']:.3f} ms")
+            f"{row['batch1_device_ms']:.3f} ms; int8 (informational) "
+            f"{row['int8_img_s']:.1f} img/s at batch {row['int8_batch']}")
+        if not row["int8_img_s"] > 0:
+            raise AssertionError("the bench's int8 row is empty")
+
+
+def unfused_int8(net) -> list:
+    """The convs of an int8 Net's plan that run through the int8 conv (the
+    plan's quantized convs outside its fused runs)."""
+    inside = {li for r in net._fused_runs for li in range(r.start, r.end + 1)}
+    return sorted(li for li in net.quant.weights if li not in inside)
 
 
 def plan_counts(net) -> dict:
-    """The K1, K3, K6 and K7 launches one forward of a region-style Net
-    makes, from its plan (each block one launch, no cascade or mega)."""
+    """The K1, K3, K6, K7 and int8 conv launches one forward of a
+    region-style Net makes, from its plan (each block one launch, no
+    cascade or mega; K6 where the stem's guard holds: an int8 plan keeps
+    layer 0 and blob 1 float on xl)."""
     import ffcnn_tpu_torch as pt
     blocks = [b for r in net._fused_runs for b in r.blocks]
     c0 = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[1]
     return {"K1": sum(not b.down for b in blocks),
             "K3": sum(b.down for b in blocks), "K4": 0, "K5": 0,
-            "K6": int(c0 is not None), "K7": len(net._head_runs)}
+            "K6": int(c0 is not None), "K7": len(net._head_runs),
+            "conv_int8": len(unfused_int8(net)) if net.quant else 0}
 
 
 def segments_check(tag: str, net, x, cuts) -> None:
@@ -1499,7 +1548,8 @@ def v8_phase(pt, counters, xl_wbytes, xl_frames, xl_pnet) -> dict:
         if not (same and got[1:] == want and want and total):
             raise AssertionError("cli convert-v8 / detect / roofline failed")
     log(f"[11] phase 11 checks took {time.perf_counter() - t0:.1f} s")
-    return {"nets": nets, "seeded": seeded, "k2": k2}
+    return {"nets": nets, "seeded": seeded, "k2": k2, "ir": ir,
+            "params": params}
 
 
 def v8_times(v8, dev) -> None:
@@ -1528,6 +1578,459 @@ def v8_times(v8, dev) -> None:
     log(f"[11] phase 11 timings took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 12: int8 mode.  The nets' flags (the region configuration's stem
+# runs: an int8 plan keeps xl's layer 0 and blob 1 float), the frames a
+# plan is calibrated on, xl's default plan's int8 blobs and unfused int8
+# convs (ISSUE counts), and the seeded dense convs held beside xl's shapes.
+INT8_FLAGS = {"default": {}, "region": REGION_FLAGS}
+INT8_CALIB = 8
+XL_INT8_BLOBS, XL_INT8_CONVS = 102, 29
+INT8_SEEDED = (("dense 3x3 s1 C64->128 silu", 20, 64, 128, 3, 1, 6, 0.05),
+               ("dense 3x3 s2 C64->128 silu", 20, 64, 128, 3, 2, 6, 0.05),
+               ("dense 1x1 C96->64 leaky, per-channel requantize", 20, 96,
+                64, 1, 1, 2, "perch"))
+# A code of the kernel may differ from its plain version's by one where
+# the plain version's float32 value before rounding lies this close to a
+# tie (k + 1/2): another sum order (K1/K3/K4) or another exp (SiLU).
+INT8_TIE = 1e-3
+
+
+def int8_bound(nbytes, tc_ops=0.0, int32_ops=0.0):
+    """(ms, "bytes" or "operations"): the least time an H100 takes to move
+    ``nbytes`` and run ``tc_ops`` int8 tensor-core operations and
+    ``int32_ops`` int32 operations on the CUDA cores (``roofline.py``'s
+    peaks)."""
+    from ffcnn_tpu_torch import roofline as rf
+    t_b = nbytes / rf.HBM_BYTES_S
+    t_o = max(tc_ops / rf.TC_INT8_OP_S, int32_ops / rf.INT32_OP_S)
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def check_codes(label, got, want, pre=None) -> int:
+    """int8 codes of a kernel against its plain version: equal, or one
+    apart where ``pre`` (the plain version's value before rounding) lies
+    within INT8_TIE of a tie.  Returns the largest difference."""
+    import torch
+    d = (got.int() - want.int()).abs()
+    err, n = int(d.max()), int((d > 0).sum())
+    ties = True
+    if n and pre is not None:
+        f = pre[d > 0].float()
+        ties = bool(((f - f.floor() - 0.5).abs() <= INT8_TIE).all())
+    ok = err <= 1 and (n == 0 or pre is not None) and ties
+    log(f"[12] {label}: codes differing {n} of {d.numel()} (max {err}"
+        + (", each at a tie" if n and ties else "") + f") "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def graph_launch_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Device ms a launch of ``fn``'s one kernel: ``iters`` calls captured
+    in one CUDA graph (after three warm-up calls on a side stream), the
+    graph replayed ``reps`` times between CUDA events, so no host time
+    falls between the launches.  Late in a run torch.profiler recorded no
+    device event for some windows of these short launches (a bare trace
+    of 5; one range of 29 in one trace, three traces in a row), so these
+    times do not come from it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def load_int8(pt, wbytes, flags, device):
+    """An int8 Net of xl at 320x320 built with ``flags`` set."""
+    with environ(flags):
+        return pt.load(CFG, wbytes, mode="int8", device=device)
+
+
+def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
+    """Phase 12, its checks (after phase 11's, before the timing phases'
+    traces): calibration on the card against the CPU; the int8 conv
+    against its plain version on every unfused int8 conv of xl's default
+    plan and the seeded shapes at batch 64 (accumulators bit for bit,
+    codes), each timed alone beside its bound and, for the 1x1 convs,
+    ``torch._int_mm`` with the epilogue; K1, K3 and K4 with int8
+    boundaries against their plain versions, timed beside their bf16
+    boundaries; int8 default and region on the card against the CPU under
+    one plan (launches equal to the plan's, a replay's kernels equal to an
+    eager run's); v8n at 640x640 likewise on one frame; ``cli detect
+    --mode int8``; ``serve --mode int8 --quant-plan``, saved then loaded.
+    Returns what the timings (``int8_times``) and the kernels line take."""
+    import threading
+    import urllib.request
+
+    import torch
+    from ffcnn_tpu_torch import bench_block as bb
+    from ffcnn_tpu_torch import quant as tq
+    from ffcnn_tpu_torch import serve
+    from ffcnn_tpu_torch.kernels import block_fused as bf
+    from ffcnn_tpu_torch.kernels import conv_int8 as ci
+    from ffcnn_tpu_torch.net import WARMUP_RUNS
+    from ffcnn_tpu_torch.ops.activations import activate
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    nets = {t: load_int8(pt, wbytes, f, "cuda") for t, f in INT8_FLAGS.items()}
+    cpus = {t: load_int8(pt, wbytes, f, "cpu") for t, f in INT8_FLAGS.items()}
+
+    # calibration: the card against the CPU on the same frames
+    net, cnet = nets["default"], cpus["default"]
+    calib = frames[:INT8_CALIB]
+    net.calibrate(calib)
+    cnet.calibrate(calib)
+    gp, cp = net.quant, cnet.quant
+    rel = max(abs(gp.blob_scale[b] - s) / s for b, s in cp.blob_scale.items())
+    same = sum(int((gp.weights[li]["wq"].cpu() == q["wq"]).sum())
+               for li, q in cp.weights.items())
+    total = sum(q["wq"].numel() for q in cp.weights.values())
+    log(f"[12] calibration on {len(calib)} frames, card vs CPU: "
+        f"{len(gp.blob_scale)} int8 blobs, {len(gp.weights)} int8 convs; "
+        f"blob scales max rel diff {rel:.2e}; wq codes equal {same} of "
+        f"{total} ({same / total:.6f})")
+    if sorted(gp.blob_scale) != sorted(cp.blob_scale) or rel > 1e-5 \
+            or same < 0.999 * total or sorted(gp.weights) != \
+            sorted(cp.weights) or len(gp.blob_scale) != XL_INT8_BLOBS:
+        raise AssertionError("calibration on the card differs from the CPU")
+    plan = gp
+    for t in INT8_FLAGS:
+        nets[t].set_quant_plan(plan)
+        cpus[t].set_quant_plan(plan)
+    convs = unfused_int8(net)
+    if len(convs) != XL_INT8_CONVS:
+        raise AssertionError(f"{len(convs)} unfused int8 convs, want "
+                             f"{XL_INT8_CONVS}")
+
+    # the int8 conv against its plain version, batch 64: xl's shapes, then
+    # the seeded ones
+    qs = tq.quant_state(net.quant, net.ir, torch.bfloat16, dev)
+    cases = []
+    for li in convs:
+        b, l = net.ir.blobs[li], net.ir.layers[li]
+        kind = "dw" if l.groups > 1 else f"{l.fs}x{l.fs}"
+        cases.append((f"L{li} {kind} s{l.stride} {b.h}x{b.w} C{b.c}->"
+                      f"{l.fn}", b.h, b.c, qs.convs[li]))
+    for label, hw, c, f, k, st, act, osc in INT8_SEEDED:
+        wq = torch.randint(-127, 128, (k, k, c, f), generator=gen,
+                           dtype=torch.int8).to(dev)
+        ws = (torch.rand(f, generator=gen) * 0.02 + 1e-3).numpy()
+        bias = (torch.rand(f, generator=gen) * 2 - 1).numpy()
+        out = (np.linspace(0.02, 0.3, f).astype(np.float32)
+               if osc == "perch" else osc)
+        cases.append((label, hw, c, ci.prepare(
+            wq, 0.0413, ws, bias, stride=st, pad=k // 2, groups=1, act=act,
+            out_scale=out)))
+    err = 0
+    rows = []
+    for label, hw, c, cvp in cases:
+        x = torch.randint(-127, 128, (BATCH, hw, hw, c), generator=gen,
+                          dtype=torch.int8).to(dev)
+        acc = ci.conv_int8(x, cvp, raw=True)
+        accp = ci.conv_int8_plain(x, cvp, raw=True)
+        if not torch.equal(acc, accp):
+            raise AssertionError(f"int8 conv {label}: accumulators differ")
+        y, yp = ci.conv_int8(x, cvp), ci.conv_int8_plain(x, cvp)
+        if cvp.inv is not None:
+            pre = activate(accp.float() * cvp.eff + cvp.bias, cvp.act) \
+                * cvp.inv
+            err = max(err, check_codes(f"int8 conv {label} batch {BATCH}, "
+                                       f"accumulators bit for bit", y, yp,
+                                       pre))
+        else:
+            e = check_kernel(f"int8 conv {label} (accumulators bit for "
+                             f"bit)", y, yp, phase=12)
+            err = max(err, e)
+        rows.append((label, x, cvp, y))
+    log(f"[12] int8 conv checks: {len(cases)} shapes "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+    tim = {}
+    for label, x, cvp, y in rows[:len(convs)]:
+        ms = graph_launch_ms(lambda: ci.conv_int8(x, cvp))
+        pms = cuda_ms(lambda: ci.conv_int8_plain(x, cvp), iters=2, warmup=1)
+        n, oh, ow, f = y.shape
+        fs, icg = cvp.fs, cvp.wq.shape[2]
+        ops = 2 * n * oh * ow * f * fs * fs * icg
+        nbytes = x.numel() + y.numel() * y.element_size() \
+            + cvp.wq.numel() + 12 * f
+        work = (nbytes, ops if cvp.groups == 1 else 0,
+                ops if cvp.groups > 1 else 0)
+        bound = int8_bound(*work)
+        lib = None
+        if fs == 1 and cvp.groups == 1:
+            wt = cvp.wq.reshape(icg, f)
+            x2 = x.reshape(-1, icg)
+
+            def int_mm():
+                a = torch._int_mm(x2, wt)
+                v = activate(a.float() * cvp.eff + cvp.bias, cvp.act)
+                if cvp.inv is None:
+                    return v.to(torch.bfloat16)
+                return torch.clamp(torch.round(v * cvp.inv), -127,
+                                   127).to(torch.int8)
+            try:
+                if not torch.equal(int_mm().reshape(y.shape), y):
+                    log(f"[12] torch._int_mm + epilogue differs from the "
+                        f"kernel at {label} (a yardstick only)")
+                lib = cuda_ms(int_mm, iters=10)
+            except RuntimeError as e:      # the yardstick only
+                log(f"[12] torch._int_mm refused {label}: {e}")
+        tim[label] = (ms, pms, work, lib)
+        log(f"[12] int8 conv {label} batch {BATCH}: kernel alone {ms:.4f}"
+            f" ms (a graph of 20 launches), plain {pms:.3f} ms, "
+            f"bound {bound[0]:.4f} ms "
+            f"({bound[1]})" + (f", torch._int_mm + epilogue {lib:.4f} ms"
+                               if lib is not None else ""))
+
+    # K1, K3, K4 with int8 boundaries against their plain versions, and
+    # each timed beside the same launch with bf16 boundaries: run 84-108
+    # (K1 block by block, K4 in groups of three) and the region's stride-2
+    # block 81 (K3)
+    run = next(r for r in net._fused_runs if r.start == 84)
+    bps = net._fused_params[84]
+    ends = [b.end + 1 for b in run.blocks]
+    sc = plan.scalar_scale
+    blk = {"K1": [], "K3": [], "K4": []}
+    works = {"K1": bb.Work(), "K3": bb.Work(), "K4": bb.Work()}
+
+    def block_case(key, label, launch, plain, shape, in_s, out_s, cbps,
+                   stride=1):
+        xin = (torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8) if in_s is not None
+               else torch.randn(shape, generator=gen)).to(
+                   dev, torch.int8 if in_s is not None else torch.bfloat16)
+        y = launch(xin, in_s, out_s)
+        yp = plain(xin, in_s, out_s)
+        if out_s is not None:
+            pre = plain(xin, in_s, None, torch.float32) * (1.0 / out_s)
+            e = check_codes(f"{key} int8 {label}", y, yp, pre)
+        else:
+            e = check_kernel(f"{key} int8 {label}", y, yp, phase=12)
+        xb = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        blk[key].append((lambda: launch(xin, in_s, out_s),
+                         lambda: launch(xb, None, None),
+                         lambda: plain(xin, in_s, out_s)))
+        # the launch's work: its chain's operations and float32 weights,
+        # the input and output once each at their storage's width
+        w = chain_work(bb, shape[0], shape[1], shape[2], cbps, stride)
+        works[key] += dataclasses.replace(
+            w, bytes=w.bytes - 2 * (xin.numel() + y.numel())
+            + xin.numel() * xin.element_size()
+            + y.numel() * y.element_size())
+        return e
+
+    shape = (BATCH,) + net.ir.blobs[84].nhwc
+    kerr = {"K1": 0, "K3": 0, "K4": 0}
+    for i, (b, bp) in enumerate(zip(run.blocks, bps)):
+        in_s = sc(ends[i - 1]) if i else None
+        out_s = sc(ends[i]) if i + 1 < len(bps) else None
+        kerr["K1"] = max(kerr["K1"], block_case(
+            "K1", f"block {b.start} 10x10 C96 ({'int8' if in_s else 'bf16'}"
+            f" in, {'int8' if out_s else 'bf16'} out)",
+            lambda x, i_, o_, bp=bp: bf.fused_block(x, bp, torch.bfloat16,
+                                                    i_, o_),
+            lambda x, i_, o_, od=torch.bfloat16, bp=bp: bf.block_plain(
+                x, bp, od, i_, o_), shape, in_s, out_s, [bp]))
+    groups = bf.cascade_groups(run, 3)
+    i = 0
+    for gi, g in enumerate(groups):
+        gbps = bps[i:i + len(g)]
+        in_s = sc(groups[gi - 1][-1].end + 1) if gi else None
+        out_s = sc(g[-1].end + 1) if gi + 1 < len(groups) else None
+        kerr["K4"] = max(kerr["K4"], block_case(
+            "K4", f"group {[b.start for b in g]}",
+            lambda x, i_, o_, gb=gbps: bf.fused_cascade(
+                x, gb, torch.bfloat16, i_, o_),
+            lambda x, i_, o_, od=torch.bfloat16, gb=gbps: bf.chain_plain(
+                x, gb, od, in_scale=i_, out_scale=o_), shape, in_s, out_s,
+            gbps))
+        i += len(g)
+    rnet = nets["region"]
+    rrun = next(r for r in rnet._fused_runs if r.start == 81)
+    b81, bp81 = rrun.blocks[0], rnet._fused_params[81][0]
+    in81 = sc(81) if plan.blob_is_int8(81) else 0.05
+    kerr["K3"] = block_case(
+        "K3", f"block 81 20x20 -> 10x10, int8 in and out",
+        lambda x, i_, o_: bf.fused_down_block(x, bp81, torch.bfloat16, i_,
+                                              o_),
+        lambda x, i_, o_, od=torch.bfloat16: bf.block_down_plain(
+            x, bp81, od, i_, o_), (BATCH,) + net.ir.blobs[81].nhwc, in81,
+        sc(b81.end + 1), [bp81], 2)
+    blk_ms = {}
+    for key, cs in blk.items():
+        ms = sum(cuda_ms(k8, iters=10) for k8, _, _ in cs)
+        ms16 = sum(cuda_ms(k16, iters=10) for _, k16, _ in cs)
+        pms = sum(cuda_ms(p, iters=2, warmup=1) for _, _, p in cs)
+        blk_ms[key] = (ms, ms16, pms, works[key].bound())
+        log(f"[12] {key} with the plan's int8 boundaries, {len(cs)} "
+            f"launches, batch {BATCH}: {ms:.4f} ms, with bf16 boundaries "
+            f"{ms16:.4f} ms, plain {pms:.3f} ms, bound "
+            f"{blk_ms[key][3][0]:.4f} ms ({blk_ms[key][3][1]})")
+
+    # the whole int8 nets on the card against the CPU, one plan
+    built = WARMUP_RUNS + 1
+    main_counts = {}
+    for tag, n in nets.items():
+        want = plan_counts(n)
+        dets, counts = counted(counters, lambda: n.detect(frames))
+        log(f"[12] int8 {tag} detect batch {len(frames)}, its bucket built "
+            f"in the call: {sum(map(len, dets))} detections; one forward's "
+            f"launches by the plan {want}; launches "
+            + " ".join(f"{k} {v}" for k, v in counts.items()))
+        if counts["K2"] != built or any(counts[k] != v * built
+                                        for k, v in want.items()) \
+                or counts["K5"] or counts["K7"] or not counts["conv_int8"]:
+            raise AssertionError(f"int8 {tag}: launches differ from the plan")
+        main_counts[tag] = counts
+        check_dets(f"int8 {tag}", dets)
+        check_replay(f"int8 {tag}", n, counters, frames, dets, want)
+        check_against_cpu(f"int8 {tag}", n, cpus[tag], frames, dets, 12)
+
+    # v8n at 640x640: one frame, card against CPU under the card's plan
+    v8n = pt.Net(v8["ir"], v8["params"], mode="int8", device="cuda")
+    v8c = pt.Net(v8["ir"], v8["params"], mode="int8", device="cpu")
+    one = v8["seeded"][:1]
+    v8n.calibrate(one)
+    v8c.set_quant_plan(v8n.quant)
+    dets, counts = counted(counters, lambda: v8n.detect(one))
+    log(f"[12] v8n int8 at {V8_SIZE}x{V8_SIZE}: {len(v8n.quant.blob_scale)}"
+        f" int8 blobs, {len(v8n.quant.weights)} int8 convs; detect batch 1 "
+        f"(bucket built): {len(dets[0])} detections; launches "
+        + " ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if counts["conv_int8"] != len(unfused_int8(v8n)) * built:
+        raise AssertionError("v8n int8 did not launch its int8 convs")
+    check_dets("v8n int8", dets)
+    check_against_cpu("v8n int8", v8n, v8c, one, dets, 12)
+
+    # the surfaces: cli detect --mode int8 (calibrated on its image),
+    # serve --mode int8 --quant-plan (saved, then loaded)
+    bgr = pt.bmp_load(BMP)
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath, ppath = os.path.join(tmp, "xl.weights"), \
+            os.path.join(tmp, "plan.npz")
+        with open(wpath, "wb") as f:
+            f.write(wbytes)
+        got = run_cli(["detect", BMP, "--cfg", CFG, "--weights", wpath,
+                       "--mode", "int8", "-o", os.path.join(tmp, "o.bmp")]
+                      ).splitlines()
+        cn = pt.load(CFG, wpath, mode="int8", device="cuda")
+        want = det_lines(cn.detect(bgr))
+        log(f"[12] cli detect --mode int8: '{got[0]}', {len(want)} "
+            f"detections; score lines equal Net.detect's: {got[1:] == want}")
+        if got[1:] != want:
+            raise AssertionError("cli detect --mode int8 differs")
+        tq.save_plan(ppath, plan)
+        ap = serve.parser()
+        snet = serve.load_net(ap.parse_args(
+            ["--cfg", CFG, "--weights", wpath, "--mode", "int8",
+             "--quant-plan", ppath]), ap.error)
+        if snet.quant.blob_scale != plan.blob_scale or any(
+                not torch.equal(snet.quant.weights[li]["wq"], q["wq"])
+                for li, q in plan.weights.items()):
+            raise AssertionError("serve's loaded plan differs")
+        svc = serve.DetectorService(snet, max_batch=1)
+        server = serve.make_server(svc, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        try:
+            svc.warmup()
+            port = server.server_address[1]
+            same = 0
+            for img in [bgr] + list(frames[:3]):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/detect", data=bmp_bytes(img),
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    got = json.loads(r.read())["detections"]
+                want = [{"score": round(d.score, 4), "class_id": d.class_id,
+                         "box": [round(v, 2) for v in d[2:]]}
+                        for d in snet.detect(img)]
+                same += got == want
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc._batcher.close()
+        log(f"[12] serve --mode int8 --quant-plan (saved, then loaded: the "
+            f"same plan): 4 sequential POST /detect, {same} of 4 equal to "
+            f"Net.detect")
+        if same != 4:
+            raise AssertionError("serve --mode int8 answers differ")
+    log(f"[12] phase 12 checks took {time.perf_counter() - t0:.1f} s")
+    return {"nets": nets, "err": err, "kerr": kerr, "tim": tim,
+            "blk": blk_ms, "counts": main_counts, "nconv": len(convs)}
+
+
+def int8_entry(i8) -> dict:
+    """The int8 conv's entry in the ``kernels`` line: its launches in the
+    int8 default path's first detect, the largest code difference and the
+    sums of its times over xl's unfused int8 convs at batch 64 (kernel
+    alone, plain, bound; ``torch._int_mm`` with the epilogue over the 1x1
+    convs beside the kernel's time there)."""
+    from ffcnn_tpu_torch import roofline as rf
+    tim = i8["tim"].values()
+    nbytes = sum(t[2][0] for t in tim)
+    t_b = nbytes / rf.HBM_BYTES_S
+    t_o = sum(t[2][1] for t in tim) / rf.TC_INT8_OP_S \
+        + sum(t[2][2] for t in tim) / rf.INT32_OP_S
+    ones = [t for t in tim if t[3] is not None]
+    return {"name": "conv_int8", "route": "cuda",
+            "source": "ffcnn_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "ffcnn_tpu/ops/conv.py:99 (conv2d_int8, XLA's int8 "
+                        "conv)",
+            "launches": i8["counts"]["default"]["conv_int8"],
+            "max_abs_err": i8["err"], "ms": sum(t[0] for t in tim),
+            "plain_ms": sum(t[1] for t in tim),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None, "shapes": len(i8["tim"]),
+            "ms_1x1": sum(t[0] for t in ones),
+            "int_mm_ms_1x1": sum(t[3] for t in ones),
+            "bound_ms_1x1": sum(int8_bound(*t[2])[0] for t in ones)}
+
+
+def int8_times(i8, frames, dev) -> None:
+    """Phase 12, its timings (run last): the int8 nets' ``detect_device``
+    at batch 1 and 64, the bucket's replay and the eager pipeline in turns
+    by CUDA events, each with its host CPU and device time
+    (torch.profiler)."""
+    import torch
+    t0 = time.perf_counter()
+    for tag, net in i8["nets"].items():
+        for nb, iters in ((1, 20), (BATCH, 8)):
+            batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
+                                     ).to(dev)
+            net.warmup(batch_sizes=(nb,))
+            bucket = lambda: net.detect_device(batch)
+            eager = lambda: bucket_of(net, batch).run(batch)
+            (e1, e2), (b1, b2) = turns(eager, bucket, iters)
+            eh, ed = profiled_ms(eager, 3)
+            bh, bd = profiled_ms(bucket, 3)
+            log(f"[12] int8 {tag} detect batch {nb}, eager / bucket: events "
+                f"{e1:.3f}, {e2:.3f} / {b1:.3f}, {b2:.3f} ms "
+                f"({nb / b1 * 1e3:.1f} img/s bucket); torch.profiler host "
+                f"CPU {eh:.3f} / {bh:.3f} ms, device {ed:.3f} / {bd:.3f} ms "
+                f"a call")
+    log(f"[12] phase 12 timings took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1541,6 +2044,7 @@ def main() -> int:
         from ffcnn_tpu_torch.kernels import _build
         from ffcnn_tpu_torch.kernels import block_fused as bf
         from ffcnn_tpu_torch.kernels import conv0_fused as c0
+        from ffcnn_tpu_torch.kernels import conv_int8 as ci
         from ffcnn_tpu_torch.kernels import head_fused as hf
         from ffcnn_tpu_torch.kernels import mbconv as k8
         from ffcnn_tpu_torch.kernels import mbconv_cs as k9
@@ -1562,7 +2066,7 @@ def main() -> int:
                 "K7": hf.apply_head_run, "K8": k8.fused_mbconv,
                 "K9": k9.fused_mbconv_cs, "P1/P2": pw.pw_matmul,
                 "P3": bv.block_variant, "P4": mp.strided_rows,
-                "P5": mp.dynslice_carry}
+                "P5": mp.dynslice_carry, "conv_int8": ci.conv_int8}
 
     # 1. the card
     card = card_line()
@@ -1575,7 +2079,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for load in (bf.build, bf.build_down, bf.build_cascade, bf.build_mega,
                  c0.build, hf.build, knms.build, k8.build, k9.build,
-                 pw.build, bv.build, mp.build):
+                 pw.build, bv.build, mp.build, ci.build):
         load()
     log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
         f"parallel: {', '.join(_build.sources())}")
@@ -1864,6 +2368,10 @@ def main() -> int:
     # the float32 knobs and convert-v8 (counted by torch.profiler, so here,
     # before the timings' traces); its timings run last
     v8 = v8_phase(pt, counters, wbytes, frames, pnet)
+
+    # 12, its checks: int8 mode (counted by torch.profiler, so here, before
+    # the timings' traces); its detect_device timings run last
+    i8 = int8_phase(pt, counters, wbytes, frames, v8)
 
     # 6. timings (device time by CUDA events), bf16 as on the main paths
     bf16 = torch.bfloat16
@@ -2214,6 +2722,19 @@ def main() -> int:
     v8_times(v8, dev)
     next(k for k in kernels if k["name"] == "nms_keep_mask").update(
         v8["k2"])
+
+    # 12, its timings and entries: the int8 conv (over xl's unfused int8
+    # convs at batch 64, each timed alone), and K1, K3 and K4 with the
+    # plan's int8 boundaries
+    int8_times(i8, frames, dev)
+    kernels.append(int8_entry(i8))
+    for name, key in (("block_fused_s1", "K1"), ("block_fused_s2", "K3"),
+                      ("block_cascade", "K4")):
+        ms, ms16, pms, (bound, by) = i8["blk"][key]
+        next(k for k in kernels if k["name"] == name).update(
+            int8_ms=ms, int8_bf16_boundaries_ms=ms16, int8_plain_ms=pms,
+            int8_bound_ms=bound, int8_bound_by=by,
+            int8_launches=sum(c[key] for c in i8["counts"].values()))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

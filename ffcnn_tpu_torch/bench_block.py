@@ -304,23 +304,36 @@ def timer(fn: Callable, device, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_alone_ms(fn: Callable, name: str, iters: int) -> float:
-    """Device time per call of the kernels whose name holds ``name``, by
-    ``torch.profiler`` over ``iters`` calls of ``fn`` on the card.  Raises
-    where the profiler shows none."""
-    from torch.profiler import ProfilerActivity, profile
+def kernel_alone_ms(fn: Callable, name: str, iters: int,
+                    attempts: int = 3) -> float:
+    """Device time per call of the kernels whose name holds ``name`` (at
+    least one launch a call), by ``torch.profiler`` over ``iters`` calls of
+    ``fn`` on the card, after a warm-up step of as many whose events the
+    profiler drops.  Late in a long run the profiler recorded none or few
+    of the device events of some short traces: a trace that records fewer
+    launches than calls is taken again, up to ``attempts`` traces.  Raises
+    where none records them all."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) or
-             getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if name in e.key)
-    if us <= 0:
-        raise RuntimeError(f"torch.profiler shows no device time of {name}")
-    return us / iters / 1e3
+    for _ in range(attempts):
+        rows = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: rows.extend(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        hits = [e for e in rows if name in e.key]
+        us = sum(getattr(e, "device_time_total", 0) or
+                 getattr(e, "cuda_time_total", 0) for e in hits)
+        if us > 0 and sum(e.count for e in hits) >= iters:
+            return us / iters / 1e3
+    raise RuntimeError(f"torch.profiler recorded fewer launches of {name} "
+                       f"than {iters} calls in {attempts} traces")
 
 
 def report(cases: Sequence[Case], outs, iters: int = 10,

@@ -76,13 +76,11 @@ def build_variants(variants: Dict[str, List[str]]):
             raise RuntimeError(f"nvcc failed for {so.name}:\n{log}")
         libs[v].append(ctypes.CDLL(str(so)))
     for cascade, mega in libs.values():
-        for lib, entry, n in ((cascade, "ffcnn_cascade", 6),
-                              (mega, "ffcnn_mega", 5)):
+        for lib, entry, argtypes in (
+                (cascade, "ffcnn_cascade", bf.CASCADE_ARGTYPES),
+                (mega, "ffcnn_mega", bf.MEGA_ARGTYPES)):
             fn = getattr(lib, entry)
-            fn.argtypes = ([bf._PTR, bf._PTR] + [bf._INT] * n
-                           + [ctypes.POINTER(bf._INT), ctypes.POINTER(bf._PTR)]
-                           + [bf._INT] * (8 - n) + [bf._PTR])
-            fn.restype = bf._INT
+            fn.argtypes, fn.restype = argtypes, bf._INT
             err = getattr(lib, entry + "_error_string")
             err.argtypes, err.restype = [bf._INT], ctypes.c_char_p
     return libs

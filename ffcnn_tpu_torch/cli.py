@@ -3,7 +3,7 @@ reference main() (ffcnn.c:552-593) on PyTorch, on the card unless
 ``--device cpu`` is given.
 
     python -m ffcnn_tpu_torch.cli detect [image.bmp] [-n ITERS] [--cfg FILE] \\
-        [--weights FILE] [--mode fast|parity] [-o out.bmp] [--device cpu]
+        [--weights FILE] [--mode fast|parity|int8] [-o out.bmp] [--device cpu]
     python -m ffcnn_tpu_torch.cli dump   [--cfg FILE] [--width W] [--height H]
     python -m ffcnn_tpu_torch.cli batch  IMAGE... [--batch N] [--cache-dir D]
     python -m ffcnn_tpu_torch.cli bench  [--batch N] [--size S] [--iters I]
@@ -16,8 +16,11 @@ Output format (scores, categories, int-cast rects, drawn rectangles, timing
 line) matches the reference demo and the JAX package's CLI, so the three
 are diffable.  ``convert-v8`` turns a YOLOv8 state dict into ``OUT.cfg`` and
 ``OUT.weights`` on the host (``yolov8.py``); every other command then serves
-those files.  Not ported yet, refused by name: ``--mode int8`` (ROADMAP
-M12), ``bench --dp``/``--sp`` (M14), ``export`` (M15).
+those files.  ``--mode int8`` runs an int8 plan calibrated on the command's
+first frames (at most 8: the image for ``detect``, the first chunk for
+``batch``, the batch for ``bench`` and ``profile``), as the JAX package's
+CLI does.  Not ported yet, refused by name: ``bench --dp``/``--sp``
+(ROADMAP M14), ``export`` (M15).
 """
 
 from __future__ import annotations
@@ -99,6 +102,8 @@ def cmd_bench(args) -> int:
         0, 255, (args.batch, args.size, args.size, 3), np.uint8)
     # one upload: re-sending the host batch each call would time the copy
     xb = torch.from_numpy(batch).to(net.device)
+    if args.mode == "int8":
+        net.calibrate(batch[: min(8, len(batch))])
     net.detect_device(xb)
     _sync(net.device)
     t0 = time.perf_counter()
@@ -314,8 +319,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "export":
         ap.error("export is not ported yet (ROADMAP M15)")
-    if getattr(args, "mode", None) == "int8":
-        ap.error("--mode int8 is not ported yet (ROADMAP M12)")
     if args.cmd == "bench" and (args.dp or args.sp != 1):
         ap.error("--dp and --sp are not ported yet (ROADMAP M14)")
     if args.cmd in _DEVICE_COMMANDS and args.device == "cuda" \

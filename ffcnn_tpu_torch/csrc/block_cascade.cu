@@ -9,7 +9,10 @@
 // blocks in turn, each to the map one pixel ring smaller than its input
 // (block_chain.cuh).  The tiles are two-dimensional, so the expand zeroing
 // applies at all four edges of the image.  A tile at the map's right or
-// bottom edge is cut to the map.
+// bottom edge is cut to the map.  In an int8 plan the group's input and
+// output may be int8 codes, dequantized on load and requantized at the
+// store as the TPU kernel's in_scale/out_scale do; inside the group every
+// boundary stays float32.
 //
 // Bound on this card: the per-block launches (K1) write each boundary to
 // device memory and read it back with a halo; here it never leaves the CTA,
@@ -44,9 +47,15 @@ __global__ void __launch_bounds__(kCThreads, 1)
   if (in_bf16)
     load_map<__nv_bfloat16>(map[0], map_ld(c), a.x, img, a.h, a.w, c,
                             th + 2 * k, tw + 2 * k, ty0 - k, tx0 - k, vec);
+  else if (a.flags & kChainInI8)
+    load_map<int8_t>(map[0], map_ld(c), a.x, img, a.h, a.w, c, th + 2 * k,
+                     tw + 2 * k, ty0 - k, tx0 - k, vec, a.in_scale);
   else
     load_map<float>(map[0], map_ld(c), a.x, img, a.h, a.w, c, th + 2 * k,
                     tw + 2 * k, ty0 - k, tx0 - k, vec);
+  const int out_kind = (a.flags & kChainOutI8)     ? 2
+                       : (a.flags & kChainOutBf16) ? 1
+                                                   : 0;
   for (int j = 0; j < k; ++j) {
     const int r = k - j;  // pixel rings around the tile on block j's input
     const ChainBlock& b = a.b[j];
@@ -54,8 +63,8 @@ __global__ void __launch_bounds__(kCThreads, 1)
                     tx0 - r, map[(j + 1) & 1], tw + 2 * r - 2, map_ld(b.p),
                     0, 0, th + 2 * r - 2, tw + 2 * r - 2};
     run_window(b, wd, s, j + 1 < k ? &a.b[j + 1] : nullptr, pipe,
-               j == 0 && in_bf16, j == k - 1 ? a.y : nullptr,
-               a.flags & kChainOutBf16, img, a.h, a.w);
+               j == 0 && in_bf16, j == k - 1 ? a.y : nullptr, out_kind, img,
+               a.h, a.w, a.out_inv);
   }
 }
 
@@ -81,20 +90,24 @@ void launch_cascade(const ChainArgs& a, dim3 grid, size_t smem,
 extern "C" {
 
 // x (n, h, w, c of block 0) and y (n, h, w, p of the last block),
-// contiguous: bfloat16 where in_bf16 (x) or out_bf16 (y) is 1, else
-// float32.  meta: 8 ints a block (c e p act1 act2 act3 residual res_act;
+// contiguous: float32 (kind 0), bfloat16 (1) or int8 (2) as in_kind (x)
+// and out_kind (y) say; int8 x is dequantized on load (code * in_scale),
+// int8 y requantized at the store (clip(rint(y * out_inv), -127, 127)).  meta: 8 ints a block (c e p act1 act2 act3 residual res_act;
 // block j + 1 reads block j's p channels); ptrs: 9 a block (w1 s1 b1 kdw s2
 // b2 w2 s3 b3), float32 contiguous in K1's layouts.  (th, tw): output tile,
 // whose shared memory (cascade_smem in block_chain.cuh) must fit 232448
 // bytes.  Returns cudaErrorInvalidValue for a chain, tile or batch
 // (> 65535) it cannot take, else cudaGetLastError().
-int ffcnn_cascade(const void* x, void* y, int in_bf16, int out_bf16, int n,
+int ffcnn_cascade(const void* x, void* y, int in_kind, int out_kind, int n,
                   int h, int w, int nb, const int* meta,
-                  const void* const* ptrs, int th, int tw, void* stream) {
+                  const void* const* ptrs, int th, int tw, float in_scale,
+                  float out_inv, void* stream) {
   ChainArgs a{};
   if (th < 1 || tw < 1 || n > 65535 ||
-      !read_chain(a, nb, meta, ptrs, in_bf16, out_bf16, x))
+      !read_chain(a, nb, meta, ptrs, in_kind, out_kind, x))
     return (int)cudaErrorInvalidValue;
+  a.in_scale = in_scale;
+  a.out_inv = out_inv;
   a.sm = cascade_smem(a, th, tw);
   const size_t smem = a.sm.bytes();
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;

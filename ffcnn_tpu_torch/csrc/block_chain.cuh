@@ -59,7 +59,7 @@ constexpr int kCThreads = FFCNN_CHAIN_THREADS;
 constexpr int kCWarps = kCThreads / 32;
 
 enum ChainFlags { kChainInBf16 = 1, kChainOutBf16 = 2, kChainVecW = 4,
-                  kChainVecX = 8 };
+                  kChainVecX = 8, kChainInI8 = 16, kChainOutI8 = 32 };
 
 #define FFCNN_ACT_ROW(A1, A2, A3, AR) {A1, A2, A3, AR},
 constexpr int kActInstances[][4] = {FFCNN_BLOCK_ACT_INSTANCES(FFCNN_ACT_ROW)};
@@ -100,6 +100,9 @@ struct ChainArgs {
   void* y;
   int h, w, nb, th, tw, flags;
   int rows;  // K5: image rows a CTA owns
+  // K4's int8 boundaries: the input code times in_scale on load, the
+  // output clip(rint(y * out_inv), -127, 127) at the store
+  float in_scale, out_inv;
   ChainSmem sm;
   ChainBlock b[kMaxChain];
 };
@@ -152,11 +155,13 @@ __device__ inline void stage_chunk(const ChainBlock& b, int ci, float* dst,
 
 // Load rows x cols pixels of image img's NHWC input (c channels) into a
 // float32 map of row stride ld, starting at image pixel (gy0, gx0): 0
-// outside the image and in the channel padding up to pad8(c).
+// outside the image and in the channel padding up to pad8(c).  int8 codes
+// are dequantized (code * scale).
 template <typename T>
 __device__ inline void load_map(float* map, int ld, const void* xv, int img,
                                 int h, int w, int c, int rows, int cols,
-                                int gy0, int gx0, bool vec) {
+                                int gy0, int gx0, bool vec,
+                                float scale = 1.f) {
   const T* x = static_cast<const T*>(xv) + (size_t)img * h * w * c;
   const int ng = pad8(c) >> 3;  // groups of 8 channels
   for (int i = threadIdx.x; i < rows * cols * ng; i += kCThreads) {
@@ -166,7 +171,18 @@ __device__ inline void load_map(float* map, int ld, const void* xv, int img,
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
       const T* src = x + ((size_t)gy * w + gx) * c + c0;
-      if (vec) {
+      if constexpr (sizeof(T) == 1) {
+        if (vec) {
+          const uint2 u = *reinterpret_cast<const uint2*>(src);
+          const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = dequant(b[k], scale);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (c0 + k < c) v[k] = dequant(src[k], scale);
+        }
+      } else if (vec) {
         if constexpr (sizeof(T) == 2) {
           const uint4 u = *reinterpret_cast<const uint4*>(src);
           const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -334,12 +350,13 @@ __device__ __forceinline__ int project_group(int nslab, int nt) {
 // 3. The chunk's share of the projection, gs <= NJ n8 tiles a warp item.
 // The first chunk starts from 0, the others from the output map; the last
 // applies the epilogue and stores to the map or, where y is set (the
-// chain's last block), to image img's output in device memory.
+// chain's last block), to image img's output in device memory, as float32
+// (out_kind 0), bfloat16 (1) or int8 codes (2, at out_inv).
 template <int NJ, int A3, int AR>
 __device__ __forceinline__ void project_chunk(
     const ChainBlock& b, const Window& wd, const Scratch& s, const float* w2c,
-    int npix, int ntc, int gs, bool first, bool last, void* y, bool out_bf16,
-    int img, int h, int w) {
+    int npix, int ntc, int gs, bool first, bool last, void* y, int out_kind,
+    float out_inv, int img, int h, int w) {
   using namespace mma;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -417,7 +434,9 @@ __device__ __forceinline__ void project_chunk(
           if (b.residual) v = act_t<AR>(v + res[o], b.res_act);
           if (!y)
             op[u][(j0 + j) * 8 + k] = v;
-          else if (inside && out_bf16)
+          else if (inside && out_kind == 2)
+            store_q(static_cast<int8_t*>(y) + at + o, v, out_inv);
+          else if (inside && out_kind == 1)
             store(static_cast<__nv_bfloat16*>(y) + at + o, v);
           else if (inside)
             store(static_cast<float*>(y) + at + o, v);
@@ -436,12 +455,13 @@ struct Pipe {
 
 // Block b over window wd, every chunk; next: the block whose chunk 0 the
 // next window runs (null for none), staged during this window's last
-// chunk.  y: the image's output (the chain's last block) or null.
+// chunk.  y: the image's output (the chain's last block) or null, stored
+// as out_kind (see project_chunk).
 template <int A1, int A2, int A3, int AR>
 __device__ void run_window_t(const ChainBlock& b, const Window& wd,
                              const Scratch& s, const ChainBlock* next,
-                             Pipe& pipe, bool exact, void* y, bool out_bf16,
-                             int img, int h, int w) {
+                             Pipe& pipe, bool exact, void* y, int out_kind,
+                             int img, int h, int w, float out_inv) {
   using namespace mma;
   const int warp = threadIdx.x >> 5;
   const int hw = wd.ow + 2, nq = (wd.oh + 2) * hw, npix = wd.oh * wd.ow;
@@ -478,13 +498,13 @@ __device__ void run_window_t(const ChainBlock& b, const Window& wd,
     const bool first = ci == 0, last = ci + 1 == nchunks;
     if (gs == 1)
       project_chunk<1, A3, AR>(b, wd, s, w2c, npix, ntc, gs, first, last, y,
-                               out_bf16, img, h, w);
+                               out_kind, out_inv, img, h, w);
     else if (gs == 2)
       project_chunk<2, A3, AR>(b, wd, s, w2c, npix, ntc, gs, first, last, y,
-                               out_bf16, img, h, w);
+                               out_kind, out_inv, img, h, w);
     else
       project_chunk<4, A3, AR>(b, wd, s, w2c, npix, ntc, gs, first, last, y,
-                               out_bf16, img, h, w);
+                               out_kind, out_inv, img, h, w);
   }
 }
 
@@ -493,28 +513,31 @@ __device__ void run_window_t(const ChainBlock& b, const Window& wd,
 template <int I = 0>
 __device__ void run_window(const ChainBlock& b, const Window& wd,
                            const Scratch& s, const ChainBlock* next,
-                           Pipe& pipe, bool exact, void* y, bool out_bf16,
-                           int img, int h, int w) {
+                           Pipe& pipe, bool exact, void* y, int out_kind,
+                           int img, int h, int w, float out_inv = 1.f) {
   if constexpr (I < kNumActInstances) {
     if (b.inst == I)
       return run_window_t<kActInstances[I][0], kActInstances[I][1],
                           kActInstances[I][2], kActInstances[I][3]>(
-          b, wd, s, next, pipe, exact, y, out_bf16, img, h, w);
-    return run_window<I + 1>(b, wd, s, next, pipe, exact, y, out_bf16, img,
-                             h, w);
+          b, wd, s, next, pipe, exact, y, out_kind, img, h, w, out_inv);
+    return run_window<I + 1>(b, wd, s, next, pipe, exact, y, out_kind, img,
+                             h, w, out_inv);
   } else {
-    run_window_t<-1, -1, -1, -1>(b, wd, s, next, pipe, exact, y, out_bf16,
-                                 img, h, w);
+    run_window_t<-1, -1, -1, -1>(b, wd, s, next, pipe, exact, y, out_kind,
+                                 img, h, w, out_inv);
   }
 }
 
 // Host side: read the C entries' block descriptions (meta: 8 ints a block,
 // c e p act1 act2 act3 residual res_act; ptrs: 9 a block, w1 s1 b1 kdw s2
 // b2 w2 s3 b3) into args, with each block's activation instance and the
-// flags; false for a chain the kernels cannot take.
+// flags (in_kind and out_kind: float32 0, bfloat16 1, int8 2); false for a
+// chain the kernels cannot take.
 inline bool read_chain(ChainArgs& a, int nb, const int* meta,
-                       const void* const* ptrs, int in_bf16, int out_bf16,
+                       const void* const* ptrs, int in_kind, int out_kind,
                        const void* x) {
+  if (in_kind < 0 || in_kind > 2 || out_kind < 0 || out_kind > 2)
+    return false;
   if (nb < 1 || nb > kMaxChain) return false;
   bool vec = true;
   for (int j = 0; j < nb; ++j) {
@@ -539,8 +562,10 @@ inline bool read_chain(ChainArgs& a, int nb, const int* meta,
     for (int k = 0; k < 9; ++k) vec = vec && (uintptr_t)p[k] % 16 == 0;
   }
   a.nb = nb;
-  a.flags = (in_bf16 ? kChainInBf16 : 0) | (out_bf16 ? kChainOutBf16 : 0) |
-            (vec ? kChainVecW : 0) |
+  a.flags = (in_kind == 1 ? kChainInBf16 : 0) |
+            (in_kind == 2 ? kChainInI8 : 0) |
+            (out_kind == 1 ? kChainOutBf16 : 0) |
+            (out_kind == 2 ? kChainOutI8 : 0) | (vec ? kChainVecW : 0) |
             (a.b[0].c % 8 == 0 && (uintptr_t)x % 16 == 0 ? kChainVecX : 0);
   return true;
 }

@@ -49,6 +49,9 @@ struct Args {
   int n, h, w, c, e, p, ho, wo;
   int act1, act2, act3, residual, res_act;
   int th, tw, tiles_w, cp;
+  // int8 boundaries (K1 and K3): the input code times in_scale on load,
+  // the output clip(rint(y * out_inv), -127, 127) at the store
+  float in_scale, out_inv;
 };
 
 // ffcnn_tpu/ops/activations.py ids: 1 relu, 2 leaky, 3/5 logistic,
@@ -72,6 +75,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+// An int8 boundary: dequantize a code on load; requantize at the store as
+// ffcnn_tpu/kernels/block_fused.py::_quantize does, clip(round(y * inv),
+// -127, 127), rounding half to even, the product rounded first (no FMA).
+__device__ __forceinline__ float dequant(int8_t q, float scale) {
+  return __fmul_rn((float)q, scale);
+}
+__device__ __forceinline__ void store_q(int8_t* p, float v, float inv) {
+  const int q = __float2int_rn(__fmul_rn(v, inv));
+  *p = (int8_t)max(-127, min(127, q));
 }
 
 }  // namespace ffcnn_block

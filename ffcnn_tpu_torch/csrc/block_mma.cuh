@@ -7,7 +7,11 @@
 // Replaces ffcnn_tpu/kernels/block_fused.py::_make_kernel (S = 1, K1,
 // block_fused.cu) and ::_make_down_kernel (S = 2, K3, block_down.cu).
 // The math is float32, as there: the input is upcast on load, the output
-// cast once at the store (float32 or bfloat16 each, chosen at run time).
+// cast once at the store (float32, bfloat16 or int8 each, chosen at run
+// time).  An int8 input is dequantized on load (code * in_scale) and an
+// int8 output requantized at the store (clip(rint(y * out_inv), -127,
+// 127)), as the TPU kernels' in_scale/out_scale boundaries of an int8
+// plan do; the residual adds the dequantized input.
 //
 // Bound on this card: the block moves its input and output once (the
 // expand never leaves the CTA), so its bytes bound it at some 0.1 ms for
@@ -77,7 +81,7 @@ __host__ __device__ constexpr int smem_floats(int nq, int cp8, int pn) {
          kMaxPix + 2 * (cp8 * kLdW1 + kChunk * ld_b(pn) + kVec);
 }
 
-enum Flags { kInBf16 = 1, kOutBf16 = 2, kVec16 = 4 };
+enum Flags { kInBf16 = 1, kOutBf16 = 2, kVec16 = 4, kInI8 = 8, kOutI8 = 16 };
 
 // The input halo as float32, [nq16][ldx]: zero outside the image, past C
 // and in the rows that round nq up to whole 16-row slabs.
@@ -93,7 +97,18 @@ __device__ __forceinline__ void load_halo(float* xs, int ldx, const Args& a,
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (q < nq && gy >= 0 && gy < a.h && gx >= 0 && gx < a.w) {
       const T* src = x + (((size_t)blockIdx.y * a.h + gy) * a.w + gx) * a.c + c0;
-      if (a.c % 8 == 0) {
+      if constexpr (sizeof(T) == 1) {  // int8 codes, dequantized
+        if (a.c % 8 == 0) {
+          const uint2 u = *reinterpret_cast<const uint2*>(src);
+          const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = dequant(b[k], a.in_scale);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (c0 + k < a.c) v[k] = dequant(src[k], a.in_scale);
+        }
+      } else if (a.c % 8 == 0) {
         if constexpr (sizeof(T) == 2) {
           const uint4 u = *reinterpret_cast<const uint4*>(src);
           const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -244,6 +259,8 @@ __global__ void __launch_bounds__(kThreads, NJ == 1 ? 4 : NJ == 2 ? 3 : 2)
   }
   if (in_bf16)
     load_halo<__nv_bfloat16>(xs, ldx, a, nq, nq16, hw, iy0, ix0);
+  else if (flags & kInI8)
+    load_halo<int8_t>(xs, ldx, a, nq, nq16, hw, iy0, ix0);
   else
     load_halo<float>(xs, ldx, a, nq, nq16, hw, iy0, ix0);
 
@@ -371,7 +388,9 @@ __global__ void __launch_bounds__(kThreads, NJ == 1 ? 4 : NJ == 2 ? 3 : 2)
         if (o >= a.p) continue;
         float v = act_t<A3>(pacc[j][2 * h + u] * a.s3[o] + a.b3[o], a.act3);
         if (S == 1 && a.residual) v = act_t<AR>(v + res[o], a.res_act);
-        if (flags & kOutBf16)
+        if (flags & kOutI8)
+          store_q(static_cast<int8_t*>(a.y) + at + o, v, a.out_inv);
+        else if (flags & kOutBf16)
           store(static_cast<__nv_bfloat16*>(a.y) + at + o, v);
         else
           store(static_cast<float*>(a.y) + at + o, v);
@@ -422,19 +441,23 @@ void launch_acts(const Args& a, int flags, dim3 grid, size_t smem,
 }  // namespace mma
 
 // The C entries' body: checks what the kernel cannot take, then launches.
-// (th, tw) is the OUTPUT tile; the output is (h/S) x (w/S).  in_bf16 and
-// out_bf16 pick bfloat16 (1) or float32 (0) for x and y.
+// (th, tw) is the OUTPUT tile; the output is (h/S) x (w/S).  in_kind and
+// out_kind pick float32 (0), bfloat16 (1) or int8 (2) for x and y: int8 x
+// is dequantized on load (code * in_scale), int8 y requantized at the
+// store (clip(rint(y * out_inv), -127, 127)).
 template <int S>
-int run_block(const void* x, void* y, int in_bf16, int out_bf16,
+int run_block(const void* x, void* y, int in_kind, int out_kind,
               const void* w1, const void* s1, const void* b1, const void* kdw,
               const void* s2, const void* b2, const void* w2, const void* s3,
               const void* b3, int n, int h, int w, int c, int e, int p,
               int act1, int act2, int act3, int residual, int res_act, int th,
-              int tw, void* stream) {
+              int tw, void* stream, float in_scale = 1.f,
+              float out_inv = 1.f) {
   using namespace mma;
   const int hw = S * tw + 3 - S, nq = (S * th + 3 - S) * hw;
   if (th < 1 || tw < 1 || th * tw > kMaxPix || nq > max_halo<S>() ||
-      h % S || w % S || (S != 1 && residual))
+      h % S || w % S || (S != 1 && residual) || in_kind < 0 || in_kind > 2 ||
+      out_kind < 0 || out_kind > 2)
     return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || w == 0 || p == 0) return (int)cudaGetLastError();
   const int ho = h / S, wo = w / S, cp8 = (c + 7) / 8 * 8;
@@ -443,7 +466,7 @@ int run_block(const void* x, void* y, int in_bf16, int out_bf16,
          (const float*)kdw, (const float*)s2, (const float*)b2,
          (const float*)w2, (const float*)s3, (const float*)b3,
          n, h, w, c, e, p, ho, wo, act1, act2, act3, residual, res_act,
-         th, tw, (wo + tw - 1) / tw, cp8};
+         th, tw, (wo + tw - 1) / tw, cp8, in_scale, out_inv};
   const int pn = ((p < kOG ? p : kOG) + 7) / 8 * 8;  // the widest CTA's
   const size_t smem = sizeof(float) * smem_floats(nq, cp8, pn);
   if (smem > kMaxSmem || n > 65535 || c < 1 || e < 1)
@@ -452,8 +475,10 @@ int run_block(const void* x, void* y, int in_bf16, int out_bf16,
   bool aligned = e % 4 == 0 && p % 4 == 0;
   for (const void* ptr : weights)
     aligned = aligned && (uintptr_t)ptr % 16 == 0;
-  const int flags = (in_bf16 ? kInBf16 : 0) | (out_bf16 ? kOutBf16 : 0) |
-                    (aligned ? kVec16 : 0);
+  const int flags = (in_kind == 1 ? kInBf16 : 0) |
+                    (in_kind == 2 ? kInI8 : 0) |
+                    (out_kind == 1 ? kOutBf16 : 0) |
+                    (out_kind == 2 ? kOutI8 : 0) | (aligned ? kVec16 : 0);
   const dim3 grid(((ho + th - 1) / th) * a.tiles_w, n, (p + kOG - 1) / kOG);
   // n8 tiles a warp holds: half the widest CTA's, rounded up to 1, 2, 4, 8
   const int need = (pn / 8 + 1) / 2;

@@ -14,9 +14,11 @@ named as the JAX package's ``jax.named_scope`` (``L{li:03d}_{type}``,
 ``L000_conv0_pallas``).
 
 ``forward_features`` also runs a segment of the graph (``start``, ``stop``,
-``blobs_in``, ``keep_blobs``), and computes the layers of ``f32_layers`` in
+``blobs_in``, ``keep_blobs``), computes the layers of ``f32_layers`` in
 float32 (the ``FFCNN_HEAD_F32`` and ``FFCNN_F32_STAGES`` knobs; the sets come
-from ``head_chain_layers`` and ``stage_layer_set``).
+from ``head_chain_layers`` and ``stage_layer_set``), and runs an int8 plan
+(``quant``): the blobs it marks int8 stored as int8 codes, the convs on them
+through the int8 conv kernel (``kernels/conv_int8.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ from ..darknet.ir import LayerType, NetIR
 
 from ..kernels.block_fused import apply_run, run_blocks
 from ..kernels.conv0_fused import conv0_cs
+from ..kernels.conv_int8 import conv_int8
 from ..kernels.head_fused import apply_head_run
 from ..ops.activations import activate
 from ..ops.conv import conv2d_fused
 from ..ops.pool import avgpool2d, maxpool2d, upsample_nearest
+from ..quant import quant_state, quantize
 
 Params = Dict[int, Dict[str, torch.Tensor]]
 
@@ -152,7 +156,7 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                      fused_groups=None, mega_runs=(), fused_mid_dtype=None,
                      head_runs=None, head_params=None,
                      conv0_pallas: bool = False,
-                     conv0_params=None, f32_layers=None,
+                     conv0_params=None, f32_layers=None, quant=None,
                      start: int = 0, stop: Optional[int] = None,
                      blobs_in: Optional[Dict[int, torch.Tensor]] = None,
                      keep_blobs: Optional[List[int]] = None):
@@ -163,7 +167,8 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     4*reg_max+classes)), in graph order.
 
     ``blob_hook(blob_index, value)``: called with every blob materialised,
-    NHWC, as the JAX package's hook is.
+    NHWC, as the JAX package's hook is (a layer's blob dequantized, a fused
+    run's output as stored).
 
     ``fused_runs``: ``kernels.block_fused.FusedRun`` list; each run's layers
     execute as fused blocks and their interior blobs never materialise.
@@ -196,6 +201,19 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     a forced stage stays local to that stage.  The caller drops the fused
     runs that overlap the set (``net.Net`` does).
 
+    ``quant``: an int8 plan (``quant.QuantPlan``), as the JAX builder runs
+    it: a blob the plan marks int8 is stored as int8 codes at its scale; a
+    conv on an int8 blob whose weights the plan quantized runs through the
+    int8 conv (``kernels.conv_int8``, straight into its output's storage);
+    other convs, avgpool, shortcut and the heads read their inputs
+    dequantized, and store their outputs requantized where the plan says
+    so; maxpool and upsample pass codes through at a shared scale; route
+    passes, rescales or quantizes each part; a fused run takes its input
+    dequantized, stores its interior int8 boundaries as codes
+    (``run_blocks``) and its output as the plan says.  The stem kernel is
+    not taken where the plan quantizes layer 0 or blob 1.  The plan's
+    constants come from ``quant.quant_state``, made once a plan.
+
     Segments (``ffcnn_tpu/graph/build.py``'s, for pipeline stages):
     ``start``/``stop`` bound the layers run, [start, stop); ``blobs_in``
     seeds the blob table with the blobs that cross into the segment (``x``
@@ -225,6 +243,8 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                and l0.type == LayerType.CONV and l0.groups == 1
                and l0.fs == 3 and l0.stride == 2 and l0.pad == 1
                and ir.blobs[0].w % 2 == 0 and ir.blobs[0].h % 2 == 0
+               and (quant is None or (0 not in quant.weights
+                                      and not quant.blob_is_int8(1)))
                and not any(1 in (d + 1 for d in l.depends)
                            for l in ir.layers
                            if l.type in (LayerType.ROUTE,
@@ -244,51 +264,106 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     for bi, v in (blobs_in or {}).items():
         blobs[bi] = v
     heads: List[torch.Tensor] = []
+    if quant is not None:
+        dev = next(v for v in blobs if v is not None).device
+        qs = quant_state(quant, ir, float_dtype, dev)
+
+    def is_q(bi):
+        return quant is not None and quant.blob_is_int8(bi)
+
+    def deq(bi, v=None):
+        """Blob bi as float (dequantized if stored int8)."""
+        v = blobs[bi] if v is None else v
+        return v.to(float_dtype) * qs.deq[bi] if is_q(bi) else v
+
+    def store(bi, y):
+        """A float result -> blob bi's storage (requantized if int8)."""
+        return quantize(y, qs.inv[bi]) if is_q(bi) else y.to(float_dtype)
+
+    def reconcile(li, out):
+        """A pass-through layer's output (maxpool, upsample of blob li) ->
+        the storage of blob li + 1: itself where both share storage and
+        scale, else dequantized and stored."""
+        if is_q(li) == is_q(li + 1) and (not is_q(li) or np.array_equal(
+                np.asarray(quant.blob_scale[li]),
+                np.asarray(quant.blob_scale[li + 1]))):
+            return out
+        return store(li + 1, deq(li, out))
+
+    def route(li, layer):
+        srcs = [d + 1 for d in layer.depends]
+        if is_q(li + 1) and li not in qs.route:
+            # per-channel scales do not survive the group slice: combine
+            # in float, store once
+            out = torch.cat([deq(bi) for bi in srcs], dim=-1)
+            gc = out.shape[-1] // layer.route_groups
+            return store(li + 1, out[..., layer.route_group_id * gc:
+                                     (layer.route_group_id + 1) * gc])
+        if is_q(li + 1):
+            parts = []
+            for bi, (kind, k) in zip(srcs, qs.route[li]):
+                v = blobs[bi]
+                if kind == "pass":
+                    parts.append(v)          # exact passthrough
+                elif kind == "rescale":
+                    parts.append(quantize(v, k))
+                elif kind == "quant":        # a float part, its slice
+                    parts.append(quantize(deq(bi, v), k))
+                else:
+                    parts.append(store(li + 1, v))
+        else:
+            parts = [deq(bi) for bi in srcs]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        if layer.route_groups > 1:     # yolov4-tiny extension
+            gc = out.shape[-1] // layer.route_groups
+            out = out[..., layer.route_group_id * gc:
+                      (layer.route_group_id + 1) * gc].contiguous()
+        return out
 
     def run_layer(li, layer, inp):
         t = layer.type
         if t == LayerType.CONV:
+            if is_q(li) and li in quant.weights:     # the int8 conv
+                return conv_int8(inp, qs.convs[li], float_dtype)
             p = params[li]
             forced = f32_layers is not None and li in f32_layers
+            inp = deq(li, inp)
             if f32_layers is not None:
                 inp = inp.to(torch.float32 if forced else float_dtype)
             with (_cudnn_tf32(False) if forced and inp.is_cuda
                   else contextlib.nullcontext()):
-                return conv2d_fused(inp, p["weights"], p["scale"], p["bias"],
-                                    stride=layer.stride, pad=layer.pad,
-                                    groups=layer.groups,
-                                    act=layer.activation)
+                y = conv2d_fused(inp, p["weights"], p["scale"], p["bias"],
+                                 stride=layer.stride, pad=layer.pad,
+                                 groups=layer.groups, act=layer.activation)
+            return store(li + 1, y) if is_q(li + 1) else y
         if t == LayerType.MAXPOOL:
-            return maxpool2d(inp, layer.fs, layer.stride)
+            # max commutes with a shared positive scale
+            return reconcile(li, maxpool2d(inp, layer.fs, layer.stride))
         if t == LayerType.AVGPOOL:
-            return avgpool2d(inp, layer.fs, layer.stride)
+            if quant is None:
+                return avgpool2d(inp, layer.fs, layer.stride)
+            return store(li + 1, avgpool2d(deq(li, inp), layer.fs,
+                                           layer.stride))
         if t == LayerType.UPSAMPLE:
-            return upsample_nearest(inp, layer.stride)
+            return reconcile(li, upsample_nearest(inp, layer.stride))
         if t == LayerType.DROPOUT:
             return inp                     # inference no-op (ffcnn.c:412-416)
         if t == LayerType.SHORTCUT:
-            other = blobs[layer.depends[0] + 1]
+            a, b = deq(li, inp), deq(layer.depends[0] + 1)
             if f32_layers is not None and li in f32_layers:
                 # in a forced stage: the residual chain stays float32
-                return activate(inp.float() + other.float(),
-                                layer.activation)
-            y = activate(inp + other, layer.activation)
-            return y.to(float_dtype)
+                y = activate(a.float() + b.float(), layer.activation)
+                return store(li + 1, y) if is_q(li + 1) else y
+            return store(li + 1, activate(a + b, layer.activation))
         if t == LayerType.ROUTE:
-            parts = [blobs[d + 1] for d in layer.depends]
-            out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-            if layer.route_groups > 1:     # yolov4-tiny extension
-                gc = out.shape[-1] // layer.route_groups
-                out = out[..., layer.route_group_id * gc:
-                          (layer.route_group_id + 1) * gc].contiguous()
-            return out
+            return route(li, layer)
         if t in (LayerType.YOLO, LayerType.YOLOV8):
-            heads.append(inp)
+            heads.append(deq(li, inp))
             return None                    # yolo produces no blob (ffcnn.c:489)
         raise ValueError(f"unsupported layer type {t}")
 
     def finish_run(end, y):
-        blobs[end + 1] = y.to(float_dtype)
+        blobs[end + 1] = store(end + 1, y)
         if blob_hook is not None:
             blob_hook(end + 1, blobs[end + 1])
         return end + 1
@@ -309,25 +384,27 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                 y0 = conv0_cs(x.contiguous(), conv0_params, float_dtype)
             with record_function(f"L001_fusedrun_to_{r.end:03d}"):
                 skip_until = finish_run(r.end, run_blocks(
-                    y0, r, fused_params[1], groups.get(1), fused_mid_dtype))
+                    y0, r, fused_params[1], groups.get(1), fused_mid_dtype,
+                    quant))
             continue
         if li in head_map:
             r = head_map[li]
             with record_function(f"L{li:03d}_headrun_to_{r.end:03d}"):
                 skip_until = finish_run(r.end, apply_head_run(
-                    blobs[li], r, head_params[li]))
+                    deq(li), r, head_params[li]))
             continue
         if li in run_map:
             r = run_map[li]
             with record_function(f"L{li:03d}_fusedrun_to_{r.end:03d}"):
                 skip_until = finish_run(r.end, apply_run(
-                    blobs[li], r, fused_params[li], groups=groups.get(li),
-                    mega=li in mega_runs, mid_dtype=fused_mid_dtype))
+                    deq(li), r, fused_params[li], groups=groups.get(li),
+                    mega=li in mega_runs, mid_dtype=fused_mid_dtype,
+                    quant=quant))
             continue
         with record_function(f"L{li:03d}_{layer.type.name.lower()}"):
             blobs[li + 1] = run_layer(li, layer, blobs[li])
         if blob_hook is not None and blobs[li + 1] is not None:
-            blob_hook(li + 1, blobs[li + 1])
+            blob_hook(li + 1, deq(li + 1))
     if keep_blobs is not None:
         return heads, {bi: blobs[bi] for bi in keep_blobs}
     return heads

@@ -38,6 +38,12 @@ chunk's weights arrive by ``cp.async`` while this one computes, and the
 activations of the combinations that ``plan_runs`` yields on
 ``models/*.cfg`` are fixed at compile time.
 
+In an int8 plan (``quant``, ``run_blocks``) K1, K3 and K4 take int8 codes
+in and out where a boundary between launches is int8: the input is
+dequantized on load (code * ``in_scale``) and the output requantized at
+the store (clip(rint(y * 1/``out_scale``), -127, 127)), as the TPU
+kernels' ``in_scale``/``out_scale`` do; the math inside stays float32.
+
 Departures from the JAX package, neither of which changes a plan:
 
 * Its TPU gates ``BATCH_QUANTUM``, ``runs_usable`` and the mega route's
@@ -221,11 +227,30 @@ def block_params(ir: NetIR, params, b: FusedBlock) -> BlockParams:
         residual=b.residual, res_act=b.res_act)
 
 
-def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int,
-               matmul=torch.matmul) -> torch.Tensor:
-    """The block in plain PyTorch, float32 inside and out, NHWC; ``matmul``
-    computes the two pointwise products."""
+def _dequant(x: torch.Tensor, in_scale: Optional[float]) -> torch.Tensor:
+    """x as float32; int8 codes times ``in_scale`` (rounded to float32, as
+    the TPU kernels' ``load`` multiplies by it)."""
     xf = x.float()
+    return xf if in_scale is None else xf * in_scale
+
+
+def _finish(y: torch.Tensor, out_dtype, out_scale: Optional[float]):
+    """y in ``out_dtype``, or with ``out_scale`` int8 codes clip(round(y *
+    inv), -127, 127) with inv = float32(1 / out_scale) (``_quantize(out,
+    1.0 / out_scale)`` of the TPU kernels)."""
+    if out_scale is None:
+        return y.to(out_dtype)
+    return torch.clamp(torch.round(y * (1.0 / out_scale)), -127,
+                       127).to(torch.int8)
+
+
+def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int,
+               matmul=torch.matmul, in_scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """The block in plain PyTorch, float32 inside and out, NHWC; ``matmul``
+    computes the two pointwise products; int8 ``x`` is dequantized by
+    ``in_scale`` (the residual adds the dequantized input)."""
+    xf = _dequant(x, in_scale)
     n, h, w, _ = x.shape
     ho, wo = h // stride, w // stride
     a = activate(matmul(xf, bp.w1) * bp.s1 + bp.b1, bp.acts[0])
@@ -249,35 +274,45 @@ def _block_f32(x: torch.Tensor, bp: BlockParams, stride: int,
 
 
 def block_plain(x: torch.Tensor, bp: BlockParams,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                in_scale: Optional[float] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
     """The stride-1 block in plain PyTorch, float32 inside, NHWC in and
-    out (in ``out_dtype``, default x's): what ``_make_kernel`` computes."""
-    return _block_f32(x, bp, 1).to(out_dtype or x.dtype)
+    out (in ``out_dtype``, default x's): what ``_make_kernel`` computes.
+    int8 boundaries: ``in_scale`` dequantizes int8 ``x``, ``out_scale``
+    requantizes the output to int8 codes."""
+    return _finish(_block_f32(x, bp, 1, in_scale=in_scale),
+                   out_dtype or x.dtype, out_scale)
 
 
 def block_down_plain(x: torch.Tensor, bp: BlockParams,
-                     out_dtype: Optional[torch.dtype] = None
-                     ) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     in_scale: Optional[float] = None,
+                     out_scale: Optional[float] = None) -> torch.Tensor:
     """The stride-2 block in plain PyTorch, float32 inside, NHWC (N, H, W,
     C) -> (N, H/2, W/2, P) for even H and W, in ``out_dtype`` (default
-    x's): what ``_make_down_kernel`` computes (no residual)."""
+    x's): what ``_make_down_kernel`` computes (no residual); int8
+    boundaries as ``block_plain``'s."""
     if bp.residual:
         raise ValueError("a stride-2 block has no residual")
-    return _block_f32(x, bp, 2).to(out_dtype or x.dtype)
+    return _finish(_block_f32(x, bp, 2, in_scale=in_scale),
+                   out_dtype or x.dtype, out_scale)
 
 
 def chain_plain(x: torch.Tensor, bps: List[BlockParams],
                 out_dtype: Optional[torch.dtype] = None,
-                matmul=torch.matmul) -> torch.Tensor:
+                matmul=torch.matmul, in_scale: Optional[float] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
     """Stride-1 blocks chained in plain PyTorch, NHWC: float32 between the
     blocks, never rounded, and one cast at the end (to ``out_dtype``,
     default x's).  What ``_make_cascade_kernel`` computes for a group and
     ``_make_mega_kernel`` for a run: the plain version of K4 and of K5.
-    ``matmul`` computes the pointwise products (as in ``_block_f32``)."""
-    y = x
+    ``matmul`` computes the pointwise products (as in ``_block_f32``);
+    int8 boundaries at the chain's ends as ``block_plain``'s."""
+    y = _dequant(x, in_scale)
     for bp in bps:
         y = _block_f32(y, bp, 1, matmul)
-    return y.to(out_dtype or x.dtype)
+    return _finish(y, out_dtype or x.dtype, out_scale)
 
 
 # ----------------------------------------------------------------- routing
@@ -537,14 +572,17 @@ def check_chain_fits(h: int, w: int, bps: List[BlockParams],
 
 # ---------------------------------------------------------------- wrappers
 _DTYPES = (torch.float32, torch.bfloat16)
+# the kernels' storage kinds: float32, bfloat16, int8 codes
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _check_x(x: torch.Tensor) -> None:
+def _check_x(x: torch.Tensor, in_scale: Optional[float] = None) -> None:
+    want, kind = ((torch.int8,), "int8") if in_scale is not None else \
+        (_DTYPES, "float32/bfloat16")
     if x.device.type != "cuda" or x.dim() != 4 or not x.is_contiguous() \
-            or x.dtype not in _DTYPES:
-        raise ValueError(f"x must be a contiguous NHWC float32/bfloat16 CUDA "
-                         f"tensor, got {x.dtype} {tuple(x.shape)} on "
-                         f"{x.device}")
+            or x.dtype not in want:
+        raise ValueError(f"x must be a contiguous NHWC {kind} CUDA tensor, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _check_params(bp: BlockParams, c: int, device) -> None:
@@ -562,10 +600,12 @@ def _check_params(bp: BlockParams, c: int, device) -> None:
         raise ValueError(f"residual block needs P == C, got {p} != {c}")
 
 
-def _check(x: torch.Tensor, bps: List[BlockParams], out_dtype) -> None:
+def _check(x: torch.Tensor, bps: List[BlockParams], out_dtype,
+           in_scale: Optional[float] = None) -> None:
     """Raise on what the kernels do not take: a chain's widths must link
-    up, each block's params must lie beside x."""
-    _check_x(x)
+    up, each block's params must lie beside x; int8 x only with an
+    ``in_scale``."""
+    _check_x(x, in_scale)
     if out_dtype not in _DTYPES:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got "
                          f"{out_dtype}")
@@ -585,25 +625,40 @@ def _is_bf16(dtype) -> int:
     return int(dtype == torch.bfloat16)
 
 
+def _boundaries(x, out_dtype, in_scale, out_scale):
+    """(x's kind, y's dtype and kind, in_scale, out_inv) for a launch: int8
+    codes at a scale where one is given (out_inv = 1 / out_scale, the
+    kernel rounds it to float32)."""
+    od = torch.int8 if out_scale is not None else out_dtype
+    return (_KIND[x.dtype], od, _KIND[od],
+            1.0 if in_scale is None else in_scale,
+            1.0 if out_scale is None else 1.0 / out_scale)
+
+
 def fused_block(x: torch.Tensor, bp: BlockParams,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                in_scale: Optional[float] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
     """One stride-1 block (K1), NHWC (N, H, W, C) -> (N, H, W, P) in
-    ``out_dtype`` (default x's).
+    ``out_dtype`` (default x's, float32 or bfloat16).  int8 boundaries of an
+    int8 plan: ``in_scale`` takes int8 codes in (dequantized on load),
+    ``out_scale`` stores int8 codes (requantized at the store).
 
     CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return block_plain(x, bp, out_dtype)
-    _check(x, [bp], out_dtype)
+        return block_plain(x, bp, out_dtype, in_scale, out_scale)
+    _check(x, [bp], out_dtype, in_scale)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
     th, tw = pick_tile(h, w)
-    y = torch.empty((n, h, w, p), dtype=out_dtype, device=x.device)
+    ik, od, ok, si, so = _boundaries(x, out_dtype, in_scale, out_scale)
+    y = torch.empty((n, h, w, p), dtype=od, device=x.device)
     lib = build()
     err = lib.ffcnn_block_s1(
-        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
+        x.data_ptr(), y.data_ptr(), ik, ok,
         *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, int(bp.residual),
-        bp.res_act, th, tw, _build.stream_ptr())
+        bp.res_act, th, tw, si, so, _build.stream_ptr())
     fused_block.launches += 1
     if err:
         raise RuntimeError("fused block launch failed: "
@@ -615,29 +670,31 @@ fused_block.launches = 0
 
 
 def fused_down_block(x: torch.Tensor, bp: BlockParams,
-                     out_dtype: Optional[torch.dtype] = None
-                     ) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     in_scale: Optional[float] = None,
+                     out_scale: Optional[float] = None) -> torch.Tensor:
     """One stride-2 block (K3), NHWC (N, H, W, C) -> (N, H/2, W/2, P) in
-    ``out_dtype`` (default x's); H and W must be even.
+    ``out_dtype`` (default x's); H and W must be even.  int8 boundaries as
+    ``fused_block``'s.
 
     CPU tensors take ``block_down_plain``; CUDA tensors launch the
     kernel."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return block_down_plain(x, bp, out_dtype)
-    _check(x, [bp], out_dtype)
+        return block_down_plain(x, bp, out_dtype, in_scale, out_scale)
+    _check(x, [bp], out_dtype, in_scale)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
     if h % 2 or w % 2 or bp.residual:
         raise ValueError(f"a stride-2 block needs even H and W and no "
                          f"residual, got {h}x{w}, residual={bp.residual}")
     th, tw = pick_tile(h // 2, w // 2, 2)
-    y = torch.empty((n, h // 2, w // 2, p), dtype=out_dtype,
-                    device=x.device)
+    ik, od, ok, si, so = _boundaries(x, out_dtype, in_scale, out_scale)
+    y = torch.empty((n, h // 2, w // 2, p), dtype=od, device=x.device)
     lib = build_down()
     err = lib.ffcnn_block_s2(
-        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
-        *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, th, tw,
+        x.data_ptr(), y.data_ptr(), ik, ok,
+        *_params_ptrs(bp), n, h, w, c, e, p, *bp.acts, th, tw, si, so,
         _build.stream_ptr())
     fused_down_block.launches += 1
     if err:
@@ -661,17 +718,19 @@ def _chain_args(bps: List[BlockParams]):
 
 
 def launch_cascade(x: torch.Tensor, bps: List[BlockParams], out_dtype,
-                   tile: Tuple[int, int]) -> torch.Tensor:
+                   tile: Tuple[int, int], in_scale: Optional[float] = None,
+                   out_scale: Optional[float] = None) -> torch.Tensor:
     """One K4 launch at output tile ``tile`` on a checked CUDA tensor (the
     body of ``fused_cascade``, which counts it; the smoke test also times
     other tiles with it)."""
     n, h, w, _ = x.shape
-    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=out_dtype,
+    ik, od, ok, si, so = _boundaries(x, out_dtype, in_scale, out_scale)
+    y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=od,
                     device=x.device)
     lib = build_cascade()
     err = lib.ffcnn_cascade(
-        x.data_ptr(), y.data_ptr(), _is_bf16(x.dtype), _is_bf16(out_dtype),
-        n, h, w, len(bps), *_chain_args(bps), *tile, _build.stream_ptr())
+        x.data_ptr(), y.data_ptr(), ik, ok, n, h, w, len(bps),
+        *_chain_args(bps), *tile, si, so, _build.stream_ptr())
     if err:
         raise RuntimeError("cascade launch failed: "
                            + lib.ffcnn_cascade_error_string(err).decode())
@@ -679,19 +738,23 @@ def launch_cascade(x: torch.Tensor, bps: List[BlockParams], out_dtype,
 
 
 def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  out_dtype: Optional[torch.dtype] = None,
+                  in_scale: Optional[float] = None,
+                  out_scale: Optional[float] = None) -> torch.Tensor:
     """A group of stride-1 blocks in one launch (K4), NHWC (N, H, W, C) ->
     (N, H, W, P of the last block) in ``out_dtype`` (default x's); the
-    boundaries inside the group stay float32.
+    boundaries inside the group stay float32; int8 boundaries at the
+    group's ends as ``fused_block``'s.
 
     CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return chain_plain(x, bps, out_dtype)
-    _check(x, bps, out_dtype)
+        return chain_plain(x, bps, out_dtype, in_scale=in_scale,
+                           out_scale=out_scale)
+    _check(x, bps, out_dtype, in_scale)
     _, h, w, _ = x.shape
     tile = check_chain_fits(h, w, bps)
-    y = launch_cascade(x, bps, out_dtype, tile)
+    y = launch_cascade(x, bps, out_dtype, tile, in_scale, out_scale)
     fused_cascade.launches += 1
     return y
 
@@ -735,7 +798,7 @@ def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
 
 fused_mega.launches = 0
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _load(name: str, entry: str, argtypes, errors: str) -> ctypes.CDLL:
@@ -752,7 +815,7 @@ def build() -> ctypes.CDLL:
     """Build (if needed) and load K1's library."""
     return _load("block_fused", "ffcnn_block_s1",
                  [_PTR, _PTR, _INT, _INT] + [_PTR] * 9 + [_INT] * 13
-                 + [_PTR], "ffcnn_block_error_string")
+                 + [_FLOAT, _FLOAT, _PTR], "ffcnn_block_error_string")
 
 
 @functools.cache
@@ -760,38 +823,51 @@ def build_down() -> ctypes.CDLL:
     """Build (if needed) and load K3's library."""
     return _load("block_down", "ffcnn_block_s2",
                  [_PTR, _PTR, _INT, _INT] + [_PTR] * 9 + [_INT] * 11
-                 + [_PTR], "ffcnn_down_error_string")
+                 + [_FLOAT, _FLOAT, _PTR], "ffcnn_down_error_string")
+
+
+# The C signatures of K4's and K5's entries (bench_chain.py loads other
+# builds of the same sources with them).
+CASCADE_ARGTYPES = ([_PTR, _PTR] + [_INT] * 6
+                    + [ctypes.POINTER(_INT), ctypes.POINTER(_PTR)]
+                    + [_INT, _INT, _FLOAT, _FLOAT, _PTR])
+MEGA_ARGTYPES = ([_PTR, _PTR] + [_INT] * 5
+                 + [ctypes.POINTER(_INT), ctypes.POINTER(_PTR)]
+                 + [_INT, _INT, _INT, _PTR])
 
 
 @functools.cache
 def build_cascade() -> ctypes.CDLL:
     """Build (if needed) and load K4's library."""
-    return _load("block_cascade", "ffcnn_cascade",
-                 [_PTR, _PTR] + [_INT] * 6 + [ctypes.POINTER(_INT),
-                                              ctypes.POINTER(_PTR)]
-                 + [_INT, _INT, _PTR], "ffcnn_cascade_error_string")
+    return _load("block_cascade", "ffcnn_cascade", CASCADE_ARGTYPES,
+                 "ffcnn_cascade_error_string")
 
 
 @functools.cache
 def build_mega() -> ctypes.CDLL:
     """Build (if needed) and load K5's library."""
-    return _load("block_mega", "ffcnn_mega",
-                 [_PTR, _PTR] + [_INT] * 5 + [ctypes.POINTER(_INT),
-                                              ctypes.POINTER(_PTR)]
-                 + [_INT, _INT, _INT, _PTR], "ffcnn_mega_error_string")
+    return _load("block_mega", "ffcnn_mega", MEGA_ARGTYPES,
+                 "ffcnn_mega_error_string")
 
 
 # ------------------------------------------------------------ entry points
 def run_blocks(x: torch.Tensor, run: FusedRun, bps: List[BlockParams],
                groups: Optional[List[List[FusedBlock]]] = None,
-               mid_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               mid_dtype: Optional[torch.dtype] = None,
+               quant=None) -> torch.Tensor:
     """A run's blocks group by group, as ``run_blocks_cs`` runs them: a
     group of several blocks is one K4 launch, a single block one K1 (stride
     1) or K3 (stride 2) launch.  ``groups``: ``cascade_groups(run, k)``
     (default one block a group).  The boundaries between groups are stored
     in ``mid_dtype`` (default x's; float32 with ``FFCNN_FUSED_STORE=f32``),
     the run's output in x's dtype.  ``bps``: the run's ``block_params``,
-    one per block, prepared once."""
+    one per block, prepared once.
+
+    ``quant``: an int8 plan (``quant.QuantPlan``).  A boundary between
+    groups that the plan marks int8 is stored as int8 codes at its scale
+    (requantized by the group before it, dequantized by the one after), as
+    ``run_blocks_cs`` does; per-channel plans have no scalar scale and keep
+    their boundaries in float.  The run's input and output stay float."""
     if len(bps) != len(run.blocks):
         raise ValueError(f"{len(bps)} block params for {len(run.blocks)} "
                          f"blocks")
@@ -799,32 +875,42 @@ def run_blocks(x: torch.Tensor, run: FusedRun, bps: List[BlockParams],
         groups = cascade_groups(run, 0)
     if [b for g in groups for b in g] != list(run.blocks):
         raise ValueError(f"groups {groups} do not partition run {run}")
-    final, i = x.dtype, 0
+    final, i, in_scale = x.dtype, 0, None
     for gi, g in enumerate(groups):
-        od = final if gi == len(groups) - 1 else (mid_dtype or final)
+        last = gi == len(groups) - 1
+        od = final if last else (mid_dtype or final)
+        out_scale = None
+        if not last and quant is not None \
+                and quant.blob_is_int8(g[-1].end + 1):
+            out_scale = quant.scalar_scale(g[-1].end + 1)
         gbps, i = bps[i:i + len(g)], i + len(g)
         if len(g) > 1:
-            x = fused_cascade(x, gbps, od)
+            x = fused_cascade(x, gbps, od, in_scale, out_scale)
         elif g[0].down:
-            x = fused_down_block(x, gbps[0], od)
+            x = fused_down_block(x, gbps[0], od, in_scale, out_scale)
         else:
-            x = fused_block(x, gbps[0], od)
+            x = fused_block(x, gbps[0], od, in_scale, out_scale)
+        in_scale = out_scale
     return x
 
 
 def apply_run(x: torch.Tensor, run: FusedRun, bps: List[BlockParams], *,
               groups: Optional[List[List[FusedBlock]]] = None,
               mega: bool = False,
-              mid_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              mid_dtype: Optional[torch.dtype] = None,
+              quant=None) -> torch.Tensor:
     """Run a chain of fused blocks on an NHWC blob.  ``mega``: the whole run
     in one K5 launch (every block stride 1; the caller routes the runs
     where the mega flag is set and ``mega_fits`` holds, as the JAX
-    ``apply_run`` does); else ``run_blocks`` with ``groups`` and
-    ``mid_dtype``.  ``bps``: the run's ``block_params``, one per block,
+    ``apply_run`` does; never with an int8 plan, which the JAX route
+    refuses); else ``run_blocks`` with ``groups``, ``mid_dtype`` and
+    ``quant``.  ``bps``: the run's ``block_params``, one per block,
     prepared once (the JAX ``apply_run(x, ir, params, run)`` gathers them
     inside its trace; eagerly that would cost copies every forward)."""
     if not mega:
-        return run_blocks(x, run, bps, groups, mid_dtype)
+        return run_blocks(x, run, bps, groups, mid_dtype, quant)
+    if quant is not None:
+        raise ValueError("the mega route takes no int8 plan")
     if len(bps) != len(run.blocks) or any(b.down for b in run.blocks):
         raise ValueError(f"the mega route takes one params per block and "
                          f"stride-1 blocks only, got {len(bps)} params for "

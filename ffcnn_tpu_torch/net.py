@@ -22,6 +22,14 @@ Modes:
   * ``fast``: bfloat16 blobs with float32 accumulation; BGR swap and
     normalize folded into conv-1; the fused inverted-residual runs go
     through the block kernels at every batch size.
+  * ``int8``: fast mode's dtype, fold and block runs under an int8 plan
+    (``quant.py``, from ``calibrate`` or ``set_quant_plan``; a first
+    ``detect_device`` without one calibrates on its first 8 frames): the
+    blobs the plan marks int8 are stored as int8 codes, the convs on them
+    run through the int8 conv kernel, and a run's interior int8 boundaries
+    go through K1/K3/K4 as codes.  No head chain runs, and no run takes the
+    mega route, as in the JAX package.  ``FFCNN_INT8_MINC``,
+    ``FFCNN_INT8_PERCH`` and ``FFCNN_INT8_PCT`` shape the calibration.
 
 Fast mode reads the JAX package's fusion flags once, when the Net is built:
 ``FFCNN_FUSED=0`` (the kill switch: no fused block run is planned, and the
@@ -45,9 +53,9 @@ in float32 and supersedes the fused head chains (K7);
 shortcut whose output has that width in float32, stage-locally, and drops
 every fused run (K1/K3/K4/K5, K7) that overlaps a forced layer.  The two
 compose by union.  A forced conv on the card runs with cuDNN's TF32 off.
-``FFCNN_CONV0_INT8=1`` (conv-1 in int8) is not ported: a fast Net refuses
-it.  A parity Net refuses ``FFCNN_PARITY_PRECISION=high`` (JAX's 3-pass
-bf16 convs; TF32 would be a different rounding, not the same one).
+``FFCNN_CONV0_INT8=1`` (conv-1 in int8) is not ported: a fast or int8 Net
+refuses it.  A parity Net refuses ``FFCNN_PARITY_PRECISION=high`` (JAX's
+3-pass bf16 convs; TF32 would be a different rounding, not the same one).
 
 YOLOv8 graphs (``[yolov8]`` heads, from ``yolov8.py``'s converter) decode
 by ``decode_head_v8``; a graph with no ``[yolo]`` head skips the
@@ -84,6 +92,7 @@ from .kernels.head_fused import check_fits, head_params, plan_head_runs
 from .ops.nms import NMSResult, nms, v8_nms_threshold
 from .ops.preprocess import letterbox, letterbox_params, letterbox_uint8
 from .ops.yolo import apply_arena_cap, arena_capacity, decode_heads
+from .quant import QuantPlan, quant_state
 from .tuning import get_flag
 
 # Demo defaults (ffcnn.c:556-557)
@@ -137,16 +146,17 @@ def float32_layers(ir: NetIR, fast: bool = True) -> Optional[frozenset]:
     return f32set
 
 
-def planned_runs(ir: NetIR, fast: bool = True):
+def planned_runs(ir: NetIR, fast: bool = True, int8: bool = False):
     """(block runs, head chains) a Net of ``ir`` plans, from the JAX
     package's flags as they stand: none in parity mode (``fast`` False);
     ``FFCNN_FUSED=0`` plans no block run, ``FFCNN_FUSED_HEADS=1`` the head
-    chains.  The float32 knobs drop runs as JAX's pipeline drops them:
-    ``FFCNN_HEAD_F32=1`` every head chain, ``FFCNN_F32_STAGES`` every run
-    that overlaps a forced layer."""
+    chains (never in int8 mode, ``int8``: a plan may make a chain's
+    interior blobs int8).  The float32 knobs drop runs as JAX's pipeline
+    drops them: ``FFCNN_HEAD_F32=1`` every head chain, ``FFCNN_F32_STAGES``
+    every run that overlaps a forced layer."""
     runs = plan_runs(ir) if fast and os.environ.get(
         "FFCNN_FUSED", "1") != "0" else []
-    heads = plan_head_runs(ir) if fast and os.environ.get(
+    heads = plan_head_runs(ir) if fast and not int8 and os.environ.get(
         "FFCNN_FUSED_HEADS", "0") == "1" else []
     if fast and get_flag("FFCNN_HEAD_F32", "0") == "1":
         heads = []
@@ -275,12 +285,11 @@ class _Pipeline:
 class Net:
     def __init__(self, ir: NetIR, params: Dict, *, mode: str = "fast",
                  topk: int = 128, device="cuda"):
-        if mode == "int8":
-            raise NotImplementedError("int8 mode is not ported yet "
-                                      "(ROADMAP M12)")
-        if mode not in ("fast", "parity"):
-            raise ValueError(f"mode must be 'fast' or 'parity', got {mode!r}")
-        fast = mode == "fast"
+        if mode not in ("fast", "parity", "int8"):
+            raise ValueError(f"mode must be 'fast', 'parity' or 'int8', got "
+                             f"{mode!r}")
+        # int8 mode is fast mode under an int8 plan
+        fast = mode in ("fast", "int8")
         if fast and get_flag("FFCNN_CONV0_INT8", "0") == "1":
             raise NotImplementedError("FFCNN_CONV0_INT8 (conv-1 in int8) is "
                                       "not ported yet")
@@ -300,7 +309,8 @@ class Net:
         # fast mode resolves the flags here, as the JAX Net does in its
         # constructor and when it traces a pipeline (FFCNN_FUSED=0: JAX's
         # runs_usable turns every run off)
-        self._fused_runs, self._head_runs = planned_runs(ir, fast)
+        self._fused_runs, self._head_runs = planned_runs(ir, fast,
+                                                         mode == "int8")
         # the float32 knobs (read here; JAX reads them at trace time), whose
         # runs planned_runs has dropped
         self._f32_layers = float32_layers(ir, fast)
@@ -317,7 +327,9 @@ class Net:
         casc = int(get_flag("FFCNN_FUSED_CASCADE", "0"))
         self._fused_groups = {r.start: cascade_groups(r, casc)
                               for r in self._fused_runs}
-        mega = os.environ.get("FFCNN_FUSED_MEGA", "0") != "0"
+        # (never in int8 mode: the JAX mega route refuses a plan)
+        mega = (os.environ.get("FFCNN_FUSED_MEGA", "0") != "0"
+                and mode != "int8")
         self._mega_runs = frozenset(
             r.start for r in self._fused_runs
             if mega and not any(b.down for b in r.blocks)
@@ -337,6 +349,8 @@ class Net:
         self._folded: Dict[tuple, tuple] = {}
         if self._can_fold_input():
             self._folded_params(DEFAULT_MEAN, DEFAULT_NORM)
+        # int8 mode's plan, from calibrate() or set_quant_plan()
+        self.quant: Optional[QuantPlan] = None
         # the buckets, keyed as JAX keys its pipelines (topk at index 3)
         self._pipelines: Dict[tuple, _Pipeline] = {}
         self.timeused: Dict[str, float] = {}
@@ -416,7 +430,7 @@ class Net:
         return roofline.layer_costs(
             self.ir, batch_size,
             dtype="f32" if self.mode == "parity" else "bf16",
-            fused_runs=runs or None,
+            fused_runs=runs or None, quant=self.quant,
             store_dtype="f32" if self._mid_dtype == torch.float32 else None)
 
     def profile_layers(self, batch=None, iters: int = 10):
@@ -432,6 +446,10 @@ class Net:
             batch = np.zeros((8, net_h, net_w, 3), np.uint8)
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(np.ascontiguousarray(batch))
+        if self.mode == "int8" and self.quant is None:
+            # the eager pipeline does not pass detect_device's
+            # self-calibration: calibrate here, on the same frames
+            self.calibrate(batch[:8].cpu().numpy())
         batch = batch.to(self.device)
         n, h, w, _ = batch.shape
         pipe = self._pipeline_for(h, w, DEFAULT_MEAN, DEFAULT_NORM)
@@ -455,8 +473,54 @@ class Net:
     # ------------------------------------------------------------- pipeline
     def _can_fold_input(self) -> bool:
         first = self.ir.layers[0]
-        return (self.mode == "fast" and first.type == LayerType.CONV
-                and first.groups == 1)
+        return (self.mode in ("fast", "int8")
+                and first.type == LayerType.CONV and first.groups == 1)
+
+    # ------------------------------------------------------------- int8 mode
+    def calibrate(self, images, mean=None, norm=None,
+                  min_channels: int = 32,
+                  percentile: Optional[float] = None) -> None:
+        """int8 mode: collect each blob's range from ``images`` (uint8 BGR,
+        (N, H, W, 3) at any letterboxable size) in a float32 forward on the
+        Net's device and install the plan they give (``quant.calibrate``),
+        as ``ffcnn_tpu/net.py::Net.calibrate`` does: ``FFCNN_INT8_MINC``
+        overrides ``min_channels``, ``FFCNN_INT8_PERCH=1`` makes the plan
+        per-channel, ``FFCNN_INT8_PCT`` clips the ranges to a percentile
+        (per-tensor plans only; an explicit ``percentile`` with
+        ``FFCNN_INT8_PERCH=1`` raises).  Drops every bucket."""
+        if self.mode != "int8":
+            raise ValueError("calibrate() applies to mode='int8'")
+        from .quant import calibrate as _calib
+        min_channels = int(get_flag("FFCNN_INT8_MINC", str(min_channels)))
+        per_channel = get_flag("FFCNN_INT8_PERCH", "0") == "1"
+        if per_channel and percentile is not None:
+            raise ValueError("percentile clip is per-tensor only "
+                             "(incompatible with FFCNN_INT8_PERCH=1)")
+        if percentile is None and not per_channel:
+            pct = get_flag("FFCNN_INT8_PCT", "")
+            percentile = float(pct) if pct else None
+        with torch.no_grad():
+            plan = _calib(self.ir, self.params, images,
+                          mean=tuple(mean or DEFAULT_MEAN),
+                          norm=tuple(norm or DEFAULT_NORM),
+                          min_channels=min_channels, percentile=percentile,
+                          per_channel=per_channel, device=self.device)
+        self._install(plan)
+
+    def set_quant_plan(self, plan: QuantPlan) -> None:
+        """Install a saved plan (``quant.load_plan``), its tensors moved to
+        the Net's device once, here.  Drops every bucket."""
+        if self.mode != "int8":
+            raise ValueError("set_quant_plan() applies to mode='int8'")
+        self._install(plan.to(self.device))
+
+    def _install(self, plan: QuantPlan) -> None:
+        # the plan's constants at the Net's dtype, made now: no forward (and
+        # no graph's capture) makes one
+        quant_state(plan, self.ir, self._dtype, self.device)
+        with self._lock:
+            self.quant = plan
+            self._pipelines.clear()
 
     def _folded_params(self, mean, norm):
         """Conv-1 with the input transform folded in, and the stem kernel's
@@ -514,7 +578,7 @@ class Net:
         net_w, net_h = ir.blobs[0].w, ir.blobs[0].h
         mean = tuple(float(v) for v in np.asarray(mean).reshape(3))
         norm = tuple(float(v) for v in np.asarray(norm).reshape(3))
-        with _tf32(self.mode == "fast"):
+        with _tf32(self.mode != "parity"):
             if self._can_fold_input() and mean == DEFAULT_MEAN:
                 params, c0 = self._folded_params(mean, norm)
                 x = letterbox_uint8(batch, net_w, net_h)
@@ -523,6 +587,7 @@ class Net:
                 x = letterbox(batch, net_w, net_h, mean, norm,
                               dtype=self._dtype)
             return forward_features(ir, params, x, input_dtype=self._dtype,
+                                    quant=self.quant,
                                     fused_runs=self._fused_runs,
                                     fused_params=self._fused_params,
                                     fused_groups=self._fused_groups,
@@ -561,6 +626,15 @@ class Net:
         waiting, and the bucket's graph replays; the call waits for the
         device nowhere (a batch's first call at a new size captures its
         graph, which synchronises)."""
+        if self.mode == "int8" and self.quant is None:
+            # self-calibration on the first frames (call calibrate() with a
+            # representative set for production), as the JAX Net does
+            frames = batch[:8]
+            if isinstance(frames, torch.Tensor):
+                frames = frames.cpu().numpy()
+            self.calibrate(np.asarray(frames),
+                           mean=tuple(np.asarray(mean).tolist()),
+                           norm=tuple(np.asarray(norm).tolist()))
         if isinstance(batch, torch.Tensor):
             batch = batch.to(self.device)
         else:
@@ -582,7 +656,12 @@ class Net:
         ``ffcnn_tpu/net.py::Net.warmup`` compiles them.  Defaults to the
         model's own input size.  ``topk_ladder=True`` also builds every K
         bucket parity mode's saturation retry can reach (topk * 4^i up to
-        the model's candidate count)."""
+        the model's candidate count).  An int8 Net needs its plan first:
+        calibrating on the zero probe frames would give useless scales."""
+        if self.mode == "int8" and self.quant is None:
+            raise RuntimeError(
+                "int8 mode: call calibrate(images) with representative "
+                "frames (or set_quant_plan) before warmup()")
         net_w, net_h = self.ir.blobs[0].w, self.ir.blobs[0].h
         max_k = self._max_candidates()
         ks = [None]
@@ -649,7 +728,7 @@ class Net:
         forward_raw``): the net_forward equivalent without postprocess."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x))
-        with _tf32(self.mode == "fast"):
+        with _tf32(self.mode != "parity"):
             return forward_features(self.ir, self.params,
                                     x.to(self.device, self._dtype))
 

@@ -1,5 +1,7 @@
 """Fused convolution ``act(conv(x, w) * scale + bias)`` on NHWC tensors, the
-PyTorch port of ``ffcnn_tpu/ops/conv.py::conv2d_fused``.
+PyTorch port of ``ffcnn_tpu/ops/conv.py::conv2d_fused``, and the int8 conv
+of an int8 plan (``conv2d_int8``, ``conv2d_int8_plain``; the kernel and its
+prepared parameters are in ``kernels/conv_int8.py``).
 
 The JAX package leaves this conv to XLA; here it goes to ``F.conv2d``
 (cuDNN on the card).  Darknet's group-major filter order is the order
@@ -41,3 +43,41 @@ def conv2d_fused(x: torch.Tensor, weights: torch.Tensor, scale: torch.Tensor,
     y = y.permute(0, 2, 3, 1)      # back to NHWC, no copy
     y = y * scale.float() + bias.float()
     return activate(y, act).to(x.dtype).contiguous()
+
+
+def _int8_params(xq, wq, x_scale, w_scale, bias, stride, pad, groups, act,
+                 out_scale):
+    from ..kernels.conv_int8 import prepare
+    wq = torch.as_tensor(wq).to(xq.device)
+    return prepare(wq, x_scale, w_scale, bias, stride=stride, pad=pad,
+                   groups=groups, act=act, out_scale=out_scale)
+
+
+def conv2d_int8_plain(xq: torch.Tensor, wq, x_scale, w_scale, bias, *,
+                      stride: int, pad: int, groups: int, act: int,
+                      out_scale=None, float_dtype=torch.bfloat16
+                      ) -> torch.Tensor:
+    """``ffcnn_tpu/ops/conv.py::conv2d_int8`` in plain PyTorch: int8 NHWC
+    ``xq`` at per-tensor ``x_scale`` (per-channel plans fold the input's
+    scales into ``wq`` and pass 1), int8 HWIO ``wq`` at per-filter
+    ``w_scale``; exact int32 accumulation, then ``act(acc * (w_scale *
+    x_scale) + bias)`` in float32, stored as ``float_dtype`` or, with
+    ``out_scale`` (a scalar or one a filter), requantized to int8."""
+    from ..kernels.conv_int8 import conv_int8_plain
+    return conv_int8_plain(xq, _int8_params(
+        xq, wq, x_scale, w_scale, bias, stride, pad, groups, act, out_scale),
+        float_dtype)
+
+
+def conv2d_int8(xq: torch.Tensor, wq, x_scale, w_scale, bias, *,
+                stride: int, pad: int, groups: int, act: int, out_scale=None,
+                float_dtype=torch.bfloat16) -> torch.Tensor:
+    """``conv2d_int8_plain``'s function through the int8 conv kernel
+    (``kernels/conv_int8.py``, ``csrc/conv_int8.cu``) for a CUDA ``xq``; a
+    CPU ``xq`` takes the plain version.  Prepares the parameters on each
+    call: the graph prepares them once (``kernels.conv_int8.prepare``) and
+    calls ``kernels.conv_int8.conv_int8``."""
+    from ..kernels.conv_int8 import conv_int8
+    return conv_int8(xq, _int8_params(
+        xq, wq, x_scale, w_scale, bias, stride, pad, groups, act, out_scale),
+        float_dtype)

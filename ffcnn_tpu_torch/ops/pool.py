@@ -36,7 +36,10 @@ def _padded_nchw(x: torch.Tensor, fs: int, stride: int, value: float):
 
 
 def maxpool2d(x: torch.Tensor, fs: int, stride: int) -> torch.Tensor:
-    """(N, H, W, C) centered max pool."""
+    """(N, H, W, C) centered max pool; int8 codes (an int8 plan's blobs)
+    pool through bfloat16, which holds every code exactly."""
+    if x.dtype == torch.int8:
+        return maxpool2d(x.to(torch.bfloat16), fs, stride).to(torch.int8)
     xp, oh, ow = _padded_nchw(x, fs, stride, float("-inf"))
     y = F.max_pool2d(xp, fs, stride)
     return y[:, :, :oh, :ow].permute(0, 2, 3, 1).contiguous()

@@ -21,9 +21,17 @@ here.  A K6 stem writes blob 1, which the run at layer 1 reads, as the
 plain model says.
 
 The constants are one H100 SXM's published peaks at 700 W (NVIDIA's data
-sheet; dense): 3.35 TB/s of HBM, 989 TFLOP/s bf16 on the tensor cores, 67
-TFLOP/s float32 outside them.  ``bench_block.Work.bound`` reads the same
-constants.  Pass your own for another card.
+sheet; dense): 3.35 TB/s of HBM, 989 TFLOP/s bf16 and 1,979 TOP/s int8 on
+the tensor cores, 67 TFLOP/s float32 outside them; and its int32 rate on
+the CUDA cores, which the data sheet does not list (see ``INT32_OP_S``).
+``bench_block.Work.bound`` reads the same constants.  Pass your own for
+another card.
+
+An int8 plan (``quant``) stores its int8 blobs and its quantized convs'
+weights at one byte, and prices the convs that run in int8 (the int8 conv
+kernel, outside the fused runs) at the int8 rates: dense ones on the
+tensor cores (``int8_ops``), depthwise ones on the CUDA cores
+(``int8_vpu_ops``).
 
 Used by ``Net.roofline_costs``/``Net.profile_layers`` (floor columns),
 ``cli roofline``/``cli profile`` and the bench's ``mfu``.
@@ -42,12 +50,20 @@ from .darknet.ir import LayerType, NetIR
 # cores.
 HBM_BYTES_S = 3.35e12
 TC_BF16_FLOP_S = 989e12
+TC_INT8_OP_S = 1979e12
 F32_FLOP_S = 67e12
+# int32 multiply-adds on the CUDA cores (a depthwise int8 conv): 64 int32
+# lanes an SM a clock (the Hopper architecture white paper: 16 INT32 units
+# in each of an SM's four partitions), 132 SMs at the H100 SXM's 1,980 MHz
+# boost clock, a multiply-add counted as two operations.
+INT32_OP_S = 132 * 64 * 2 * 1.98e9
 HBM_GBPS = HBM_BYTES_S / 1e9
 TC_TFLOPS_BF16 = TC_BF16_FLOP_S / 1e12
+TC_TOPS_INT8 = TC_INT8_OP_S / 1e12
 F32_TFLOPS = F32_FLOP_S / 1e12
+INT32_TOPS = INT32_OP_S / 1e12
 
-_BYTES = {"bf16": 2, "f32": 4, "uint8": 1}
+_BYTES = {"bf16": 2, "f32": 4, "uint8": 1, "int8": 1}
 
 
 def stored_bytes(w: int, h: int, c: int, batch: int, dtype: str) -> int:
@@ -62,6 +78,10 @@ class LayerCost:
     bytes_w: int                   # weights read (per dispatch)
     flops: int                     # 2 x MACs of dense convs (tensor cores)
     vpu_flops: int = 0             # 2 x MACs of depthwise convs (float32)
+    int8_ops: int = 0              # 2 x MACs of int8 dense convs (tensor
+    #                                cores), an int8 plan's
+    int8_vpu_ops: int = 0          # 2 x MACs of int8 depthwise convs
+    #                                (int32 on the CUDA cores)
 
     @property
     def bytes_total(self) -> int:
@@ -78,12 +98,17 @@ class LayerCost:
         """The depthwise FLOPs at the float32 rate."""
         return self.vpu_flops / tflops / 1e6
 
+    def int8_floor_us(self, tops: float = TC_TOPS_INT8,
+                      vpu_tops: float = INT32_TOPS) -> float:
+        """The int8 conv operations at their rates, the two in turn."""
+        return (self.int8_ops / tops + self.int8_vpu_ops / vpu_tops) / 1e6
+
     def floor_us(self, gbps: float = HBM_GBPS,
                  tflops: float = TC_TFLOPS_BF16,
                  vpu_tflops: float = F32_TFLOPS) -> float:
         """A layer cannot run faster than its slowest bound."""
         return max(self.hbm_floor_us(gbps), self.mxu_floor_us(tflops),
-                   self.vpu_floor_us(vpu_tflops))
+                   self.vpu_floor_us(vpu_tflops), self.int8_floor_us())
 
 
 def _conv_flops(ir: NetIR, li: int, batch: int) -> int:
@@ -102,11 +127,11 @@ def layer_costs(ir: NetIR, batch: int, dtype: str = "bf16",
     -- blobs interior to a run move nothing; the run's input read is
     attributed to its first layer and its output write to its last.
     ``store_dtype``: dtype of run boundary blobs (``FFCNN_FUSED_STORE``;
-    defaults to ``dtype``).  ``quant`` (an int8 plan) is not ported yet
-    (ROADMAP M12)."""
-    if quant is not None:
-        raise NotImplementedError("int8 plans are not ported yet "
-                                  "(ROADMAP M12)")
+    defaults to ``dtype``).  ``quant``: an int8 plan, as in the JAX model:
+    its int8 blobs and quantized weights at one byte; and (the port's
+    addition) the quantized convs outside the runs, which run in int8,
+    priced in ``int8_ops``/``int8_vpu_ops`` instead of ``flops``/
+    ``vpu_flops``."""
     store_dtype = store_dtype or dtype
     interior: Dict[int, object] = {}
     for r in (fused_runs or []):
@@ -117,8 +142,11 @@ def layer_costs(ir: NetIR, batch: int, dtype: str = "bf16",
         b = ir.blobs[bi]
         if b.c == 0:
             return 0
-        bdt = "uint8" if bi == 0 else (store_dtype if at_run_edge
-                                       else dtype)
+        if quant is not None and quant.blob_is_int8(bi):
+            bdt = "int8"
+        else:
+            bdt = "uint8" if bi == 0 else (store_dtype if at_run_edge
+                                           else dtype)
         return stored_bytes(b.w, b.h, b.c, batch, bdt)
 
     def weight_bytes(li: int) -> int:
@@ -127,6 +155,8 @@ def layer_costs(ir: NetIR, batch: int, dtype: str = "bf16",
             return 0
         icg = ir.blobs[li].c // l.groups
         n = l.fs * l.fs * icg * l.fn
+        if quant is not None and li in quant.weights:
+            return n + 4 * l.fn * 2        # int8, float32 scale and bias
         return n * (2 if dtype == "bf16" else 4) + 4 * l.fn * 2
 
     out: List[LayerCost] = []
@@ -140,6 +170,12 @@ def layer_costs(ir: NetIR, batch: int, dtype: str = "bf16",
                 vpu = f
             else:
                 flops = f
+            if quant is not None and li in quant.weights \
+                    and li not in interior:
+                out.append(LayerCost(
+                    li, blob_bytes(li) + blob_bytes(li + 1),
+                    weight_bytes(li), 0, 0, flops, vpu))
+                continue
         if li in interior:
             run = interior[li]
             acts = 0
@@ -181,7 +217,8 @@ def region_floor_us(costs: List[LayerCost], start: int, end: int,
     span = [c for c in costs if start <= c.index <= end]
     return max(sum(c.bytes_total for c in span) / gbps / 1e3,
                sum(c.flops for c in span) / tflops / 1e6,
-               sum(c.vpu_flops for c in span) / vpu_tflops / 1e6)
+               sum(c.vpu_flops for c in span) / vpu_tflops / 1e6,
+               sum(c.int8_floor_us() for c in span))
 
 
 def _stage_of(ir: NetIR, li: int) -> Tuple[int, int]:
@@ -216,10 +253,12 @@ def stage_costs(ir: NetIR, costs: List[LayerCost],
         cs = by_stage[st]
         out.append(StageCost(
             st, sum(c.bytes_total for c in cs),
-            sum(c.flops + c.vpu_flops for c in cs),
+            sum(c.flops + c.vpu_flops + c.int8_ops + c.int8_vpu_ops
+                for c in cs),
             max(sum(c.hbm_floor_us(gbps) for c in cs),
                 sum(c.mxu_floor_us(tflops) for c in cs),
-                sum(c.vpu_floor_us(vpu_tflops) for c in cs))))
+                sum(c.vpu_floor_us(vpu_tflops) for c in cs),
+                sum(c.int8_floor_us() for c in cs))))
     return out
 
 

@@ -20,14 +20,18 @@ them before /healthz goes green).
     python -m ffcnn_tpu_torch.serve --cfg models/yolo-fastest-xl.cfg \
         --weights yolo-fastest-xl.weights          # on the card
 
-``--device cpu`` serves from the CPU (tests).  Not ported yet, and refused:
-``--mode int8`` (ROADMAP M12), ``--artifact`` (M15), ``--dp`` (M14).
+``--device cpu`` serves from the CPU (tests).  ``--mode int8`` serves an
+int8 plan: ``--quant-plan PATH`` loads it where the file exists, else it is
+calibrated from ``--calib`` BMP frames and, with ``--quant-plan``, saved
+there (the JAX package's npz format, so either package's plan serves).  Not
+ported yet, and refused: ``--artifact`` (ROADMAP M15), ``--dp`` (M14).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -404,12 +408,20 @@ def make_server(service: DetectorService, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The server's command line."""
     ap = argparse.ArgumentParser(prog="python -m ffcnn_tpu_torch.serve")
     ap.add_argument("--cfg", required=True)
     ap.add_argument("--weights", required=True)
     ap.add_argument("--mode", choices=("fast", "parity", "int8"),
                     default="fast")
+    ap.add_argument("--calib", nargs="*", default=None,
+                    help="representative BMP frames for int8 calibration "
+                         "(needed with --mode int8 unless --quant-plan "
+                         "names a saved plan)")
+    ap.add_argument("--quant-plan", default=None,
+                    help="int8 calibration cache: loaded if it exists, "
+                         "else written after calibrating from --calib")
     ap.add_argument("--artifact", nargs="*", default=None,
                     help="not ported yet (ROADMAP M15)")
     ap.add_argument("--dp", action="store_true",
@@ -426,9 +438,35 @@ def main(argv=None) -> int:
     ap.add_argument("--cache-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="the card unless 'cpu' is asked for")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def load_net(args, error) -> Net:
+    """The Net ``args`` ask for, its int8 plan installed in int8 mode (as
+    ``ffcnn_tpu/serve.py::main`` installs it); ``error(message)`` for
+    arguments that cannot serve."""
+    if args.mode == "int8" and not (
+            args.calib or (args.quant_plan
+                           and os.path.exists(args.quant_plan))):
+        error("--mode int8 requires --calib <frame.bmp> [...] or an "
+              "existing --quant-plan")
+    net = Net.load(args.cfg, args.weights, mode=args.mode,
+                   cache_dir=args.cache_dir, device=args.device)
     if args.mode == "int8":
-        ap.error("--mode int8 is not ported yet (ROADMAP M12)")
+        from .quant import load_plan, save_plan
+        if args.quant_plan and os.path.exists(args.quant_plan):
+            net.set_quant_plan(load_plan(args.quant_plan, net.device))
+        else:
+            from .imageio.bmp import bmp_load
+            net.calibrate(np.stack([bmp_load(p) for p in args.calib]))
+            if args.quant_plan:
+                save_plan(args.quant_plan, net.quant)
+    return net
+
+
+def main(argv=None) -> int:
+    ap = parser()
+    args = ap.parse_args(argv)
     if args.artifact is not None:
         ap.error("--artifact is not ported yet (ROADMAP M15)")
     if args.dp:
@@ -438,8 +476,7 @@ def main(argv=None) -> int:
     except ValueError:
         ap.error(f"--warm-hw wants WxH integers, got {args.warm_hw}")
 
-    net = Net.load(args.cfg, args.weights, mode=args.mode,
-                   cache_dir=args.cache_dir, device=args.device)
+    net = load_net(args, ap.error)
     service = DetectorService(net, warm_hw=warm_hw)
     server = make_server(service, args.host, args.port)
     threading.Thread(target=service.warmup, daemon=True).start()

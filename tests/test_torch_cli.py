@@ -164,12 +164,33 @@ def test_roofline_prints_the_region_plan(monkeypatch, capsys):
     assert "runs:" not in out
 
 
+def test_detect_int8_equals_net(files, tmp_path, capsys, monkeypatch):
+    """``detect --mode int8`` (once refused) calibrates on its image and
+    prints Net.detect's lines under that calibration, its BMP drawn
+    (micro, its blobs of 8 channels and more int8: FFCNN_INT8_MINC=8)."""
+    import ffcnn_tpu_torch as pt
+    monkeypatch.setenv("FFCNN_INT8_MINC", "8")
+    image = files["images"][0]
+    text = _run(tcli.main, ["detect", image, "--cfg", MICRO, "--weights",
+                            files["micro"], "--mode", "int8", "--device",
+                            "cpu", "-o", str(tmp_path / "o.bmp")], capsys)
+    bgr = pt.bmp_load(image)
+    net = pt.load(MICRO, files["micro"], input_w=64, input_h=64,
+                  mode="int8", device="cpu")
+    dets = net.detect(bgr)
+    assert net.quant is not None and net.quant.weights
+    assert text.splitlines()[1:] == [
+        "score: %.2f, category: %2d, rect: (%3d %3d %3d %3d)"
+        % (d.score, d.class_id, int(d.x1), int(d.y1), int(d.x2), int(d.y2))
+        for d in dets]
+    assert os.path.getsize(tmp_path / "o.bmp") > 64 * 64 * 3
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["detect", "x.bmp", "--mode", "int8", "--device", "cpu"], "M12"),
     (["bench", "--dp", "--device", "cpu"], "M14"),
     (["bench", "--sp", "2", "--device", "cpu"], "M14"),
     (["export", "out.pt2"], "M15"),
-], ids=["int8", "dp", "sp", "export"])
+], ids=["dp", "sp", "export"])
 def test_unported_commands_name_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)

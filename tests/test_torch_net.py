@@ -158,8 +158,9 @@ def test_dump_and_modes():
     ir, tir, params = _model(MICRO, 64)
     net = pt.Net(tir, params, mode="parity", device="cpu")
     assert net.dump() == jt.Net(ir, params, mode="parity").dump()
-    with pytest.raises(NotImplementedError):
-        pt.Net(tir, params, mode="int8", device="cpu")
+    n8 = pt.Net(tir, params, mode="int8", device="cpu")
+    assert n8.dump() == net.dump() and n8.quant is None
+    assert n8._dtype == torch.bfloat16 and n8._can_fold_input()
     with pytest.raises(ValueError):
         pt.Net(tir, params, mode="turbo", device="cpu")
 

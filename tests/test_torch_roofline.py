@@ -127,8 +127,8 @@ def test_card_constants_are_one_copy():
 
 def test_model_flops_and_refusals():
     """xl's FLOPs an image at 320x320 (the bench's mfu numerator), the
-    dense depthwise split by hand on its stem and first depthwise, and the
-    int8 plan refused."""
+    dense depthwise split by hand on its stem and first depthwise, and an
+    int8 plan's operations."""
     ir = tparse(_cfg("yolo-fastest-xl"), 320, 320)
     costs = troof.layer_costs(ir, 1)
     l0 = ir.layers[0]
@@ -140,8 +140,18 @@ def test_model_flops_and_refusals():
     assert costs[dw].vpu_flops == 2 * ob.w * ob.h * ob.c * 9
     assert troof.model_flops(ir) == sum(c.flops + c.vpu_flops
                                         for c in costs) == 830_096_000
-    with pytest.raises(NotImplementedError, match="M12"):
-        troof.layer_costs(ir, 1, quant=object())
+    # an int8 plan (once refused) moves its unfused convs' operations to
+    # the int8 fields and keeps the total
+    import numpy as np
+    from ffcnn_tpu_torch import quant as tq
+    from ffcnn_tpu_torch.darknet.weights import zero_weights
+    plan = tq.build_plan(ir, zero_weights(ir), np.ones(len(ir.blobs)))
+    q = troof.layer_costs(ir, 1, quant=plan)
+    assert sum(c.flops + c.vpu_flops + c.int8_ops + c.int8_vpu_ops
+               for c in q) == 830_096_000
+    assert sum(1 for c in q if c.int8_ops or c.int8_vpu_ops) == \
+        len(plan.weights)
+    assert sum(c.bytes_total for c in q) < sum(c.bytes_total for c in costs)
 
 
 def test_net_roofline_costs_follow_its_plan(monkeypatch):

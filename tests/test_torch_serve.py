@@ -368,11 +368,12 @@ def test_detect_rejects_oversized_body(server):
 
 @pytest.mark.parametrize("args,item", [
     (["--dp"], "M14"), (["--artifact", "m.ffx"], "M15"),
-    (["--mode", "int8"], "M12")])
+    (["--mode", "int8"], "--calib")])
 def test_main_refuses_what_is_not_ported(args, item, capsys):
     """test_serve's --dp serving case has no counterpart yet: the port's
-    main refuses --dp, --artifact and --mode int8, naming the ROADMAP
-    item, before it loads anything."""
+    main refuses --dp and --artifact, naming the ROADMAP item, and --mode
+    int8 without a plan to serve (--calib frames or a saved --quant-plan),
+    as the JAX server does, before it loads anything."""
     with pytest.raises(SystemExit) as ei:
         serve.main(["--cfg", MICRO, "--weights", "absent.weights",
                     "--device", "cpu"] + args)

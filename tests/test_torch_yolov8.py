@@ -540,13 +540,29 @@ def test_candidates_fn_equals_jax(v8_64):
                                atol=1e-4 * np.abs(wb).max())
 
 
-# ------------------------------------------------- still refused, by name
-def test_int8_refused_on_v8(v8_64):
-    """int8 (tests/test_yolov8.py::test_int8_plan_on_v8) waits for M12."""
-    _, tir, _, tp = v8_64
-    with pytest.raises(NotImplementedError, match="M12"):
-        pt.Net(tir, tp, mode="int8", device="cpu")
+def test_int8_on_v8(v8_64):
+    """int8 on a v8 graph (tests/test_yolov8.py::test_int8_plan_on_v8):
+    the plan keeps the six box/cls 1x1 convs behind the concat routes and
+    the blobs that feed the decode float, as JAX's does; the calibrated
+    Net's plan has JAX's blobs and convs, and it detects."""
+    from ffcnn_tpu import quant as jq
+    from ffcnn_tpu_torch import quant as tq
+    ir, tir, params, tp = v8_64
+    img = (np.random.RandomState(3).rand(64, 64, 3) * 255).astype(np.uint8)
+    net = pt.Net(tir, tp, mode="int8", device="cpu")
+    net.calibrate(img[None])
+    blobs, convs = tq._head_protect(tir)
+    assert (blobs, convs) == jq._head_protect(ir) and len(convs) == 6
+    assert not set(net.quant.weights) & convs
+    assert not set(net.quant.blob_scale) & blobs
+    assert net.quant.weights and net.quant.blob_scale
+    want = jq.calibrate(ir, jbuild.params_to_pytree(params), img[None])
+    assert sorted(net.quant.blob_scale) == sorted(want.blob_scale)
+    assert sorted(net.quant.weights) == sorted(want.weights)
+    assert isinstance(net.detect(img), list)
 
+
+# ------------------------------------------------- still refused, by name
 
 @pytest.mark.parametrize("argv,item", [
     (["export", "out.pt2"], "M15"),            # test_export_artifact_v8
