@@ -159,6 +159,23 @@ K9.  Phases, each of which exits non-zero on failure:
      against ``Net.detect``.  Last, ``detect_device`` of both int8 nets at
      batch 1 and 64, bucket and eager, with host CPU and device time.
      Phase 10's bench runs its int8 gate and its informational int8 row.
+     Conv-1 in int8 (``FFCNN_CONV0_INT8=1``), its checks after phase 12's:
+     the int8 conv's uint8 mode against its plain version at xl's stem,
+     320x320 and 322x322, batch 64 (accumulators, float32 and bf16 outputs
+     bit for bit); the region Net under the flag (the uint8 mode once a
+     forward, K6 none), a replay's kernels equal to an eager run's, held to
+     the CPU by phase 4's tolerances; last, its time beside K6 and the
+     cuDNN stem (graph replays) and the region ``detect_device`` at batch
+     64 with and without the flag.
+ 13. export (``export.py``): xl's region fast Net at batch 1 and 64, the
+     parity Net and the int8 default Net (phase 12's plan) at batch 1, each
+     exported (time, ``.pt2`` size, its ``ffcnn::`` ops), loaded here and
+     held to ``Net.detect_device`` bit for bit on seeded frames, then all
+     four loaded in one fresh process that imports only the export module
+     (load time, ``verify_artifact``, its results against this process's:
+     bit for bit or within the probe tolerances, which is logged); each
+     artifact's replay (``ArtifactNet``, one CUDA graph) against the Net
+     bucket's, in turns.
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
@@ -171,7 +188,9 @@ launches are their wrappers' counts over phase 4's first detect on the
 region, cascade and mega paths, which builds the bucket; K1, K3 and K4
 also with their int8-boundary times; the int8 conv, its launches counted
 over phase 12's first int8 default detect, its times summed over xl's 29
-unfused int8 convs); the line before it is the card's name and power
+unfused int8 convs; its uint8 mode, conv-1 in int8, at xl's stem, its
+launches counted over the region Net's first detect under the flag);
+the line before it is the card's name and power
 limit; the last line of standard output is one JSON object with the
 device.
 """
@@ -536,6 +555,91 @@ def eager_bucket_times(nets, frames, dev) -> None:
                 log(f"[6] {tag} detect batch {nb}, bucket: events "
                     f"{row['bucket']:.3f} ms, {nb / row['bucket'] * 1e3:.1f}"
                     f" img/s")
+
+
+# each ffcnn:: op's module, its attribute there and its CUDA implementation
+OP_IMPLS = (("block_fused", "FUSED_BLOCK_OP", "_block_cuda"),
+            ("block_fused", "FUSED_DOWN_BLOCK_OP", "_down_cuda"),
+            ("block_fused", "FUSED_CASCADE_OP", "_cascade_cuda"),
+            ("block_fused", "FUSED_MEGA_OP", "_mega_cuda"),
+            ("conv0_fused", "CONV0_OP", "_conv0_cuda"),
+            ("head_fused", "HEAD_OP", "_head_cuda"),
+            ("nms", "NMS_OP", "_nms_cuda"),
+            ("conv_int8", "CONV_INT8_OP", "_conv_cuda"))
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """The wrappers call each kernel's CUDA implementation straight (the
+    ctypes launch, which counts it), leaving out the ``ffcnn::`` op's
+    dispatch: the A/B of what the ops cost on the eager path."""
+    import importlib
+    saved = []
+    for mod, op, impl in OP_IMPLS:
+        m = importlib.import_module(f"ffcnn_tpu_torch.kernels.{mod}")
+        saved.append((m, op, getattr(m, op)))
+        setattr(m, op, getattr(m, impl))
+    try:
+        yield
+    finally:
+        for m, op, fn in saved:
+            setattr(m, op, fn)
+
+
+def wall_us(fn, calls: int) -> float:
+    """Wall microseconds a call of ``fn`` over ``calls`` calls, one
+    synchronise at the end."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def dispatch_times(nets, frames, dev) -> dict:
+    """Phase 6, what the ``ffcnn::`` ops cost: the default and region
+    eager pipelines (``_Pipeline.run``) at batch 1 and 64 through the ops
+    and with the ops' dispatch left out (``direct_launches``), in turns
+    (ops, direct, direct, ops) by CUDA events, their launches counted
+    once; then one K2 call at batch 1, K 128 (a 0.01 ms kernel, so the
+    host sets the pace), as wall microseconds over 2,000 calls, three
+    times each way in turns."""
+    import torch
+    from ffcnn_tpu_torch.kernels import nms as knms
+    out = {}
+    for tag in ("default", "region"):
+        n = nets[tag]
+        for nb, iters in ((1, 50), (64, 20)):
+            batch = torch.from_numpy(np.resize(frames, (nb, 320, 320, 3))
+                                     ).to(dev)
+            pipe = bucket_of(n, batch)
+            eager = lambda: pipe.run(batch)
+            with direct_launches():
+                direct = [cuda_ms(eager, iters)]
+            ops = [cuda_ms(eager, iters)]
+            with direct_launches():
+                direct.append(cuda_ms(eager, iters))
+            ops.append(cuda_ms(eager, iters))
+            out[f"{tag}_{nb}"] = {"ops_ms": ops, "direct_ms": direct}
+            log(f"[6] {tag} eager pipeline batch {nb}, through the ops / "
+                f"direct launches, in turns: {ops[0]:.3f}, {ops[1]:.3f} / "
+                f"{direct[0]:.3f}, {direct[1]:.3f} ms")
+    boxes, scores, classes = (torch.from_numpy(t).to(dev)
+                              for t in nms_candidates(1, 128, SEED))
+    k2 = lambda: knms.nms_keep_mask(boxes, scores, classes, threshold=0.5)
+    ops, direct = [], []
+    for _ in range(3):
+        ops.append(wall_us(k2, 2000))
+        with direct_launches():
+            direct.append(wall_us(k2, 2000))
+    out["k2_us"] = {"ops": ops, "direct": direct}
+    log(f"[6] K2 one call batch 1 K 128, wall us through the op / direct: "
+        + ", ".join(f"{a:.1f}" for a in ops) + " / "
+        + ", ".join(f"{b:.1f}" for b in direct))
+    return out
 
 
 def match_fraction(dets, boxes, scores, classes, px: float,
@@ -1626,37 +1730,6 @@ def check_codes(label, got, want, pre=None) -> int:
     return err
 
 
-def graph_launch_ms(fn, iters: int = 20, reps: int = 10) -> float:
-    """Device ms a launch of ``fn``'s one kernel: ``iters`` calls captured
-    in one CUDA graph (after three warm-up calls on a side stream), the
-    graph replayed ``reps`` times between CUDA events, so no host time
-    falls between the launches.  Late in a run torch.profiler recorded no
-    device event for some windows of these short launches (a bare trace
-    of 5; one range of 29 in one trace, three traces in a row), so these
-    times do not come from it."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
-
-
 def load_int8(pt, wbytes, flags, device):
     """An int8 Net of xl at 320x320 built with ``flags`` set."""
     with environ(flags):
@@ -1764,7 +1837,7 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
         f"({time.perf_counter() - t0:.1f} s so far)")
     tim = {}
     for label, x, cvp, y in rows[:len(convs)]:
-        ms = graph_launch_ms(lambda: ci.conv_int8(x, cvp))
+        ms = bb.graph_launch_ms(lambda: ci.conv_int8(x, cvp))
         pms = cuda_ms(lambda: ci.conv_int8_plain(x, cvp), iters=2, warmup=1)
         n, oh, ow, f = y.shape
         fs, icg = cvp.fs, cvp.wq.shape[2]
@@ -2031,8 +2104,253 @@ def int8_times(i8, frames, dev) -> None:
     log(f"[12] phase 12 timings took {time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
+# Phase 12, conv-1 in int8 (FFCNN_CONV0_INT8=1) on the region Net: the
+# uint8 mode of the int8 conv at xl's stem, whose sizes these are (322: odd
+# output rows, 3 * 322 bytes a row), and one forward's launches under it (K6
+# gives way to it, as in JAX)
+C0Q_SIZES = (320, 322)
+C0Q_FLAGS = {**REGION_FLAGS, "FFCNN_CONV0_INT8": "1"}
+C0Q_COUNTS = {**WANT_COUNTS["region"], "K6": 0, "conv_int8": 1}
+
+
+def conv0q_phase(pt, counters, wbytes, frames) -> dict:
+    """Phase 12, conv-1 in int8, its checks (after phase 12's, before the
+    timing phases' traces): the uint8 mode against its plain version at
+    xl's layer 0 (the region Net's folded weights) at 320x320 and 322x322,
+    batch 64, its int32 accumulators and its float32 and bf16 outputs bit
+    for bit; the region Net under the flag: its first detect's launches (the
+    uint8 mode, no K6, the region path's others), a replay's kernels equal
+    to an eager run's, its heads and detections held to the CPU by phase
+    4's tolerances.  Returns what ``conv0q_times`` and the kernels line
+    take."""
     import torch
+    from ffcnn_tpu_torch.kernels import conv_int8 as ci
+    from ffcnn_tpu_torch.runtime import WARMUP_RUNS
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    qnet = load_net(pt, wbytes, C0Q_FLAGS, "cuda")
+    qcpu = load_net(pt, wbytes, C0Q_FLAGS, "cpu")
+    p0 = qnet._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[0][0]
+    l0 = qnet.ir.layers[0]
+    cases, worst = {}, 0.0
+    for size in C0Q_SIZES:
+        cp = ci.prepare_conv0(p0["weights"].permute(2, 3, 1, 0), p0["scale"],
+                              p0["bias"], h=size, w=size, stride=l0.stride,
+                              pad=l0.pad, act=l0.activation)
+        x = torch.randint(0, 256, (BATCH, size, size, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        for raw, dt in ((True, None), (False, torch.float32),
+                        (False, torch.bfloat16)):
+            got = ci.conv_int8(x, cp, dt or torch.bfloat16, raw)
+            want = ci.conv_int8_plain(x, cp, dt or torch.bfloat16, raw)
+            torch.cuda.synchronize()
+            same = got.shape == want.shape and torch.equal(got, want)
+            err = (got.double() - want.double()).abs().max().item() \
+                if got.shape == want.shape else float("inf")
+            log(f"[12] conv-1 int8 (the uint8 mode) {size}x{size} batch "
+                f"{BATCH} -> {tuple(got.shape[1:])} "
+                f"{'int32 accumulators' if raw else str(dt).split('.')[-1]}"
+                f": max|err| {err:.3e}, bit for bit required "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"conv-1 int8 at {size} disagrees with "
+                                     f"its plain version")
+            if not raw:
+                worst = max(worst, err)
+        cases[size] = (x, cp)
+    built = WARMUP_RUNS + 1
+    dets, counts = counted(counters, lambda: qnet.detect(frames))
+    log(f"[12] region + FFCNN_CONV0_INT8=1 detect batch {len(frames)}, its "
+        f"bucket built in the call: {sum(map(len, dets))} detections; "
+        f"launches " + " ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts["K2"] != built or any(counts[k] != v * built
+                                    for k, v in C0Q_COUNTS.items()):
+        raise AssertionError("the conv-1 int8 path did not run its kernels")
+    check_dets("conv-1 int8", dets)
+    check_replay("conv0_int8", qnet, counters, frames, dets, C0Q_COUNTS)
+    check_against_cpu("conv-1 int8 region", qnet, qcpu, frames, dets, 12)
+    log(f"[12] conv-1 int8 checks took {time.perf_counter() - t0:.1f} s")
+    return {"net": qnet, "cases": cases, "counts": counts, "err": worst}
+
+
+def conv0q_times(q, rnet, frames, dev) -> dict:
+    """Phase 12, conv-1 in int8, its timings: the uint8 mode at xl's stem,
+    batch 64, 320x320 and 322x322 (``graph_launch_ms``), beside K6 on the
+    same pixels and the default fast path's stem (cuDNN: the pixels cast to
+    bf16, ``conv2d_fused`` on the folded weights), its plain version by
+    events and its bound; then the region Net's ``detect_device`` at batch
+    64 with and without the flag, in turns.  Returns the kernels line's
+    entry."""
+    import torch
+    import ffcnn_tpu_torch as pt
+    from ffcnn_tpu_torch import bench_block as bb
+    from ffcnn_tpu_torch.kernels import conv0_fused as c0
+    from ffcnn_tpu_torch.kernels import conv_int8 as ci
+    from ffcnn_tpu_torch.ops.conv import conv2d_fused
+    params, c0p = rnet._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)
+    p0, l0 = params[0], rnet.ir.layers[0]
+    rows = {}
+    for size, (x, cp) in q["cases"].items():
+        ms = bb.graph_launch_ms(lambda: ci.conv_int8(x, cp))
+        pms = cuda_ms(lambda: ci.conv0_int8_plain(x, cp), iters=2, warmup=1)
+        k6 = bb.graph_launch_ms(lambda: c0.conv0_cs(x, c0p))
+        stem = bb.graph_launch_ms(lambda: conv2d_fused(
+            x.to(torch.bfloat16), p0["weights"], p0["scale"], p0["bias"],
+            stride=l0.stride, pad=l0.pad, groups=1, act=l0.activation))
+        n, oh, ow, f = BATCH, (size + 1) // 2, (size + 1) // 2, cp.filters
+        # the uint8 pixels, the bf16 output, the packed weight codes and
+        # eff and bias; not m128, which a kernel can compute from a
+        # pixel's distance to the border and the codes
+        nbytes = x.numel() + 2 * n * oh * ow * f + cp.wp.numel() + 8 * f
+        bound = int8_bound(nbytes, tc_ops=2 * n * oh * ow * f * 27)
+        rows[size] = (ms, pms, k6, stem, bound)
+        log(f"[12] conv-1 int8 {size}x{size} batch {BATCH}: kernel alone "
+            f"{ms:.4f} ms (a graph of 20 launches), K6 {k6:.4f} ms, the "
+            f"cuDNN stem (bf16 cast + conv2d_fused) {stem:.4f} ms, plain "
+            f"{pms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    xb = torch.from_numpy(frames).to(dev)
+    qnet = q["net"]
+    (a1, a2), (b1, b2) = turns(lambda: qnet.detect_device(xb),
+                               lambda: rnet.detect_device(xb), 10)
+    log(f"[12] region detect_device batch {BATCH}, bucket replays in turns: "
+        f"with FFCNN_CONV0_INT8=1 {a1:.3f}, {a2:.3f} ms; without (K6) "
+        f"{b1:.3f}, {b2:.3f} ms")
+    ms, pms, k6, stem, (bound, by) = rows[320]
+    return {"name": "conv_int8_u8", "route": "cuda",
+            "source": "ffcnn_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "ffcnn_tpu/ops/conv.py:54 (conv0_int8_from_u8, XLA's "
+                        "int8 conv)",
+            "launches": q["counts"]["conv_int8"], "max_abs_err": q["err"],
+            "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "k6_ms": k6, "cudnn_stem_ms": stem,
+            "ms_322": rows[322][0], "k6_ms_322": rows[322][2],
+            "detect_device_ms": (a1 + a2) / 2,
+            "region_detect_device_ms": (b1 + b2) / 2}
+
+
+# Phase 13: the artifacts exported (tag, the Net's flags, mode, batch)
+EXPORTS = (("region_fast_b1", "region", 1), ("region_fast_b64", "region",
+                                              BATCH),
+           ("parity_b1", "parity", 1), ("int8_default_b1", "int8", 1))
+# the fresh process that loads them: it imports only the export module,
+# loads and verifies each artifact, runs it on the seeded frames and saves
+# the results
+EXPORT_LOADER = """
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from ffcnn_tpu_torch import export as ex
+out = {}
+for tag, path in json.loads(sys.argv[2]).items():
+    t0 = time.perf_counter()
+    art = ex.load_exported(path)
+    load_s = time.perf_counter() - t0
+    ex.verify_artifact(art, name=tag)
+    res = art.call(np.load(path + ".frames.npy"))
+    torch.save([t.cpu() for t in res], path + ".res.pt")
+    out[tag] = {"load_s": load_s, "ops": art.meta["custom_ops"]}
+out["modules"] = sorted(m for m in sys.modules if m in (
+    "ffcnn_tpu_torch.net", "ffcnn_tpu_torch.graph.build",
+    "ffcnn_tpu_torch.darknet.cfg") or m.split(".")[0] in ("jax",
+                                                         "ffcnn_tpu"))
+print("LOADER " + json.dumps(out))
+"""
+
+
+def export_phase(pt, nets, frames, dev) -> None:
+    """Phase 13: four artifacts of xl at 320x320 (``Net.export``): the
+    region fast Net at batch 1 and 64, parity at batch 1, int8 default at
+    batch 1 (phase 12's plan), each with its export time, its .pt2 size
+    and the ``ffcnn::`` ops in it; each loaded here and its detections on
+    seeded frames held to ``Net.detect_device`` bit for bit; then all
+    loaded in one fresh process that imports only
+    ``ffcnn_tpu_torch.export`` (its load times, ``verify_artifact`` on
+    each, the same frames' results, equal to this process's or within the
+    probe tolerances: which of the two is logged); last, each artifact's
+    replay (``ArtifactNet``, one CUDA graph) against the Net bucket's at
+    its batch, in turns."""
+    import torch
+    from ffcnn_tpu_torch import export as ex
+    from ffcnn_tpu_torch.runtime import to_detections
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, want, batches = {}, {}, {}
+        for tag, key, nb in EXPORTS:
+            net = nets[key]
+            path = paths[tag] = os.path.join(tmp, f"{tag}.pt2")
+            te = time.perf_counter()
+            size = net.export(path, batch_size=nb)
+            te = time.perf_counter() - te
+            batch = np.concatenate([frames[:1], rng.randint(
+                0, 256, (nb - 1, 320, 320, 3), dtype=np.uint8)])[:nb]
+            np.save(path + ".frames.npy", batch)
+            batches[tag] = batch
+            want[tag] = [t.cpu() for t in net.detect_device(batch)]
+            tl = time.perf_counter()
+            art = ex.load_exported(path)
+            tl = time.perf_counter() - tl
+            got = [t.cpu() for t in art.call(batch)]
+            same = all(torch.equal(a, b) for a, b in zip(got, want[tag]))
+            log(f"[13] {tag}: exported in {te:.2f} s, {size} bytes, ops "
+                f"{art.meta['custom_ops']}; loaded here in {tl:.2f} s; its "
+                f"detections on {nb} seeded frames equal Net.detect_device's"
+                f" bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: the artifact differs from the "
+                                     f"Net in the same process")
+        res = subprocess.run(
+            [sys.executable, "-c", EXPORT_LOADER, REPO, json.dumps(paths)],
+            capture_output=True, text=True, timeout=300, cwd=tmp)
+        if res.returncode != 0:
+            raise AssertionError(f"the artifact loader failed:\n"
+                                 f"{res.stderr[-4000:]}")
+        line = next(ln for ln in res.stdout.splitlines()
+                    if ln.startswith("LOADER "))
+        info = json.loads(line[len("LOADER "):])
+        if info.pop("modules"):
+            raise AssertionError("the loader imported the graph builder")
+        for tag, path in paths.items():
+            got = torch.load(path + ".res.pt")
+            same = all(torch.equal(a, b) for a, b in zip(got, want[tag]))
+            gd = to_detections(ex.NMSResult(*got))
+            wd = to_detections(ex.NMSResult(*want[tag]))
+            close = all(len(g) == len(w) and all(
+                a.class_id == b.class_id
+                and abs(a.score - b.score) <= ex.PROBE_SCORE_ATOL
+                and max(abs(u - v) for u, v in zip(a[2:], b[2:]))
+                <= ex.PROBE_BOX_ATOL for a, b in zip(g, w))
+                for g, w in zip(gd, wd))
+            log(f"[13] {tag} in a fresh process (imports only the export "
+                f"module): loaded in {info[tag]['load_s']:.2f} s, golden "
+                f"probe verified; {sum(map(len, gd))} detections, "
+                + ("bit for bit with this process" if same else
+                   "within the probe tolerances of this process"
+                   if close else "OUTSIDE the probe tolerances"))
+            if not close:
+                raise AssertionError(f"{tag}: the fresh process differs")
+        # replays: the artifact's graph against the Net bucket's
+        for tag, key, nb in EXPORTS:
+            net = nets[key]
+            anet = ex.ArtifactNet([paths[tag]])
+            anet.warmup()
+            art = anet._arts[0]
+            xb = torch.from_numpy(batches[tag]).to(dev)
+            net.detect_device(xb)
+            (a1, a2), (b1, b2) = turns(lambda: anet._call(art, xb),
+                                       lambda: net.detect_device(xb), 20)
+            log(f"[13] {tag} batch {nb}: artifact replay {a1:.3f}, {a2:.3f} "
+                f"ms; the Net bucket's {b1:.3f}, {b2:.3f} ms (in turns)")
+    log(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
+def main() -> int:
+    import faulthandler
+    import torch
+    # a crash in native code (the CUDA runtime, the profiler, a kernel's
+    # host side) prints the Python stack that reached it
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2372,6 +2690,8 @@ def main() -> int:
     # 12, its checks: int8 mode (counted by torch.profiler, so here, before
     # the timings' traces); its detect_device timings run last
     i8 = int8_phase(pt, counters, wbytes, frames, v8)
+    # 12, conv-1 in int8 (FFCNN_CONV0_INT8=1), its checks likewise
+    c0q = conv0q_phase(pt, counters, wbytes, frames)
 
     # 6. timings (device time by CUDA events), bf16 as on the main paths
     bf16 = torch.bfloat16
@@ -2567,6 +2887,7 @@ def main() -> int:
             log("    " + line)
 
     eager_bucket_times(nets, frames, dev)
+    dispatch_times(nets, frames, dev)
     torch.cuda.synchronize()
     log(f"[6] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
@@ -2728,6 +3049,7 @@ def main() -> int:
     # plan's int8 boundaries
     int8_times(i8, frames, dev)
     kernels.append(int8_entry(i8))
+    kernels.append(conv0q_times(c0q, rnet, frames, dev))
     for name, key in (("block_fused_s1", "K1"), ("block_fused_s2", "K3"),
                       ("block_cascade", "K4")):
         ms, ms16, pms, (bound, by) = i8["blk"][key]
@@ -2735,6 +3057,9 @@ def main() -> int:
             int8_ms=ms, int8_bf16_boundaries_ms=ms16, int8_plain_ms=pms,
             int8_bound_ms=bound, int8_bound_by=by,
             int8_launches=sum(c[key] for c in i8["counts"].values()))
+    # 13. export: four artifacts, loaded here and in a fresh process
+    export_phase(pt, {"region": rnet, "parity": pnet,
+                      "int8": i8["nets"]["default"]}, frames, dev)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))

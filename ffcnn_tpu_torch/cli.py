@@ -11,6 +11,8 @@ reference main() (ffcnn.c:552-593) on PyTorch, on the card unless
     python -m ffcnn_tpu_torch.cli roofline [--batch N] [--size S|WxH]
     python -m ffcnn_tpu_torch.cli convert-v8 SD.pt [-o OUT] [--nc N] \
         [--scale n|s|m|l|x] [--size S] [--conf C]
+    python -m ffcnn_tpu_torch.cli export OUT.pt2 [--batch 1,2,...] \
+        [--size S] [--cfg FILE] [--weights FILE] [--mode M] [--device cpu]
 
 Output format (scores, categories, int-cast rects, drawn rectangles, timing
 line) matches the reference demo and the JAX package's CLI, so the three
@@ -19,8 +21,12 @@ are diffable.  ``convert-v8`` turns a YOLOv8 state dict into ``OUT.cfg`` and
 those files.  ``--mode int8`` runs an int8 plan calibrated on the command's
 first frames (at most 8: the image for ``detect``, the first chunk for
 ``batch``, the batch for ``bench`` and ``profile``), as the JAX package's
-CLI does.  Not ported yet, refused by name: ``bench --dp``/``--sp``
-(ROADMAP M14), ``export`` (M15).
+CLI does.  ``export`` writes one ``torch.export`` artifact a batch size
+(``export.py``; ``--batch 1,2`` writes ``OUT.b1.pt2`` and ``OUT.b2.pt2``),
+each with its ``.meta.json`` sidecar, on the device the artifact will run
+on; in int8 mode its plan comes from ``--quant-plan`` (a saved plan) or is
+calibrated on ``--calib`` frames.  Not ported yet, refused by name:
+``bench --dp``/``--sp`` (ROADMAP M14).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ DEFAULT_CFG = os.path.join(REFERENCE, "yolo-fastest-1.1.cfg")
 DEFAULT_WEIGHTS = os.path.join(REFERENCE, "yolo-fastest-1.1.weights")
 
 # the commands that load a Net, and so need the card without --device cpu
-_DEVICE_COMMANDS = {"detect", "bench", "profile", "batch"}
+_DEVICE_COMMANDS = {"detect", "bench", "profile", "batch", "export"}
 
 
 def _add_model_args(p):
@@ -178,6 +184,27 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """One artifact a batch size (``ffcnn_tpu/cli.py::cmd_export``); a list
+    of batch sizes suffixes each file ``.b{n}``."""
+    net = _load(args, args.size, args.size)
+    if args.mode == "int8":
+        from .quant import load_plan
+        if args.quant_plan:
+            net.set_quant_plan(load_plan(args.quant_plan, net.device))
+        else:
+            net.calibrate(np.stack([bmp_load(p) for p in args.calib]))
+    size = None if args.size == 0 else (args.size, args.size)
+    batches = [int(b) for b in str(args.batch).split(",")]
+    for b in batches:
+        stem, ext = os.path.splitext(args.out)
+        out = args.out if len(batches) == 1 else f"{stem}.b{b}{ext}"
+        n = net.export(out, batch_size=b, image_size=size)
+        print(f"wrote {out}: {n} bytes (batch {b}, device "
+              f"{net.device.type})")
+    return 0
+
+
 def cmd_convert_v8(args) -> int:
     """YOLOv8 state dict -> ``<out>.cfg`` and ``<out>.weights``
     (``yolov8.py``), on the host only, as ``ffcnn_tpu/cli.py::
@@ -270,11 +297,16 @@ def main(argv=None) -> int:
     _add_model_args(pf)
     pf.set_defaults(mode="fast")
 
-    pe = sub.add_parser("export", help="not ported yet (ROADMAP M15)")
-    pe.add_argument("out", help="artifact output path")
-    pe.add_argument("--batch", default="1")
+    pe = sub.add_parser("export", help="write torch.export artifacts of the "
+                                       "pixels-to-boxes pipeline")
+    pe.add_argument("out", help="artifact output path (.pt2)")
+    pe.add_argument("--batch", default="1",
+                    help="batch size, or a comma list (one file each)")
     pe.add_argument("--size", type=int, default=0)
-    pe.add_argument("--platforms", default=None)
+    pe.add_argument("--calib", nargs="*", default=None,
+                    help="BMP frames to calibrate an int8 plan on")
+    pe.add_argument("--quant-plan", default=None,
+                    help="a saved int8 plan (quant.save_plan's npz)")
     _add_model_args(pe)
     pe.set_defaults(mode="fast")
 
@@ -317,8 +349,10 @@ def main(argv=None) -> int:
                     help="score threshold baked into the [yolov8] heads")
 
     args = ap.parse_args(argv)
-    if args.cmd == "export":
-        ap.error("export is not ported yet (ROADMAP M15)")
+    if args.cmd == "export" and args.mode == "int8" and not (
+            args.calib or args.quant_plan):
+        ap.error("export --mode int8 needs --calib <frame.bmp> [...] or "
+                 "--quant-plan")
     if args.cmd == "bench" and (args.dp or args.sp != 1):
         ap.error("--dp and --sp are not ported yet (ROADMAP M14)")
     if args.cmd in _DEVICE_COMMANDS and args.device == "cuda" \
@@ -327,7 +361,7 @@ def main(argv=None) -> int:
                  "--device cpu is given")
     return {"detect": cmd_detect, "dump": cmd_dump, "bench": cmd_bench,
             "profile": cmd_profile, "batch": cmd_batch,
-            "roofline": cmd_roofline,
+            "roofline": cmd_roofline, "export": cmd_export,
             "convert-v8": cmd_convert_v8}[args.cmd](args)
 
 

@@ -7,6 +7,19 @@
 // at a scalar or per-channel inv = 1 / out_scale; or (the check's raw mode)
 // the int32 accumulators themselves.
 //
+// A uint8 mode (the dense path) runs conv-1 straight off the raw pixels,
+// the port of ffcnn_tpu/ops/conv.py::conv0_int8_from_u8: each pixel is
+// shifted to a code by x ^ 0x80 (x - 128) as the A tile is gathered, a
+// tap outside the image reads code 0 in the shifted domain (JAX pads the
+// shifted input with zeros), and the epilogue adds back the shift exactly,
+//
+//   y = act((acc + m128[pixel, f]) * eff[f] + bias[f])
+//
+// where m128 = 128 * conv(ones, wq) counts each output pixel's in-bounds
+// taps (made once a Net and geometry by the wrapper).  Every term of
+// acc + m128 is an integer below 27 * 127 * 255 < 2^24, so the sum is
+// exact in float32 and the kernel equals its plain version bit for bit.
+//
 // Replaces the XLA convolution with int8 operands of
 // ffcnn_tpu/ops/conv.py::conv2d_int8 (lax.conv_general_dilated with
 // preferred_element_type=int32, which an int8 plan runs for every conv on
@@ -69,9 +82,10 @@ struct ConvArgs {
   const float* eff;
   const float* bias;
   const float* inv;
+  const float* m128;  // uint8 mode: (oh * ow, f), else null
   void* y;
   int n, h, w, c, f, k, stride, pad, groups, oh, ow, kp, ktot, act;
-  int out_kind, inv_vec;
+  int out_kind, inv_vec, x_u8;
 };
 
 // Output (m, o), m the pixel (image, oy, ox) in row-major order.
@@ -82,7 +96,10 @@ __device__ __forceinline__ void emit(const ConvArgs& a, size_t m, int o,
     static_cast<int*>(a.y)[at] = acc;
     return;
   }
-  float v = __fadd_rn(__fmul_rn((float)acc, a.eff[o]), a.bias[o]);
+  float s = (float)acc;
+  if (a.m128 != nullptr)  // the uint8 mode's shift, per pixel (exact)
+    s = __fadd_rn(s, a.m128[(m % ((size_t)a.oh * a.ow)) * a.f + o]);
+  float v = __fadd_rn(__fmul_rn(s, a.eff[o]), a.bias[o]);
   v = ffcnn_block::act(v, a.act);
   if (a.out_kind == kI8)
     ffcnn_block::store_q(static_cast<int8_t*>(a.y) + at, v,
@@ -119,8 +136,9 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // The dense path.  mode: how the A tile is gathered, 0 one 16-byte
-// cp.async a thread (C % 16 == 0, x 16-byte aligned), 1 four 4-byte loads
-// (C % 4 == 0), 2 sixteen byte loads.
+// cp.async a thread (C % 16 == 0, x 16-byte aligned, int8 x), 1 four
+// 4-byte loads (C % 4 == 0), 2 sixteen byte loads.  Modes 1 and 2 shift
+// uint8 pixels to codes (x ^ 0x80) as they load them.
 __global__ void __launch_bounds__(kThreads)
     conv_int8_dense_kernel(const __grid_constant__ ConvArgs a, int mode) {
   __shared__ __align__(16) int8_t as[2][kBM * kLd];
@@ -172,9 +190,11 @@ __global__ void __launch_bounds__(kThreads)
         const int8_t* src = ximg + ((size_t)iy * a.w + ix) * a.c + ci;
         if (step == 4)
           *reinterpret_cast<uint32_t*>(dst + j) =
-              ok ? *reinterpret_cast<const uint32_t*>(src) : 0u;
+              ok ? *reinterpret_cast<const uint32_t*>(src) ^
+                       (a.x_u8 ? 0x80808080u : 0u)
+                 : 0u;
         else
-          dst[j] = ok ? *src : (int8_t)0;
+          dst[j] = ok ? (int8_t)(*src ^ (a.x_u8 ? 0x80 : 0)) : (int8_t)0;
       }
     }
     cp_commit();
@@ -309,7 +329,8 @@ __global__ void __launch_bounds__(kEwThreads)
 
 extern "C" {
 
-// x (n, h, w, c) int8, contiguous.  wp: the packed int8 weights: groups ==
+// x (n, h, w, c) int8, contiguous; with x_u8, uint8 pixels (groups == 1
+// only) and m128 (oh * ow, f) float32, the uint8 mode.  wp: the packed int8 weights: groups ==
 // 1 (F, kp), K in (ky, kx, c) order, zero past k*k*c, kp a multiple of 32,
 // 16-byte aligned; depthwise (c == groups == f) with c % 4 == 0 (k, k, f),
 // x and wp 4-byte aligned; any other grouped conv (f, k, k, c / groups).  eff, bias: (f,) float32;
@@ -318,18 +339,20 @@ extern "C" {
 // accumulators (3).  Returns cudaErrorInvalidValue for arguments it cannot
 // take, else cudaGetLastError().
 int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
-                    const void* bias, const void* inv, int inv_vec, void* y,
-                    int out_kind, int n, int h, int w, int c, int f, int k,
-                    int stride, int pad, int groups, int oh, int ow, int kp,
-                    int act, void* stream) {
+                    const void* bias, const void* inv, int inv_vec,
+                    const void* m128, int x_u8, void* y, int out_kind, int n,
+                    int h, int w, int c, int f, int k, int stride, int pad,
+                    int groups, int oh, int ow, int kp, int act,
+                    void* stream) {
   if (groups < 1 || c < 1 || f < 1 || k < 1 || stride < 1 || pad < 0 ||
       c % groups || f % groups || out_kind < 0 || out_kind > 3 ||
-      (out_kind == 2 && inv == nullptr) || n < 0 || oh < 0 || ow < 0)
+      (out_kind == 2 && inv == nullptr) || n < 0 || oh < 0 || ow < 0 ||
+      (x_u8 && (groups != 1 || m128 == nullptr)))
     return (int)cudaErrorInvalidValue;
   ConvArgs a{(const int8_t*)x, (const int8_t*)wp, (const float*)eff,
-             (const float*)bias, (const float*)inv, y, n, h, w, c, f, k,
-             stride, pad, groups, oh, ow, kp, k * k * c, act, out_kind,
-             inv_vec};
+             (const float*)bias, (const float*)inv, (const float*)m128, y,
+             n, h, w, c, f, k, stride, pad, groups, oh, ow, kp, k * k * c,
+             act, out_kind, inv_vec, x_u8 ? 1 : 0};
   const long long rows = (long long)n * oh * ow;
   if (rows == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
@@ -337,7 +360,7 @@ int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
     if (kp % kBK || kp < k * k * c || (uintptr_t)wp % 16 ||
         (rows + kBM - 1) / kBM > 0x7fffffffLL || (f + kBN - 1) / kBN > 65535)
       return (int)cudaErrorInvalidValue;
-    const int mode = c % 16 == 0 && (uintptr_t)x % 16 == 0 ? 0
+    const int mode = !x_u8 && c % 16 == 0 && (uintptr_t)x % 16 == 0 ? 0
                      : c % 4 == 0 && (uintptr_t)x % 4 == 0 ? 1
                                                             : 2;
     const dim3 grid((unsigned)((rows + kBM - 1) / kBM), (f + kBN - 1) / kBN);

@@ -6,8 +6,9 @@ The reference walks its layer array with a refcount memory manager
 caching allocator reuses blob memory.  Fused runs of inverted-residual
 blocks go through ``kernels/block_fused.py`` (one launch per block, per
 cascade group or per run), fused head chains through
-``kernels/head_fused.py`` (one launch per chain), and the uint8 stem
-through ``kernels/conv0_fused.py``; every other layer is a plain PyTorch
+``kernels/head_fused.py`` (one launch per chain), the uint8 stem through
+``kernels/conv0_fused.py``, and conv-1 in int8 (``FFCNN_CONV0_INT8``)
+through the int8 conv's uint8 mode; every other layer is a plain PyTorch
 op.  Every dispatch runs under a ``torch.profiler.record_function`` range
 named as the JAX package's ``jax.named_scope`` (``L{li:03d}_{type}``,
 ``L{li:03d}_fusedrun_to_{end:03d}``, ``L{li:03d}_headrun_to_{end:03d}``,
@@ -156,7 +157,8 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                      fused_groups=None, mega_runs=(), fused_mid_dtype=None,
                      head_runs=None, head_params=None,
                      conv0_pallas: bool = False,
-                     conv0_params=None, f32_layers=None, quant=None,
+                     conv0_params=None, conv0_int8=None, f32_layers=None,
+                     quant=None,
                      start: int = 0, stop: Optional[int] = None,
                      blobs_in: Optional[Dict[int, torch.Tensor]] = None,
                      keep_blobs: Optional[List[int]] = None):
@@ -192,6 +194,15 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     by no route or shortcut); otherwise the normal path runs.
     ``conv0_params``: the stem's ``Conv0Params``, from the same (folded)
     ``params``.
+
+    ``conv0_int8``: conv-1 straight off uint8 ``x`` in int8
+    (``FFCNN_CONV0_INT8``): the uint8 mode's ``Int8Conv``
+    (``kernels.conv_int8.prepare_conv0``, on the folded weights and the
+    net's input geometry).  Taken where the JAX package's guard allows it
+    (``x`` uint8, a dense first conv, layer 0 not quantized by the plan,
+    blob 0 read by no route or shortcut), before the stem kernel, which it
+    then displaces, as in JAX.  The output is stored requantized where
+    the plan marks blob 1 int8.
 
     ``f32_layers``: a set of layer indices computed in float32, as JAX's
     ``run_layer`` computes them: a conv in the set casts its input to
@@ -238,22 +249,29 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     groups = fused_groups or {}
     head_map = {r.start: r for r in (head_runs or [])}
     l0 = ir.layers[0]
-    use_c0p = (conv0_pallas and start == 0 and x is not None
+
+    def reads_blob(bi):
+        return any(bi in (d + 1 for d in l.depends) for l in ir.layers
+                   if l.type in (LayerType.ROUTE, LayerType.SHORTCUT))
+
+    use_c0q = (conv0_int8 is not None and start == 0 and x is not None
+               and x.dtype == torch.uint8
+               and l0.type == LayerType.CONV and l0.groups == 1
+               and (quant is None or 0 not in quant.weights)
+               and not reads_blob(0))
+    use_c0p = (conv0_pallas and not use_c0q and start == 0 and x is not None
                and x.dtype == torch.uint8 and 1 in run_map
                and l0.type == LayerType.CONV and l0.groups == 1
                and l0.fs == 3 and l0.stride == 2 and l0.pad == 1
                and ir.blobs[0].w % 2 == 0 and ir.blobs[0].h % 2 == 0
                and (quant is None or (0 not in quant.weights
                                       and not quant.blob_is_int8(1)))
-               and not any(1 in (d + 1 for d in l.depends)
-                           for l in ir.layers
-                           if l.type in (LayerType.ROUTE,
-                                         LayerType.SHORTCUT)))
+               and not reads_blob(1))
     if use_c0p and stop <= run_map[1].end:
         raise ValueError(f"the stem (layer 0 into the fused run L1-"
                          f"L{run_map[1].end}) straddles the segment edge at "
                          f"layer {stop}")
-    if use_c0p or x is None:
+    if use_c0q or use_c0p or x is None:
         float_dtype = input_dtype or torch.float32
     else:
         if not torch.is_floating_point(x):
@@ -323,6 +341,9 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
     def run_layer(li, layer, inp):
         t = layer.type
         if t == LayerType.CONV:
+            if li == 0 and use_c0q:                  # conv-1 in int8
+                y = conv_int8(inp.contiguous(), conv0_int8, float_dtype)
+                return store(li + 1, y) if is_q(li + 1) else y
             if is_q(li) and li in quant.weights:     # the int8 conv
                 return conv_int8(inp, qs.convs[li], float_dtype)
             p = params[li]

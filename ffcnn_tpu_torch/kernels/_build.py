@@ -54,6 +54,15 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
+def source_hash() -> str:
+    """One hash of every kernel source, header and flag set: what an
+    artifact's sidecar records of the kernels it was exported with."""
+    key = hashlib.sha256()
+    for name in sources():
+        key.update(_library_path(name).name.encode())
+    return key.hexdigest()[:16]
+
+
 def sources() -> List[str]:
     """Every kernel source's name (``csrc/<name>.cu``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))

@@ -69,7 +69,7 @@ import torch
 from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
 from ..tuning import get_flag
-from . import _build
+from . import _build, _library
 
 # Input-channel gate of the JAX package, kept so both packages plan the same
 # runs.  It is a TPU crossover; the card's has not been measured.
@@ -635,19 +635,50 @@ def _boundaries(x, out_dtype, in_scale, out_scale):
             1.0 if out_scale is None else 1.0 / out_scale)
 
 
-def fused_block(x: torch.Tensor, bp: BlockParams,
-                out_dtype: Optional[torch.dtype] = None,
-                in_scale: Optional[float] = None,
-                out_scale: Optional[float] = None) -> torch.Tensor:
-    """One stride-1 block (K1), NHWC (N, H, W, C) -> (N, H, W, P) in
-    ``out_dtype`` (default x's, float32 or bfloat16).  int8 boundaries of an
-    int8 plan: ``in_scale`` takes int8 codes in (dequantized on load),
-    ``out_scale`` stores int8 codes (requantized at the store).
+# ----------------------------------------------------- the ffcnn:: ops
+# A block's params cross an op's schema as a list of its nine tensors and
+# its activations as ints; the implementations rebuild the BlockParams.
+_PARAM_NAMES = ("w1", "s1", "b1", "kdw", "s2", "b2", "w2", "s3", "b3")
 
-    CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
-    out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
-        return block_plain(x, bp, out_dtype, in_scale, out_scale)
+
+def _tensors(bps: List[BlockParams]) -> List[torch.Tensor]:
+    return [getattr(bp, nm) for bp in bps for nm in _PARAM_NAMES]
+
+
+def _meta(bps: List[BlockParams]) -> List[int]:
+    """5 ints a block: act1 act2 act3 residual res_act."""
+    return [v for bp in bps for v in (*bp.acts, int(bp.residual),
+                                      bp.res_act)]
+
+
+def _rebuild(ts: List[torch.Tensor], meta: List[int]) -> List[BlockParams]:
+    return [BlockParams(**dict(zip(_PARAM_NAMES, ts[9 * i:9 * i + 9])),
+                        acts=tuple(meta[5 * i:5 * i + 3]),
+                        residual=bool(meta[5 * i + 3]),
+                        res_act=meta[5 * i + 4])
+            for i in range(len(meta) // 5)]
+
+
+def _out_dtype(out_dtype, out_scale):
+    return torch.int8 if out_scale is not None else out_dtype
+
+
+def _fake(x, params, meta, out_dtype=None, in_scale=None, out_scale=None,
+          stride=1):
+    """Any block op's output: (N, H/stride, W/stride, P of the last
+    block), contiguous."""
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h // stride, w // stride, params[-3].shape[1]),
+                       dtype=_out_dtype(out_dtype or x.dtype, out_scale))
+
+
+def _block_cpu(x, params, meta, out_dtype, in_scale, out_scale):
+    return block_plain(x, _rebuild(params, meta)[0], out_dtype, in_scale,
+                       out_scale)
+
+
+def _block_cuda(x, params, meta, out_dtype, in_scale, out_scale):
+    bp = _rebuild(params, meta)[0]
     _check(x, [bp], out_dtype, in_scale)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
@@ -666,22 +697,37 @@ def fused_block(x: torch.Tensor, bp: BlockParams,
     return y
 
 
+_BLOCK_SCHEMA = ("(Tensor x, Tensor[] params, int[] meta, ScalarType "
+                 "out_dtype, float? in_scale, float? out_scale) -> Tensor")
+FUSED_BLOCK_OP = _library.define("fused_block" + _BLOCK_SCHEMA,
+                                 cpu=_block_cpu, cuda=_block_cuda, fake=_fake)
+
+
+def fused_block(x: torch.Tensor, bp: BlockParams,
+                out_dtype: Optional[torch.dtype] = None,
+                in_scale: Optional[float] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
+    """One stride-1 block (K1, ``ffcnn::fused_block``), NHWC (N, H, W, C)
+    -> (N, H, W, P) in ``out_dtype`` (default x's, float32 or bfloat16).
+    int8 boundaries of an int8 plan: ``in_scale`` takes int8 codes in
+    (dequantized on load), ``out_scale`` stores int8 codes (requantized at
+    the store).
+
+    CPU tensors take ``block_plain``; CUDA tensors launch the kernel."""
+    return FUSED_BLOCK_OP(x, _tensors([bp]), _meta([bp]),
+                          out_dtype or x.dtype, in_scale, out_scale)
+
+
 fused_block.launches = 0
 
 
-def fused_down_block(x: torch.Tensor, bp: BlockParams,
-                     out_dtype: Optional[torch.dtype] = None,
-                     in_scale: Optional[float] = None,
-                     out_scale: Optional[float] = None) -> torch.Tensor:
-    """One stride-2 block (K3), NHWC (N, H, W, C) -> (N, H/2, W/2, P) in
-    ``out_dtype`` (default x's); H and W must be even.  int8 boundaries as
-    ``fused_block``'s.
+def _down_cpu(x, params, meta, out_dtype, in_scale, out_scale):
+    return block_down_plain(x, _rebuild(params, meta)[0], out_dtype,
+                            in_scale, out_scale)
 
-    CPU tensors take ``block_down_plain``; CUDA tensors launch the
-    kernel."""
-    out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
-        return block_down_plain(x, bp, out_dtype, in_scale, out_scale)
+
+def _down_cuda(x, params, meta, out_dtype, in_scale, out_scale):
+    bp = _rebuild(params, meta)[0]
     _check(x, [bp], out_dtype, in_scale)
     n, h, w, c = x.shape
     e, p = bp.w1.shape[1], bp.w2.shape[1]
@@ -703,6 +749,25 @@ def fused_down_block(x: torch.Tensor, bp: BlockParams,
     return y
 
 
+FUSED_DOWN_BLOCK_OP = _library.define(
+    "fused_down_block" + _BLOCK_SCHEMA, cpu=_down_cpu, cuda=_down_cuda,
+    fake=lambda *a: _fake(*a, stride=2))
+
+
+def fused_down_block(x: torch.Tensor, bp: BlockParams,
+                     out_dtype: Optional[torch.dtype] = None,
+                     in_scale: Optional[float] = None,
+                     out_scale: Optional[float] = None) -> torch.Tensor:
+    """One stride-2 block (K3, ``ffcnn::fused_down_block``), NHWC (N, H, W,
+    C) -> (N, H/2, W/2, P) in ``out_dtype`` (default x's); H and W must be
+    even.  int8 boundaries as ``fused_block``'s.
+
+    CPU tensors take ``block_down_plain``; CUDA tensors launch the
+    kernel."""
+    return FUSED_DOWN_BLOCK_OP(x, _tensors([bp]), _meta([bp]),
+                               out_dtype or x.dtype, in_scale, out_scale)
+
+
 fused_down_block.launches = 0
 
 
@@ -721,8 +786,8 @@ def launch_cascade(x: torch.Tensor, bps: List[BlockParams], out_dtype,
                    tile: Tuple[int, int], in_scale: Optional[float] = None,
                    out_scale: Optional[float] = None) -> torch.Tensor:
     """One K4 launch at output tile ``tile`` on a checked CUDA tensor (the
-    body of ``fused_cascade``, which counts it; the smoke test also times
-    other tiles with it)."""
+    body of ``fused_cascade``'s op, which counts it; the smoke test also
+    times other tiles with it)."""
     n, h, w, _ = x.shape
     ik, od, ok, si, so = _boundaries(x, out_dtype, in_scale, out_scale)
     y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=od,
@@ -737,20 +802,13 @@ def launch_cascade(x: torch.Tensor, bps: List[BlockParams], out_dtype,
     return y
 
 
-def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
-                  out_dtype: Optional[torch.dtype] = None,
-                  in_scale: Optional[float] = None,
-                  out_scale: Optional[float] = None) -> torch.Tensor:
-    """A group of stride-1 blocks in one launch (K4), NHWC (N, H, W, C) ->
-    (N, H, W, P of the last block) in ``out_dtype`` (default x's); the
-    boundaries inside the group stay float32; int8 boundaries at the
-    group's ends as ``fused_block``'s.
+def _cascade_cpu(x, params, meta, out_dtype, in_scale, out_scale):
+    return chain_plain(x, _rebuild(params, meta), out_dtype,
+                       in_scale=in_scale, out_scale=out_scale)
 
-    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
-    out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
-        return chain_plain(x, bps, out_dtype, in_scale=in_scale,
-                           out_scale=out_scale)
+
+def _cascade_cuda(x, params, meta, out_dtype, in_scale, out_scale):
+    bps = _rebuild(params, meta)
     _check(x, bps, out_dtype, in_scale)
     _, h, w, _ = x.shape
     tile = check_chain_fits(h, w, bps)
@@ -759,14 +817,33 @@ def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
     return y
 
 
+FUSED_CASCADE_OP = _library.define("fused_cascade" + _BLOCK_SCHEMA,
+                                   cpu=_cascade_cpu, cuda=_cascade_cuda,
+                                   fake=_fake)
+
+
+def fused_cascade(x: torch.Tensor, bps: List[BlockParams],
+                  out_dtype: Optional[torch.dtype] = None,
+                  in_scale: Optional[float] = None,
+                  out_scale: Optional[float] = None) -> torch.Tensor:
+    """A group of stride-1 blocks in one launch (K4,
+    ``ffcnn::fused_cascade``), NHWC (N, H, W, C) -> (N, H, W, P of the last
+    block) in ``out_dtype`` (default x's); the boundaries inside the group
+    stay float32; int8 boundaries at the group's ends as ``fused_block``'s.
+
+    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
+    return FUSED_CASCADE_OP(x, _tensors(bps), _meta(bps),
+                            out_dtype or x.dtype, in_scale, out_scale)
+
+
 fused_cascade.launches = 0
 
 
 def launch_mega(x: torch.Tensor, bps: List[BlockParams],
                 cluster: int) -> torch.Tensor:
     """One K5 launch at ``cluster`` CTAs an image on a checked CUDA tensor
-    (the body of ``fused_mega``, which counts it; the smoke test also times
-    the other cluster size with it)."""
+    (the body of ``fused_mega``'s op, which counts it; the smoke test also
+    times the other cluster size with it)."""
     n, h, w, _ = x.shape
     th, tw = check_chain_fits(h, w, bps, mega=True, cluster=cluster)
     y = torch.empty((n, h, w, bps[-1].w2.shape[1]), dtype=x.dtype,
@@ -781,19 +858,29 @@ def launch_mega(x: torch.Tensor, bps: List[BlockParams],
     return y
 
 
-def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
-    """A whole run of stride-1 blocks in one launch (K5), NHWC (N, H, W, C)
-    -> (N, H, W, P of the last block) in x's dtype; every boundary stays
-    float32.
-
-    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return chain_plain(x, bps)
+def _mega_cuda(x, params, meta):
+    bps = _rebuild(params, meta)
     _check(x, bps, x.dtype)
+    # the cluster follows the batch: the fake output does not depend on it
     y = launch_mega(x, bps, mega_cluster(x.shape[1], x.shape[0],
                                          _build.sm_count(x.device)))
     fused_mega.launches += 1
     return y
+
+
+FUSED_MEGA_OP = _library.define(
+    "fused_mega(Tensor x, Tensor[] params, int[] meta) -> Tensor",
+    cpu=lambda x, params, meta: chain_plain(x, _rebuild(params, meta)),
+    cuda=_mega_cuda, fake=_fake)
+
+
+def fused_mega(x: torch.Tensor, bps: List[BlockParams]) -> torch.Tensor:
+    """A whole run of stride-1 blocks in one launch (K5,
+    ``ffcnn::fused_mega``), NHWC (N, H, W, C) -> (N, H, W, P of the last
+    block) in x's dtype; every boundary stays float32.
+
+    CPU tensors take ``chain_plain``; CUDA tensors launch the kernel."""
+    return FUSED_MEGA_OP(x, _tensors(bps), _meta(bps))
 
 
 fused_mega.launches = 0

@@ -26,7 +26,7 @@ import torch
 
 from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
-from . import _build
+from . import _build, _library
 
 # The kernel's compiled instances, (F, activation); any other pair takes
 # the generic instance (masked n8 tiles, the activation read at run time).
@@ -154,30 +154,22 @@ def conv0_plain(x: torch.Tensor, cp: Conv0Params,
     return activate(y, cp.act).to(out_dtype)
 
 
-def conv0_cs(x: torch.Tensor, cp: Conv0Params,
-             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """uint8 NHWC (N, H, W, 3), even H and W -> NHWC (N, H/2, W/2, F) in
-    ``out_dtype`` (float32 or bfloat16).
-
-    CPU tensors take ``conv0_plain``; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return conv0_plain(x, cp, out_dtype)
+def _conv0_cuda(x, wm, whi, wlo, scale, bias, act, out_dtype):
     if (x.device.type != "cuda" or x.dtype != torch.uint8 or x.dim() != 4
             or x.shape[-1] != 3 or not x.is_contiguous()):
         raise ValueError(f"x must be a contiguous uint8 (N, H, W, 3) CUDA "
                          f"tensor, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
     n, h, w, _ = x.shape
-    f = cp.wm.shape[1]
+    f = wm.shape[1]
     if h % 2 or w % 2:
         raise ValueError(f"the stem needs even H and W, got {h}x{w}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got "
                          f"{out_dtype}")
-    fp = cp.whi.shape[1]
-    for name, shape in (("whi", (32, fp)), ("wlo", (32, fp)),
-                        ("scale", (f,)), ("bias", (f,))):
-        t = getattr(cp, name)
+    fp = whi.shape[1]
+    for name, t, shape in (("whi", whi, (32, fp)), ("wlo", wlo, (32, fp)),
+                           ("scale", scale, (f,)), ("bias", bias, (f,))):
         if (t.device != x.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
@@ -189,20 +181,46 @@ def conv0_cs(x: torch.Tensor, cp: Conv0Params,
     y = torch.empty((n, h // 2, w // 2, f), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
-    pl = plan(n, h, w, f, cp.act, y.element_size(),
+    pl = plan(n, h, w, f, act, y.element_size(),
               _build.sm_count(x.device), x.data_ptr() % 16 == 0)
     lib = build()
     err = lib.ffcnn_conv0(x.data_ptr(), y.data_ptr(),
-                          int(out_dtype == torch.bfloat16), cp.whi.data_ptr(),
-                          cp.wlo.data_ptr(), cp.scale.data_ptr(),
-                          cp.bias.data_ptr(), n, h, w, f, cp.act, pl.inst_f,
-                          pl.inst_act, pl.rows, pl.cols, pl.ld,
-                          int(pl.aligned), pl.grid, _build.stream_ptr())
+                          int(out_dtype == torch.bfloat16), whi.data_ptr(),
+                          wlo.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                          n, h, w, f, act, pl.inst_f, pl.inst_act, pl.rows,
+                          pl.cols, pl.ld, int(pl.aligned), pl.grid,
+                          _build.stream_ptr())
     conv0_cs.launches += 1
     if err:
         raise RuntimeError("stem launch failed: "
                            + lib.ffcnn_conv0_error_string(err).decode())
     return y
+
+
+def _conv0_cpu(x, wm, whi, wlo, scale, bias, act, out_dtype):
+    return conv0_plain(x, Conv0Params(wm=wm, scale=scale, bias=bias,
+                                      act=act, whi=whi, wlo=wlo), out_dtype)
+
+
+def _conv0_fake(x, wm, whi, wlo, scale, bias, act, out_dtype):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h // 2, w // 2, wm.shape[1]), dtype=out_dtype)
+
+
+CONV0_OP = _library.define(
+    "conv0_cs(Tensor x, Tensor wm, Tensor whi, Tensor wlo, Tensor scale, "
+    "Tensor bias, int act, ScalarType out_dtype) -> Tensor",
+    cpu=_conv0_cpu, cuda=_conv0_cuda, fake=_conv0_fake)
+
+
+def conv0_cs(x: torch.Tensor, cp: Conv0Params,
+             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """uint8 NHWC (N, H, W, 3), even H and W -> NHWC (N, H/2, W/2, F) in
+    ``out_dtype`` (float32 or bfloat16), through ``ffcnn::conv0_cs``.
+
+    CPU tensors take ``conv0_plain``; CUDA tensors launch the kernel."""
+    return CONV0_OP(x, cp.wm, cp.whi, cp.wlo, cp.scale, cp.bias, cp.act,
+                    out_dtype)
 
 
 conv0_cs.launches = 0

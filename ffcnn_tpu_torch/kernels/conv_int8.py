@@ -1,6 +1,7 @@
 """The int8 convolution of an int8 plan: ``csrc/conv_int8.cu``'s wrapper
-(``conv_int8``), its plain PyTorch version (``conv_int8_plain``) and the
-parameters both take (``Int8Conv``, made once by ``prepare``).
+(``conv_int8``, the op ``ffcnn::conv_int8``), its plain PyTorch versions
+(``conv_int8_plain``, ``conv0_int8_plain``) and the parameters they take
+(``Int8Conv``, made once by ``prepare`` or ``prepare_conv0``).
 
 It replaces the XLA convolution with int8 operands in
 ``ffcnn_tpu/ops/conv.py::conv2d_int8``: int8 NHWC activations times int8
@@ -18,6 +19,15 @@ of 32; a depthwise conv's of C a multiple of 4 as (k, k, F); another
 grouped conv's as (F, k, k, C/groups)) and puts every tensor on the
 weights' device, so a forward makes none.
 
+The uint8 mode is conv-1 straight off the raw pixels
+(``FFCNN_CONV0_INT8=1``), the port of
+``ffcnn_tpu/ops/conv.py::conv0_int8_from_u8``: ``prepare_conv0`` quantizes
+the folded float32 weights per filter (``wscale = wmax / 127``, round half
+to even), and makes ``eff = wscale * scale`` and the shift's correction
+``m128 = 128 * conv(ones, wq)`` for one input geometry; the conv shifts
+each pixel to a code (``x ^ 0x80``) and adds ``m128`` back before the
+epilogue, exactly.
+
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.
 """
@@ -34,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.activations import activate
-from . import _build
+from . import _build, _library
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +60,9 @@ class Int8Conv:
     groups: int
     act: int
     kp: int                      # K padded to 32 (dense), else 0
+    # the uint8 mode's (OH * OW, F) float32 128 * conv(ones, wq), for one
+    # input geometry; None for int8 codes in
+    m128: Optional[torch.Tensor] = None
 
     @property
     def fs(self) -> int:
@@ -92,9 +105,44 @@ def prepare(wq: torch.Tensor, x_scale, w_scale, bias, *, stride: int,
         inv = torch.from_numpy(np.atleast_1d(inv).astype(np.float32)
                                ).to(dev)
     wp, kp = pack_weights(wq, groups)
-    return Int8Conv(wq=wq, wp=wp, eff=torch.from_numpy(eff).to(dev),
+    # contiguous: an exported program saves its constants whole
+    return Int8Conv(wq=wq.contiguous(), wp=wp,
+                    eff=torch.from_numpy(eff).to(dev),
                     bias=torch.from_numpy(_f32(bias)).to(dev), inv=inv,
                     stride=stride, pad=pad, groups=groups, act=act, kp=kp)
+
+
+def prepare_conv0(weights: torch.Tensor, scale, bias, *, h: int, w: int,
+                  stride: int, pad: int, act: int) -> Int8Conv:
+    """The uint8 mode's ``Int8Conv`` for a dense conv on (h, w) pixels of
+    ``weights`` (float32 HWIO (fs, fs, C, F), the input transform folded
+    in), as ``conv0_int8_from_u8`` quantizes them: per-filter ``wscale =
+    wmax / 127`` (1 for an all-zero filter), ``wq = round(w / wscale)``,
+    ``eff = wscale * scale`` in float32; ``m128`` counts each output
+    pixel's in-bounds taps, weighted by ``wq``, times 128."""
+    wf = torch.as_tensor(weights).float().contiguous()
+    dev = wf.device
+    wmax = wf.abs().amax(dim=(0, 1, 2))
+    wscale = torch.where(wmax > 0, wmax / 127.0, torch.ones_like(wmax))
+    wq = torch.round(wf / wscale).to(torch.int8)
+    ones = torch.ones((1, wf.shape[2], h, w), dtype=torch.float64,
+                      device=dev)
+    m = F.conv2d(ones, wq.permute(3, 2, 0, 1).double(), stride=stride,
+                 padding=pad)
+    fn = wq.shape[3]
+    m128 = (128.0 * m).permute(0, 2, 3, 1).reshape(-1, fn).float()
+    wp, kp = pack_weights(wq, 1)
+    eff = wscale * torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    return Int8Conv(wq=wq, wp=wp, eff=eff.contiguous(),
+                    bias=torch.as_tensor(bias, dtype=torch.float32,
+                                         device=dev).contiguous(),
+                    inv=None, stride=stride, pad=pad, groups=1, act=act,
+                    kp=kp, m128=m128.contiguous())
+
+
+def _shift(x_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels -> int8 codes x - 128, as ``x ^ 0x80`` reinterpreted."""
+    return torch.bitwise_xor(x_u8, 0x80).view(torch.int8)
 
 
 def conv_int8_plain(xq: torch.Tensor, cp: Int8Conv,
@@ -107,58 +155,137 @@ def conv_int8_plain(xq: torch.Tensor, cp: Int8Conv,
     half to even.  The conv runs in float64, whose products and sums of int8
     codes are exact integers (float32 would round sums past 2^24, 127^2 * K
     for K above about 1,040)."""
+    if xq.dtype == torch.uint8:
+        return conv0_int8_plain(xq, cp, float_dtype, raw)
     acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
                    cp.wq.permute(3, 2, 0, 1).double(), stride=cp.stride,
                    padding=cp.pad, groups=cp.groups)
     acc = acc.permute(0, 2, 3, 1).round().to(torch.int32).contiguous()
     if raw:
         return acc
-    y = activate(acc.float() * cp.eff + cp.bias, cp.act)
+    return _epilogue(acc.float(), cp, float_dtype)
+
+
+def _epilogue(acc: torch.Tensor, cp: Int8Conv, float_dtype):
+    y = activate(acc * cp.eff + cp.bias, cp.act)
     if cp.inv is None:
         return y.to(float_dtype)
     return torch.clamp(torch.round(y * cp.inv), -127, 127).to(torch.int8)
 
 
+def conv0_int8_plain(x_u8: torch.Tensor, cp: Int8Conv,
+                     float_dtype=torch.bfloat16, raw: bool = False
+                     ) -> torch.Tensor:
+    """The uint8 mode in plain PyTorch, uint8 NHWC (N, H, W, C) -> (N, OH,
+    OW, F): the int32 accumulators of the shifted codes (``raw``, as
+    ``conv_int8_plain`` accumulates them), else ``act((acc + m128) * eff +
+    bias)`` in float32, each step rounded, stored as ``float_dtype`` (or
+    int8 codes where ``cp.inv`` is set)."""
+    if cp.m128 is None:
+        raise ValueError("uint8 pixels need the uint8 mode's m128 "
+                         "(prepare_conv0)")
+    acc = conv_int8_plain(_shift(x_u8), dataclasses.replace(cp, m128=None),
+                          raw=True)
+    if raw:
+        return acc
+    n, oh, ow, fn = acc.shape
+    if tuple(cp.m128.shape) != (oh * ow, fn):
+        raise ValueError(f"m128 {tuple(cp.m128.shape)} was made for another "
+                         f"geometry than this ({oh}x{ow} outputs, {fn} "
+                         f"filters)")
+    return _epilogue(acc.float() + cp.m128.view(oh, ow, fn), cp,
+                     float_dtype)
+
+
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 
 
-def conv_int8(xq: torch.Tensor, cp: Int8Conv, float_dtype=torch.bfloat16,
-              raw: bool = False) -> torch.Tensor:
-    """The int8 conv, NHWC int8 (N, H, W, C) -> (N, OH, OW, F) in
-    ``float_dtype`` (float32 or bfloat16), int8 codes where ``cp.inv`` is
-    set, or with ``raw`` the int32 accumulators.
+def _out_dtype(float_dtype, inv, raw):
+    return torch.int32 if raw else (torch.int8 if inv is not None
+                                    else float_dtype)
 
-    CPU tensors take ``conv_int8_plain``; CUDA tensors launch the kernel."""
-    if xq.device.type == "cpu":
-        return conv_int8_plain(xq, cp, float_dtype, raw)
+
+def _out_hw(x, wq, stride, pad):
+    fs = wq.shape[0]
+    return tuple((v + 2 * pad - fs) // stride + 1 for v in x.shape[1:3])
+
+
+def _rebuild(wq, wp, eff, bias, inv, m128, stride, pad, groups, act, kp):
+    return Int8Conv(wq=wq, wp=wp, eff=eff, bias=bias, inv=inv,
+                    stride=stride, pad=pad, groups=groups, act=act, kp=kp,
+                    m128=m128)
+
+
+def _conv_cpu(x, wq, wp, eff, bias, inv, m128, stride, pad, groups, act, kp,
+              float_dtype, raw):
+    return conv_int8_plain(x, _rebuild(wq, wp, eff, bias, inv, m128, stride,
+                                       pad, groups, act, kp),
+                           float_dtype, raw)
+
+
+def _conv_fake(x, wq, wp, eff, bias, inv, m128, stride, pad, groups, act,
+               kp, float_dtype, raw):
+    oh, ow = _out_hw(x, wq, stride, pad)
+    return x.new_empty((x.shape[0], oh, ow, wq.shape[3]),
+                       dtype=_out_dtype(float_dtype, inv, raw))
+
+
+def _conv_cuda(xq, wq, wp, eff, bias, inv, m128, stride, pad, groups, act,
+               kp, float_dtype, raw):
     n, h, w, c = xq.shape
-    if (xq.device.type != "cuda" or xq.dtype != torch.int8
-            or not xq.is_contiguous() or c != cp.wq.shape[2] * cp.groups
-            or cp.wp.device != xq.device):
-        raise ValueError(f"xq must be a contiguous int8 NHWC CUDA tensor of "
-                         f"{cp.wq.shape[2] * cp.groups} channels beside the "
-                         f"weights, got {xq.dtype} {tuple(xq.shape)} on "
+    u8 = xq.dtype == torch.uint8
+    fn = wq.shape[3]
+    if (xq.device.type != "cuda" or xq.dtype not in (torch.int8, torch.uint8)
+            or not xq.is_contiguous() or c != wq.shape[2] * groups
+            or wp.device != xq.device):
+        raise ValueError(f"xq must be a contiguous int8 (or uint8) NHWC CUDA "
+                         f"tensor of {wq.shape[2] * groups} channels beside "
+                         f"the weights, got {xq.dtype} {tuple(xq.shape)} on "
                          f"{xq.device}")
-    out = torch.int32 if raw else (torch.int8 if cp.inv is not None
-                                   else float_dtype)
+    out = _out_dtype(float_dtype, inv, raw)
     if out not in _KINDS:
         raise ValueError(f"float_dtype must be float32 or bfloat16, got "
                          f"{float_dtype}")
-    oh, ow = ((v + 2 * cp.pad - cp.fs) // cp.stride + 1 for v in (h, w))
-    y = torch.empty((n, oh, ow, cp.filters), dtype=out, device=xq.device)
-    inv = cp.inv
+    oh, ow = _out_hw(xq, wq, stride, pad)
+    if u8 and (m128 is None or m128.device != xq.device
+               or m128.dtype != torch.float32 or not m128.is_contiguous()
+               or tuple(m128.shape) != (oh * ow, fn)):
+        raise ValueError(f"uint8 pixels need a contiguous float32 m128 of "
+                         f"{(oh * ow, fn)} on {xq.device} (prepare_conv0)")
+    y = torch.empty((n, oh, ow, fn), dtype=out, device=xq.device)
     lib = build()
     err = lib.ffcnn_conv_int8(
-        xq.data_ptr(), cp.wp.data_ptr(), cp.eff.data_ptr(),
-        cp.bias.data_ptr(), None if inv is None else inv.data_ptr(),
-        int(inv is not None and inv.numel() > 1), y.data_ptr(), _KINDS[out],
-        n, h, w, c, cp.filters, cp.fs, cp.stride, cp.pad, cp.groups, oh, ow,
-        cp.kp, cp.act, _build.stream_ptr())
+        xq.data_ptr(), wp.data_ptr(), eff.data_ptr(), bias.data_ptr(),
+        None if inv is None else inv.data_ptr(),
+        int(inv is not None and inv.numel() > 1),
+        m128.data_ptr() if u8 else None, int(u8), y.data_ptr(), _KINDS[out],
+        n, h, w, c, fn, wq.shape[0], stride, pad, groups, oh, ow, kp, act,
+        _build.stream_ptr())
     conv_int8.launches += 1
     if err:
         raise RuntimeError("int8 conv launch failed: "
                            + lib.ffcnn_conv_int8_error_string(err).decode())
     return y
+
+
+CONV_INT8_OP = _library.define(
+    "conv_int8(Tensor x, Tensor wq, Tensor wp, Tensor eff, Tensor bias, "
+    "Tensor? inv, Tensor? m128, int stride, int pad, int groups, int act, "
+    "int kp, ScalarType float_dtype, bool raw) -> Tensor",
+    cpu=_conv_cpu, cuda=_conv_cuda, fake=_conv_fake)
+
+
+def conv_int8(xq: torch.Tensor, cp: Int8Conv, float_dtype=torch.bfloat16,
+              raw: bool = False) -> torch.Tensor:
+    """The int8 conv (``ffcnn::conv_int8``), NHWC int8 (N, H, W, C) -> (N,
+    OH, OW, F) in ``float_dtype`` (float32 or bfloat16), int8 codes where
+    ``cp.inv`` is set, or with ``raw`` the int32 accumulators.  uint8
+    ``xq`` with ``cp.m128`` (``prepare_conv0``) is the uint8 mode.
+
+    CPU tensors take ``conv_int8_plain``; CUDA tensors launch the kernel."""
+    return CONV_INT8_OP(xq, cp.wq, cp.wp, cp.eff, cp.bias, cp.inv, cp.m128,
+                        cp.stride, cp.pad, cp.groups, cp.act, cp.kp,
+                        float_dtype, raw)
 
 
 conv_int8.launches = 0
@@ -170,8 +297,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the int8 conv's library."""
     lib = _build.load_library("conv_int8")
-    lib.ffcnn_conv_int8.argtypes = ([_PTR] * 5 + [_INT, _PTR] + [_INT] * 14
-                                    + [_PTR])
+    lib.ffcnn_conv_int8.argtypes = ([_PTR] * 5 + [_INT, _PTR, _INT, _PTR]
+                                    + [_INT] * 14 + [_PTR])
     lib.ffcnn_conv_int8.restype = _INT
     lib.ffcnn_conv_int8_error_string.argtypes = [_INT]
     lib.ffcnn_conv_int8_error_string.restype = ctypes.c_char_p

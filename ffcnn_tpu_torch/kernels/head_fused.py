@@ -31,7 +31,7 @@ import torch
 
 from ..darknet.ir import LayerType, NetIR
 from ..ops.activations import activate
-from . import _build
+from . import _build, _library
 
 # The JAX planner's per-chunk VMEM test, kept so both packages plan the same
 # runs (images per chunk it tries, and its f32 budget).
@@ -260,24 +260,22 @@ def head_plain(x: torch.Tensor, hp: HeadParams) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def apply_head_run(x: torch.Tensor, run: HeadRun,
-                   hp: HeadParams) -> torch.Tensor:
-    """NHWC input blob of layer ``run.start`` -> NHWC head tensor of blob
-    ``run.end + 1``, in x's dtype.  ``hp``: the run's ``head_params``,
-    prepared once.
+def _rebuild(x, w, scale, bias, meta) -> HeadParams:
+    """The HeadParams an op's flattened arguments describe, at x's map."""
+    stages = tuple(HeadStage("pw" if meta[5 * i] == 0 else "dw",
+                             meta[5 * i + 1], meta[5 * i + 2], w[i],
+                             scale[i], bias[i]) for i in range(len(w)))
+    return HeadParams(stages, x.shape[1], x.shape[2])
 
-    CPU tensors take ``head_plain``; CUDA tensors launch the kernel."""
-    if len(hp.stages) != run.end - run.start + 1:
-        raise ValueError(f"{len(hp.stages)} stages for run {run}")
-    if x.device.type == "cpu":
-        return head_plain(x, hp)
-    meta = _meta(hp)
+
+def _head_cuda(x, w, scale, bias, meta):
+    hp = _rebuild(x, w, scale, bias, meta)
     if (x.device.type != "cuda" or x.dim() != 4 or not x.is_contiguous()
             or x.dtype not in (torch.float32, torch.bfloat16)
-            or tuple(x.shape[1:]) != (hp.h, hp.w, meta[3])):
-        raise ValueError(f"x must be a contiguous (N, {hp.h}, {hp.w}, "
-                         f"{meta[3]}) float32/bfloat16 CUDA tensor, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+            or x.shape[3] != meta[3]):
+        raise ValueError(f"x must be a contiguous (N, H, W, {meta[3]}) "
+                         f"float32/bfloat16 CUDA tensor, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
     for st in hp.stages:
         for t in (st.w, st.scale, st.bias):
             if t.device != x.device or t.dtype != torch.float32 \
@@ -305,6 +303,33 @@ def apply_head_run(x: torch.Tensor, run: HeadRun,
         raise RuntimeError("head chain launch failed: "
                            + lib.ffcnn_head_error_string(err).decode())
     return y
+
+
+HEAD_OP = _library.define(
+    "head_run(Tensor x, Tensor[] w, Tensor[] scale, Tensor[] bias, "
+    "int[] meta) -> Tensor",
+    cpu=lambda x, w, scale, bias, meta: head_plain(
+        x, _rebuild(x, w, scale, bias, meta)),
+    cuda=_head_cuda,
+    fake=lambda x, w, scale, bias, meta: x.new_empty(
+        (*x.shape[:3], meta[-1])))
+
+
+def apply_head_run(x: torch.Tensor, run: HeadRun,
+                   hp: HeadParams) -> torch.Tensor:
+    """NHWC input blob of layer ``run.start`` -> NHWC head tensor of blob
+    ``run.end + 1``, in x's dtype, through ``ffcnn::head_run``.  ``hp``:
+    the run's ``head_params``, prepared once.
+
+    CPU tensors take ``head_plain``; CUDA tensors launch the kernel."""
+    if len(hp.stages) != run.end - run.start + 1:
+        raise ValueError(f"{len(hp.stages)} stages for run {run}")
+    if x.dim() != 4 or tuple(x.shape[1:3]) != (hp.h, hp.w):
+        raise ValueError(f"x must be (N, {hp.h}, {hp.w}, C), got "
+                         f"{tuple(x.shape)}")
+    return HEAD_OP(x, [st.w for st in hp.stages],
+                   [st.scale for st in hp.stages],
+                   [st.bias for st in hp.stages], _meta(hp))
 
 
 apply_head_run.launches = 0

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 
 def _iou(box: torch.Tensor, others: torch.Tensor, kind: str) -> torch.Tensor:
@@ -52,17 +52,7 @@ def keep_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
-                  classes: torch.Tensor, *, threshold: float,
-                  iou_kind: str = "min") -> torch.Tensor:
-    """boxes (N, K, 4) f32, scores (N, K) f32 sorted descending (0 = absent),
-    classes (N, K) int32 -> keep mask (N, K) bool.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if iou_kind not in ("min", "union"):
-        raise ValueError(f"iou_kind must be 'min' or 'union', got {iou_kind!r}")
-    if boxes.device.type == "cpu":
-        return keep_mask_plain(boxes, scores, classes, threshold, iou_kind)
+def _nms_cuda(boxes, scores, classes, threshold, union_iou):
     n, k = scores.shape
     for name, t, dt, shape in (("boxes", boxes, torch.float32, (n, k, 4)),
                                ("scores", scores, torch.float32, (n, k)),
@@ -78,13 +68,36 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     lib = build()
     err = lib.ffcnn_nms_keep(boxes.data_ptr(), scores.data_ptr(),
                              classes.data_ptr(), keep.data_ptr(), n, k,
-                             float(threshold), int(iou_kind == "union"),
+                             float(threshold), int(union_iou),
                              _build.stream_ptr())
     nms_keep_mask.launches += 1
     if err:
         raise RuntimeError("nms keep-mask launch failed: "
                            + lib.ffcnn_nms_error_string(err).decode())
     return keep
+
+
+NMS_OP = _library.define(
+    "nms_keep_mask(Tensor boxes, Tensor scores, Tensor classes, "
+    "float threshold, bool union_iou) -> Tensor",
+    cpu=lambda b, s, c, t, u: keep_mask_plain(b, s, c, t,
+                                              "union" if u else "min"),
+    cuda=_nms_cuda,
+    fake=lambda b, s, c, t, u: s.new_empty(s.shape, dtype=torch.bool))
+
+
+def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                  classes: torch.Tensor, *, threshold: float,
+                  iou_kind: str = "min") -> torch.Tensor:
+    """boxes (N, K, 4) f32, scores (N, K) f32 sorted descending (0 = absent),
+    classes (N, K) int32 -> keep mask (N, K) bool, through
+    ``ffcnn::nms_keep_mask``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if iou_kind not in ("min", "union"):
+        raise ValueError(f"iou_kind must be 'min' or 'union', got {iou_kind!r}")
+    return NMS_OP(boxes, scores, classes, float(threshold),
+                  iou_kind == "union")
 
 
 nms_keep_mask.launches = 0

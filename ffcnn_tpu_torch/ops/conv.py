@@ -1,7 +1,8 @@
 """Fused convolution ``act(conv(x, w) * scale + bias)`` on NHWC tensors, the
 PyTorch port of ``ffcnn_tpu/ops/conv.py::conv2d_fused``, and the int8 conv
-of an int8 plan (``conv2d_int8``, ``conv2d_int8_plain``; the kernel and its
-prepared parameters are in ``kernels/conv_int8.py``).
+of an int8 plan (``conv2d_int8``, ``conv2d_int8_plain``) and of conv-1
+straight off the uint8 pixels (``conv0_int8_from_u8``); the kernel and its
+prepared parameters are in ``kernels/conv_int8.py``.
 
 The JAX package leaves this conv to XLA; here it goes to ``F.conv2d``
 (cuDNN on the card).  Darknet's group-major filter order is the order
@@ -43,6 +44,27 @@ def conv2d_fused(x: torch.Tensor, weights: torch.Tensor, scale: torch.Tensor,
     y = y.permute(0, 2, 3, 1)      # back to NHWC, no copy
     y = y * scale.float() + bias.float()
     return activate(y, act).to(x.dtype).contiguous()
+
+
+def conv0_int8_from_u8(x_u8: torch.Tensor, weights, scale, bias, *,
+                       stride: int, pad: int, act: int,
+                       float_dtype=torch.bfloat16) -> torch.Tensor:
+    """``ffcnn_tpu/ops/conv.py::conv0_int8_from_u8``: a dense first conv on
+    raw uint8 NHWC pixels through the int8 conv's uint8 mode.  ``weights``
+    are the input-folded float32 HWIO weights (fs, fs, 3, F), as JAX takes
+    them, quantized per filter here; the pixels shift to codes x - 128 and
+    the shift is undone exactly in the epilogue, ``(acc + 128 M) * (wscale
+    * scale) + bias``, M counting each output pixel's in-bounds taps
+    (``kernels.conv_int8.prepare_conv0``).  Prepares the parameters on each
+    call: a ``Net`` prepares them once and calls
+    ``kernels.conv_int8.conv_int8``."""
+    from ..kernels.conv_int8 import conv_int8, prepare_conv0
+    w = torch.as_tensor(weights).to(x_u8.device)
+    cp = prepare_conv0(w, torch.as_tensor(scale).to(x_u8.device),
+                       torch.as_tensor(bias).to(x_u8.device),
+                       h=x_u8.shape[1], w=x_u8.shape[2], stride=stride,
+                       pad=pad, act=act)
+    return conv_int8(x_u8, cp, float_dtype)
 
 
 def _int8_params(xq, wq, x_scale, w_scale, bias, stride, pad, groups, act,

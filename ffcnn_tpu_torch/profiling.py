@@ -210,8 +210,8 @@ def _attribute_device(events):
     ``cudaMemcpyAsync``, ...), a host event; the event goes to the layer
     range whose host interval holds that call, the rest (launched outside
     every range) to -1.  The host interval, not the op tree, decides:
-    a kernel launched through ctypes has no op of its own, and its runtime
-    call sits on the thread as the range does."""
+    a kernel's runtime call is made through ctypes inside its ``ffcnn::``
+    op's CUDA implementation, on the thread the range is on."""
     ranges = _ranges(events)
     starts = [r[0] for r in ranges]
     launch = {e.id: e for e in events

@@ -23,8 +23,13 @@ them before /healthz goes green).
 ``--device cpu`` serves from the CPU (tests).  ``--mode int8`` serves an
 int8 plan: ``--quant-plan PATH`` loads it where the file exists, else it is
 calibrated from ``--calib`` BMP frames and, with ``--quant-plan``, saved
-there (the JAX package's npz format, so either package's plan serves).  Not
-ported yet, and refused: ``--artifact`` (ROADMAP M15), ``--dp`` (M14).
+there (the JAX package's npz format, so either package's plan serves).
+
+    python -m ffcnn_tpu_torch.serve --artifact m.b1.pt2 m.b2.pt2 ...
+
+serves ``cli export`` artifacts (``export.ArtifactNet``): no cfg, no
+weights file, no graph builder; the artifacts' golden probes must replay
+before /healthz goes green.  Not ported yet, and refused: ``--dp`` (M14).
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .imageio.bmp import bmp_decode
-from .net import Net
 
 
 class Overloaded(RuntimeError):
@@ -268,7 +272,10 @@ class DetectorService:
         # Probe at the model's own input size: each distinct request image
         # size still builds its own bucket lazily on first use, but the
         # common case (images at/near net dims) is hot at ready time.
-        self._probe_hw = probe_hw or (net.ir.blobs[0].h, net.ir.blobs[0].w)
+        # (an ArtifactNet has fixed shapes and gives its input_hw)
+        self._probe_hw = probe_hw or (
+            net.input_hw if hasattr(net, "input_hw")
+            else (net.ir.blobs[0].h, net.ir.blobs[0].w))
         # Warm every batch bucket the batcher can emit (1,2,4,...,max_batch):
         # otherwise the first concurrent burst after /healthz goes green pays
         # a graph capture per new bucket.
@@ -411,8 +418,10 @@ def make_server(service: DetectorService, host: str = "127.0.0.1",
 def parser() -> argparse.ArgumentParser:
     """The server's command line."""
     ap = argparse.ArgumentParser(prog="python -m ffcnn_tpu_torch.serve")
-    ap.add_argument("--cfg", required=True)
-    ap.add_argument("--weights", required=True)
+    ap.add_argument("--cfg", default=None,
+                    help="the model's cfg (needed without --artifact)")
+    ap.add_argument("--weights", default=None,
+                    help="its weights (needed without --artifact)")
     ap.add_argument("--mode", choices=("fast", "parity", "int8"),
                     default="fast")
     ap.add_argument("--calib", nargs="*", default=None,
@@ -423,7 +432,10 @@ def parser() -> argparse.ArgumentParser:
                     help="int8 calibration cache: loaded if it exists, "
                          "else written after calibrating from --calib")
     ap.add_argument("--artifact", nargs="*", default=None,
-                    help="not ported yet (ROADMAP M15)")
+                    help="serve from torch.export artifacts (cli export) "
+                         "instead of cfg/weights: the worker needs no model "
+                         "files and builds no graph; export buckets "
+                         "1,2,4,... up to the wanted max batch")
     ap.add_argument("--dp", action="store_true",
                     help="not ported yet (ROADMAP M14)")
     ap.add_argument("--warm-hw", nargs="*", default=(), metavar="WxH",
@@ -441,7 +453,7 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def load_net(args, error) -> Net:
+def load_net(args, error):
     """The Net ``args`` ask for, its int8 plan installed in int8 mode (as
     ``ffcnn_tpu/serve.py::main`` installs it); ``error(message)`` for
     arguments that cannot serve."""
@@ -450,6 +462,9 @@ def load_net(args, error) -> Net:
                            and os.path.exists(args.quant_plan))):
         error("--mode int8 requires --calib <frame.bmp> [...] or an "
               "existing --quant-plan")
+    from .net import Net
+    if not (args.cfg and args.weights):
+        error("--cfg and --weights are required without --artifact")
     net = Net.load(args.cfg, args.weights, mode=args.mode,
                    cache_dir=args.cache_dir, device=args.device)
     if args.mode == "int8":
@@ -467,14 +482,29 @@ def load_net(args, error) -> Net:
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.artifact is not None:
-        ap.error("--artifact is not ported yet (ROADMAP M15)")
     if args.dp:
         ap.error("--dp is not ported yet (ROADMAP M14)")
     try:
         warm_hw = tuple(parse_geometry(g) for g in args.warm_hw)
     except ValueError:
         ap.error(f"--warm-hw wants WxH integers, got {args.warm_hw}")
+
+    if args.artifact is not None:
+        if not args.artifact:
+            ap.error("--artifact needs at least one artifact path")
+        if warm_hw:
+            ap.error("--warm-hw only applies to cfg/weights workers; "
+                     "artifact workers have fixed input shapes (re-export "
+                     "at the wanted geometry instead)")
+        from .export import ArtifactNet
+        net = ArtifactNet(args.artifact)
+        service = DetectorService(net, max_batch=net.max_batch)
+        server = make_server(service, args.host, args.port)
+        threading.Thread(target=service.warmup, daemon=True).start()
+        print(f"serving {len(args.artifact)} artifact(s) on "
+              f"http://{args.host}:{server.server_address[1]}", flush=True)
+        server.serve_forever()
+        return 0
 
     net = load_net(args, ap.error)
     service = DetectorService(net, warm_hw=warm_hw)

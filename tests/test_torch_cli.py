@@ -189,9 +189,25 @@ def test_detect_int8_equals_net(files, tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["bench", "--dp", "--device", "cpu"], "M14"),
     (["bench", "--sp", "2", "--device", "cpu"], "M14"),
-    (["export", "out.pt2"], "M15"),
+    (["export", "out.pt2"], None),
 ], ids=["dp", "sp", "export"])
-def test_unported_commands_name_their_item(argv, item, capsys):
+def test_unported_commands_name_their_item(argv, item, files, tmp_path,
+                                           capsys):
+    """--dp and --sp are refused, naming ROADMAP M14.  ``export`` (M15) is
+    ported: it writes an artifact whose program reproduces the Net's
+    bucket, as tests/test_torch_export.py holds it in full."""
+    if item is None:
+        from ffcnn_tpu_torch import export as ex
+        out = str(tmp_path / argv[1])
+        assert tcli.main([argv[0], out, "--cfg", MICRO, "--weights",
+                          files["micro"], "--device", "cpu"]) == 0
+        assert capsys.readouterr().out.startswith(f"wrote {out}: ")
+        net = tcli.Net.load(MICRO, files["micro"], mode="fast",
+                            device="cpu")
+        x = np.zeros((1, 64, 64, 3), np.uint8)
+        got, want = ex.load_exported(out).call(x), net.detect_device(x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code != 0

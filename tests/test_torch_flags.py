@@ -132,13 +132,24 @@ def test_flags_at_their_defaults_leave_the_plans(monkeypatch, cfg, flags):
 
 def test_conv0_int8_is_refused_in_fast_mode(monkeypatch):
     """JAX quantizes conv-1 to int8 under FFCNN_CONV0_INT8=1 (fast mode,
-    folded input); the port refuses the flag there, and parity mode, which
-    JAX never folds, ignores it as JAX does."""
+    folded input); the port, which refused the flag before it had the int8
+    conv's uint8 mode, now takes it there too: the fast Net makes conv-1's
+    int8 params once and its forward runs conv-1 off the uint8 pixels
+    (tests/test_torch_conv0_int8.py holds it against JAX).  Parity mode,
+    which JAX never folds, ignores it as JAX does."""
     _, tir, params = _model(MICRO, 64)
     monkeypatch.setenv("FFCNN_CONV0_INT8", "1")
-    with pytest.raises(NotImplementedError, match="FFCNN_CONV0_INT8"):
-        pt.Net(tir, params, mode="fast", device="cpu")
-    pt.Net(tir, params, mode="parity", device="cpu")
+    net = pt.Net(tir, params, mode="fast", device="cpu")
+    assert net._folded_all(pt.DEFAULT_MEAN,
+                           pt.DEFAULT_NORM)[2].m128 is not None
+    seen, conv = [], tbuild.conv_int8
+    monkeypatch.setattr(tbuild, "conv_int8", lambda x, *a: seen.append(
+        x.dtype) or conv(x, *a))
+    heads = net.forward_heads(torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
+    assert seen == [torch.uint8] and all(torch.isfinite(h.float()).all()
+                                         for h in heads)
+    parity = pt.Net(tir, params, mode="parity", device="cpu")
+    assert not parity._conv0_int8
 
 
 @pytest.mark.parametrize("value", ["high", "HIGH"])

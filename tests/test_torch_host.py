@@ -8,6 +8,8 @@ import ast
 import dataclasses
 import glob
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -201,6 +203,32 @@ def test_scan_covers_the_cli_and_its_modules():
     for name in ("cli.py", "profiling.py", "roofline.py", "bench.py",
                  "imageio/loader.py", "yolov8.py"):
         assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
+
+
+def test_scan_covers_export_and_the_ops():
+    """The artifact module, the runtime it shares with net.py, the op
+    registry and the ops' namespace module are scanned."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in ("export.py", "runtime.py", "kernels/ops.py",
+                 "kernels/_library.py"):
+        assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
+
+
+@pytest.mark.parametrize("module", ["ffcnn_tpu_torch.kernels.ops",
+                                    "ffcnn_tpu_torch.export"])
+def test_ops_module_imports_no_graph_builder(module):
+    """An artifact loader imports the op registry (and the export module):
+    in a fresh interpreter neither pulls in the graph builder, net.py or
+    the cfg parser, nor jax or the JAX package."""
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import {module}; "
+            "print(sorted(m for m in sys.modules if m in ("
+            "'ffcnn_tpu_torch.graph.build', 'ffcnn_tpu_torch.net', "
+            "'ffcnn_tpu_torch.darknet.cfg') or m.split('.')[0] in ("
+            "'jax', 'ffcnn_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", _port_files(),

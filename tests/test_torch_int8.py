@@ -745,11 +745,35 @@ def test_serve_int8_plan_saved_and_reloaded(tmp_path):
         [[round(v, 2) for v in (d.x1, d.y1, d.x2, d.y2)] for d in want]
 
 
-def test_conv0_int8_flag_refused_in_int8_mode(monkeypatch):
+def test_conv0_int8_flag_refused_in_int8_mode(xl96, xl96_plan, monkeypatch):
     """``FFCNN_CONV0_INT8=1`` (conv-1 off the uint8 pixels in int8, an XLA
-    conv in the JAX package) is not ported: an int8 Net refuses it by
-    name, as a fast one does."""
-    _, tir, params = _model(MICRO, 64)
+    conv in the JAX package), which an int8 Net refused before the int8
+    conv had its uint8 mode, runs in int8 mode too: xl at 96x96 under one
+    plan, conv-1 through the uint8 mode (its output requantized where the
+    plan makes blob 1 int8) and the default runs, against JAX's forward
+    with ``conv0_int8`` and its runs in interpret mode: the heads by fast
+    mode's bounds."""
+    ir, tir, params = xl96
+    jplan, tplan = xl96_plan
+    frames = np.random.RandomState(12).randint(0, 256, (1, 96, 96, 3),
+                                               dtype=np.uint8)
     monkeypatch.setenv("FFCNN_CONV0_INT8", "1")
-    with pytest.raises(NotImplementedError, match="FFCNN_CONV0_INT8"):
-        pt.Net(tir, params, mode="int8", device="cpu")
+    net = pt.Net(tir, params, mode="int8", device="cpu")
+    net.set_quant_plan(tplan)
+    seen, conv = [], tbuild.conv_int8
+    monkeypatch.setattr(tbuild, "conv_int8", lambda x, *a: seen.append(
+        x.dtype) or conv(x, *a))
+    got = net.forward_heads(torch.from_numpy(frames))
+    assert seen[0] == torch.uint8 and seen.count(torch.uint8) == 1
+    want = jbuild.forward_features(
+        ir, _fold(ir, params), jpre.letterbox_uint8(jnp.asarray(frames),
+                                                    96, 96),
+        input_dtype=jnp.bfloat16, quant=jplan, fused_runs=jbf.plan_runs(ir),
+        fused_interpret=True, conv0_int8=True)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = g.float().numpy(), np.asarray(w).astype(np.float32)
+        scale = np.abs(w).max()
+        err = np.abs(g - w)
+        assert err.max() <= 2 ** -3 * scale, err.max() / scale
+        assert err.mean() <= 2 ** -8 * scale, err.mean() / scale

@@ -369,11 +369,63 @@ def test_detect_rejects_oversized_body(server):
 @pytest.mark.parametrize("args,item", [
     (["--dp"], "M14"), (["--artifact", "m.ffx"], "M15"),
     (["--mode", "int8"], "--calib")])
-def test_main_refuses_what_is_not_ported(args, item, capsys):
+def test_main_refuses_what_is_not_ported(args, item, capsys, tmp_path,
+                                         monkeypatch):
     """test_serve's --dp serving case has no counterpart yet: the port's
-    main refuses --dp and --artifact, naming the ROADMAP item, and --mode
-    int8 without a plan to serve (--calib frames or a saved --quant-plan),
-    as the JAX server does, before it loads anything."""
+    main refuses --dp, naming the ROADMAP item, and --mode int8 without a
+    plan to serve (--calib frames or a saved --quant-plan), as the JAX
+    server does, before it loads anything.  --artifact (M15) is ported: main
+    serves an exported artifact with no cfg or weights, goes healthy once
+    its golden probe replays, and answers POST /detect as the Net's bucket
+    does."""
+    if args[0] == "--artifact":
+        net, _ = _net()
+        art = str(tmp_path / args[1])
+        net.export(art, batch_size=1)
+        servers = []
+
+        def make(*a, **k):
+            servers.append(make_server(*a, **k))
+            return servers[-1]
+        monkeypatch.setattr(serve, "make_server", make)
+        th = threading.Thread(target=serve.main, args=(
+            ["--artifact", art, "--port", "0"],), daemon=True)
+        th.start()
+        try:
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                if servers:
+                    try:
+                        with urllib.request.urlopen(
+                                _url(servers[0], "/healthz"), timeout=5) as r:
+                            if r.status == 200:
+                                break
+                    except urllib.error.HTTPError:
+                        pass
+                time.sleep(0.2)
+            else:
+                raise AssertionError("the artifact server never went healthy")
+            img = np.random.RandomState(2).randint(0, 256, (64, 64, 3),
+                                                   dtype=np.uint8)
+            bmp = str(tmp_path / "req.bmp")
+            bmp_save(bmp, img)
+            with open(bmp, "rb") as f:
+                req = urllib.request.Request(_url(servers[0], "/detect"),
+                                             data=f.read(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = json.loads(r.read())["detections"]
+            # the artifact's top-k is sealed (no parity K-growth retry):
+            # the bucket's own result at the Net's K
+            want = net._to_detections(net.detect_device(img[None]))[0]
+            assert got == [{"score": round(d.score, 4),
+                            "class_id": d.class_id,
+                            "box": [round(v, 2) for v in d[2:]]}
+                           for d in want]
+        finally:
+            if servers:
+                servers[0].shutdown()
+            th.join(timeout=30)
+        return
     with pytest.raises(SystemExit) as ei:
         serve.main(["--cfg", MICRO, "--weights", "absent.weights",
                     "--device", "cpu"] + args)

@@ -565,14 +565,34 @@ def test_int8_on_v8(v8_64):
 # ------------------------------------------------- still refused, by name
 
 @pytest.mark.parametrize("argv,item", [
-    (["export", "out.pt2"], "M15"),            # test_export_artifact_v8
+    (["export", "out.pt2"], None),             # test_export_artifact_v8
     (["bench", "--dp"], "M14"),                # test_dp_sharded_pipeline_v8
     (["bench", "--sp", "2"], "M14"),           # test_pp_pipeline_v8
 ], ids=["export", "dp", "pp"])
 def test_v8_refusals_name_their_item(argv, item, sd, tmp_path, capsys):
+    """--dp and --sp on converted v8 files are refused, naming ROADMAP M14.
+    ``export`` (M15), refused before, is ported: the v8 artifact (DFL
+    decode, union NMS) reproduces the Net's bucket bit for bit, as
+    tests/test_yolov8.py's test_export_artifact_v8 holds JAX's."""
     cfg, wbytes = ty.convert(sd, NC, SCALE, size=64)
     (tmp_path / "v8.cfg").write_text(cfg)
     (tmp_path / "v8.weights").write_bytes(wbytes)
+    if item is None:
+        from ffcnn_tpu_torch import export as ex
+        out = str(tmp_path / argv[1])
+        assert tcli.main(argv[:1] + [out, "--cfg", str(tmp_path / "v8.cfg"),
+                                     "--weights", str(tmp_path / "v8.weights"),
+                                     "--device", "cpu"]) == 0
+        art = ex.load_exported(out)
+        assert art.meta["custom_ops"] == ["ffcnn::nms_keep_mask.default"]
+        x = np.random.RandomState(3).randint(0, 256, (1, 64, 64, 3),
+                                             dtype=np.uint8)
+        net = pt.Net.load(str(tmp_path / "v8.cfg"), str(tmp_path /
+                                                        "v8.weights"),
+                          mode="fast", device="cpu")
+        assert all(torch.equal(a, b) for a, b in
+                   zip(art.call(x), net.detect_device(x)))
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(argv + ["--cfg", str(tmp_path / "v8.cfg"), "--weights",
                           str(tmp_path / "v8.weights"), "--device", "cpu"])
