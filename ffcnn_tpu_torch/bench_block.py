@@ -52,6 +52,7 @@ from .kernels import mbconv as k8
 from .kernels import mbconv_cs as k9
 from .ops.conv import conv2d_fused
 from .roofline import F32_FLOP_S, HBM_BYTES_S, TC_BF16_FLOP_S
+from .runtime import capturing
 
 XL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "models", "yolo-fastest-xl.cfg")
@@ -320,7 +321,7 @@ def graph_launch_ms(fn, iters: int = 20, reps: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         for _ in range(iters):
             fn()
     graph.replay()

@@ -6,7 +6,8 @@ reference main() (ffcnn.c:552-593) on PyTorch, on the card unless
         [--weights FILE] [--mode fast|parity|int8] [-o out.bmp] [--device cpu]
     python -m ffcnn_tpu_torch.cli dump   [--cfg FILE] [--width W] [--height H]
     python -m ffcnn_tpu_torch.cli batch  IMAGE... [--batch N] [--cache-dir D]
-    python -m ffcnn_tpu_torch.cli bench  [--batch N] [--size S] [--iters I]
+    python -m ffcnn_tpu_torch.cli bench  [--batch N] [--size S] [--iters I] \
+        [--dp] [--sp N]
     python -m ffcnn_tpu_torch.cli profile [--batch N] [--size S] [--iters I]
     python -m ffcnn_tpu_torch.cli roofline [--batch N] [--size S|WxH]
     python -m ffcnn_tpu_torch.cli convert-v8 SD.pt [-o OUT] [--nc N] \
@@ -25,8 +26,13 @@ CLI does.  ``export`` writes one ``torch.export`` artifact a batch size
 (``export.py``; ``--batch 1,2`` writes ``OUT.b1.pt2`` and ``OUT.b2.pt2``),
 each with its ``.meta.json`` sidecar, on the device the artifact will run
 on; in int8 mode its plan comes from ``--quant-plan`` (a saved plan) or is
-calibrated on ``--calib`` frames.  Not ported yet, refused by name:
-``bench --dp``/``--sp`` (ROADMAP M14).
+calibrated on ``--calib`` frames.  ``bench --dp`` runs the Net on every
+slot of a data-parallel mesh (``parallel/dp.py::build_dp_pipeline``, one
+replica a slot); ``bench --sp N`` (or ``--dp`` with it) runs the plain
+forward with each blob's rows split over N slots
+(``build_sharded_pipeline``).  The mesh takes one slot a visible card (one
+CPU slot with ``--device cpu``), and at least ``--sp`` slots: the cards
+repeat in turn where ``--sp`` outnumbers them.
 """
 
 from __future__ import annotations
@@ -100,25 +106,76 @@ def cmd_dump(args) -> int:
     return 0
 
 
+def _mesh_slots(args) -> list:
+    """The mesh devices: one slot a visible card (one CPU slot with
+    ``--device cpu``), repeated in turn up to ``--sp`` slots."""
+    from .parallel.mesh import slot_devices
+    devs = slot_devices(args.device)
+    return [devs[i % len(devs)] for i in range(max(args.sp, len(devs)))]
+
+
 def cmd_bench(args) -> int:
     """A device-resident batch through ``detect_device`` (a bucket's graph
-    replay on the card), ``--iters`` calls timed with one synchronise."""
-    net = _load(args, args.size, args.size)
+    replay on the card), or over a mesh with ``--dp``/``--sp``
+    (``ffcnn_tpu/cli.py::cmd_bench``'s branches and labels), ``--iters``
+    calls timed with one synchronise."""
     batch = np.random.RandomState(0).randint(
         0, 255, (args.batch, args.size, args.size, 3), np.uint8)
-    # one upload: re-sending the host batch each call would time the copy
-    xb = torch.from_numpy(batch).to(net.device)
-    if args.mode == "int8":
-        net.calibrate(batch[: min(8, len(batch))])
-    net.detect_device(xb)
-    _sync(net.device)
+    if args.dp and args.sp == 1:
+        # pure DP: the Net's own single-card pipeline (its kernels, int8
+        # plan and folded preprocess) on every data slot
+        from .parallel import build_dp_pipeline, make_mesh
+        net = _load(args, args.size, args.size)
+        if args.mode == "int8" and net.quant is None:
+            # the replicas take the Net's plan: calibrate first, as
+            # detect_device would on its first frames
+            net.calibrate(batch[: min(8, len(batch))])
+        mesh = make_mesh(_mesh_slots(args))
+        fn = build_dp_pipeline(net, mesh, args.size, args.size)
+        # one upload: re-sending the host batch each call would time it
+        xb = torch.from_numpy(batch).to(mesh.devices.flat[0])
+        run = lambda: fn(xb)
+        label = "dp mesh %s" % dict(mesh.shape)
+        devices = set(mesh.devices.flat)
+    elif args.dp or args.sp > 1:
+        # the plain forward over a mesh: the batch on the data axis, each
+        # blob's rows over --sp spatial slots, halo rows gathered
+        from .darknet.weights import load_weights
+        from .graph.build import params_from_numpy
+        from .parallel import build_sharded_pipeline, make_mesh
+        ir = parse_cfg(args.cfg, args.size, args.size)
+        params = params_from_numpy(load_weights(ir, args.weights)[0])
+        mesh = make_mesh(_mesh_slots(args), spatial_parallel=args.sp)
+        fn, place = build_sharded_pipeline(
+            ir, mesh, args.size, args.size,
+            dtype=torch.bfloat16 if args.mode == "fast" else torch.float32)
+        placed = place(params)
+        xb = torch.from_numpy(batch).to(mesh.devices.flat[0])
+        run = lambda: fn(placed, xb, (0.0, 0.0, 0.0), (1 / 255.0,) * 3)
+        label = "mesh %s" % dict(mesh.shape)
+        devices = set(mesh.devices.flat)
+    else:
+        net = _load(args, args.size, args.size)
+        xb = torch.from_numpy(batch).to(net.device)
+        if args.mode == "int8":
+            net.calibrate(batch[: min(8, len(batch))])
+        run = lambda: net.detect_device(xb)
+        label = args.mode
+        devices = {net.device}
+
+    def sync():
+        for d in devices:
+            _sync(d)
+
+    run()
+    sync()
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        net.detect_device(xb)
-    _sync(net.device)
+        run()
+    sync()
     dt = (time.perf_counter() - t0) / args.iters
     print("batch %d @%dx%d %s: %.2f ms/batch, %.0f img/s"
-          % (args.batch, args.size, args.size, args.mode, dt * 1000,
+          % (args.batch, args.size, args.size, label, dt * 1000,
              args.batch / dt))
     return 0
 
@@ -283,9 +340,11 @@ def main(argv=None) -> int:
     pb.add_argument("--size", type=int, default=320)
     pb.add_argument("--iters", type=int, default=10)
     pb.add_argument("--dp", action="store_true",
-                    help="not ported yet (ROADMAP M14)")
+                    help="data-parallel over every mesh slot: the Net's "
+                         "own pipeline on each (parallel/dp.py)")
     pb.add_argument("--sp", type=int, default=1, metavar="N",
-                    help="not ported yet (ROADMAP M14)")
+                    help="split each image's rows over N spatial slots "
+                         "(halo rows gathered at every window)")
     _add_model_args(pb)
     pb.set_defaults(mode="fast")
 
@@ -353,8 +412,6 @@ def main(argv=None) -> int:
             args.calib or args.quant_plan):
         ap.error("export --mode int8 needs --calib <frame.bmp> [...] or "
                  "--quant-plan")
-    if args.cmd == "bench" and (args.dp or args.sp != 1):
-        ap.error("--dp and --sp are not ported yet (ROADMAP M14)")
     if args.cmd in _DEVICE_COMMANDS and args.device == "cuda" \
             and not torch.cuda.is_available():
         ap.error("no CUDA device: the port runs on the card unless "

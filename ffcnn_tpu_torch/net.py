@@ -71,6 +71,7 @@ built), as ``ffcnn_tpu/net.py`` does.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
@@ -227,9 +228,6 @@ class Net:
         self._has_yolo_heads = any(l.type == LayerType.YOLO
                                    for l in ir.layers)
         self._v8_iou = v8_nms_threshold()
-        self._fused_params = {r.start: [block_params(ir, self.params, b)
-                                        for b in r.blocks]
-                              for r in self._fused_runs}
         # how each run launches: groups of up to FFCNN_FUSED_CASCADE blocks
         # (read as JAX's run_blocks_cs reads it), the whole run where
         # FFCNN_FUSED_MEGA is set and the JAX mega gate holds (read from the
@@ -246,24 +244,34 @@ class Net:
             and mega_fits(ir, r))
         self._mid_dtype = torch.float32 if get_flag(
             "FFCNN_FUSED_STORE", "input") == "f32" else None
+        self._conv0_pallas = fast and get_flag("FFCNN_CONV0_PALLAS",
+                                               "0") == "1"
+        # conv-1 in int8 (JAX reads the flag at trace, on the folded path)
+        self._conv0_int8 = fast and get_flag("FFCNN_CONV0_INT8", "0") == "1"
+        # int8 mode's plan, from calibrate() or set_quant_plan()
+        self.quant: Optional[QuantPlan] = None
+        self._place()
+
+    def _place(self) -> None:
+        """What this Net holds on its device, made from ``params`` and the
+        resolved flags: every kernel's params, the folded conv-1 of the
+        demo default, the buckets, the lock and the graph pool."""
+        ir = self.ir
+        self._fused_params = {r.start: [block_params(ir, self.params, b)
+                                        for b in r.blocks]
+                              for r in self._fused_runs}
         self._head_params = {r.start: head_params(ir, self.params, r)
                              for r in self._head_runs}
         if self.device.type == "cuda":
             for hp in self._head_params.values():
                 check_fits(hp)
             self._check_chains_fit()
-        self._conv0_pallas = fast and get_flag("FFCNN_CONV0_PALLAS",
-                                               "0") == "1"
-        # conv-1 in int8 (JAX reads the flag at trace, on the folded path)
-        self._conv0_int8 = fast and get_flag("FFCNN_CONV0_INT8", "0") == "1"
         # (folded params, stem params, conv-1 int8 params) per (mean,
         # norm; _folded_all); the demo
         # default's are made now, with every other kernel's params
         self._folded: Dict[tuple, tuple] = {}
         if self._can_fold_input():
             self._folded_params(DEFAULT_MEAN, DEFAULT_NORM)
-        # int8 mode's plan, from calibrate() or set_quant_plan()
-        self.quant: Optional[QuantPlan] = None
         # the buckets, keyed as JAX keys its pipelines (topk at index 3)
         self._pipelines: Dict[tuple, _Pipeline] = {}
         self.timeused: Dict[str, float] = {}
@@ -274,6 +282,25 @@ class Net:
         if self.device.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._replayed = torch.cuda.Event()
+
+    def replica(self, device) -> "Net":
+        """A Net on ``device`` with this one's IR, params, mode, top-k and
+        int8 plan, and its flags as this Net resolved them when it was
+        built: one replica of a data-parallel mesh (``parallel/dp.py``).
+        Its buckets, graph pool and lock are its own; on this Net's device
+        it shares the params' tensors."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but CUDA is not available")
+        r = copy.copy(self)
+        r.device = device
+        r.params = {li: {k: v.to(device) for k, v in p.items()}
+                    for li, p in self.params.items()}
+        r.quant = None
+        r._place()
+        if self.quant is not None:
+            r._install(self.quant.to(device))
+        return r
 
     def _check_chains_fit(self) -> None:
         """Raise if a cascade group or a mega run cannot run on the card

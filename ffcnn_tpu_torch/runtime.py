@@ -9,6 +9,7 @@ Imports no graph builder, so an artifact loader can use it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import typing
 from collections import deque
 from typing import List
@@ -94,12 +95,29 @@ def stream_detections(detect_async, batches, depth: int = 2):
     return gen()
 
 
+@contextlib.contextmanager
+def capturing(graph, pool=None):
+    """Capture the block's launches into ``graph``, its memory from
+    ``pool``.  ``thread_local``: another thread's CUDA calls (a server's
+    request threads) cannot invalidate the capture.  The garbage collector
+    is held off for the block: a collection there that frees a dead CUDA
+    graph (a dropped Net's bucket in a reference cycle) destroys it in the
+    middle of the capture, which invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture(graph, run, x: torch.Tensor, pool):
-    """Capture ``run(x)`` into ``graph``, its memory from ``pool``; returns
-    the captured outputs.  ``thread_local``: another thread's CUDA calls (a
-    server's request threads) cannot invalidate the capture."""
-    with torch.cuda.graph(graph, pool=pool,
-                          capture_error_mode="thread_local"):
+    """Capture ``run(x)`` into ``graph``, its memory from ``pool``
+    (``capturing``); returns the captured outputs."""
+    with capturing(graph, pool):
         return run(x)
 
 

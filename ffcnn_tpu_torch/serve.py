@@ -29,7 +29,10 @@ there (the JAX package's npz format, so either package's plan serves).
 
 serves ``cli export`` artifacts (``export.ArtifactNet``): no cfg, no
 weights file, no graph builder; the artifacts' golden probes must replay
-before /healthz goes green.  Not ported yet, and refused: ``--dp`` (M14).
+before /healthz goes green.  ``--dp`` serves every slot of a data-parallel
+mesh from one worker (``parallel/dp.py::DPNet``): a micro-batched round is
+split over the Net's replicas, one a visible card (one on the CPU with
+``--device cpu``).
 """
 
 from __future__ import annotations
@@ -437,7 +440,11 @@ def parser() -> argparse.ArgumentParser:
                          "files and builds no graph; export buckets "
                          "1,2,4,... up to the wanted max batch")
     ap.add_argument("--dp", action="store_true",
-                    help="not ported yet (ROADMAP M14)")
+                    help="drive every mesh slot from this one worker: "
+                         "requests are micro-batched as usual, then the "
+                         "batch is split over the data-axis mesh and each "
+                         "slot runs the Net's own pipeline on its shard "
+                         "(parallel/dp.py::DPNet)")
     ap.add_argument("--warm-hw", nargs="*", default=(), metavar="WxH",
                     help="extra request geometries to pre-warm (e.g. "
                          "640x480 for camera frames): each distinct request "
@@ -455,8 +462,8 @@ def parser() -> argparse.ArgumentParser:
 
 def load_net(args, error):
     """The Net ``args`` ask for, its int8 plan installed in int8 mode (as
-    ``ffcnn_tpu/serve.py::main`` installs it); ``error(message)`` for
-    arguments that cannot serve."""
+    ``ffcnn_tpu/serve.py::main`` installs it), behind a ``DPNet`` with
+    ``--dp``; ``error(message)`` for arguments that cannot serve."""
     if args.mode == "int8" and not (
             args.calib or (args.quant_plan
                            and os.path.exists(args.quant_plan))):
@@ -476,14 +483,16 @@ def load_net(args, error):
             net.calibrate(np.stack([bmp_load(p) for p in args.calib]))
             if args.quant_plan:
                 save_plan(args.quant_plan, net.quant)
+    if args.dp:
+        from .parallel import DPNet, make_mesh
+        from .parallel.mesh import slot_devices
+        net = DPNet(net, make_mesh(slot_devices(args.device)))
     return net
 
 
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.dp:
-        ap.error("--dp is not ported yet (ROADMAP M14)")
     try:
         warm_hw = tuple(parse_geometry(g) for g in args.warm_hw)
     except ValueError:

@@ -192,10 +192,28 @@ def test_detect_int8_equals_net(files, tmp_path, capsys, monkeypatch):
     (["export", "out.pt2"], None),
 ], ids=["dp", "sp", "export"])
 def test_unported_commands_name_their_item(argv, item, files, tmp_path,
-                                           capsys):
-    """--dp and --sp are refused, naming ROADMAP M14.  ``export`` (M15) is
-    ported: it writes an artifact whose program reproduces the Net's
-    bucket, as tests/test_torch_export.py holds it in full."""
+                                           capsys, monkeypatch):
+    """``bench --dp`` and ``--sp``, refused before, naming ROADMAP M14, are
+    ported: over two CPU slots (the mesh's devices, one CPU slot with
+    ``--device cpu``, made two here) they print the JAX bench's line with its
+    mesh label (tests/test_torch_multiprocess.py holds their results
+    against ``Net.detect``).  ``export`` (M15) is ported: it writes an
+    artifact whose program reproduces the Net's bucket, as
+    tests/test_torch_export.py holds it in full."""
+    if item == "M14":
+        from ffcnn_tpu_torch.parallel import mesh
+        monkeypatch.setattr(mesh, "slot_devices",
+                            lambda device: [torch.device(device)] * 2)
+        assert tcli.main(argv + ["--cfg", MICRO, "--weights",
+                                 files["micro"], "--size", "64", "--batch",
+                                 "4", "--iters", "1"]) == 0
+        label = ("dp mesh {'data': 2, 'spatial': 1, 'model': 1}"
+                 if "--dp" in argv else
+                 "mesh {'data': 1, 'spatial': 2, 'model': 1}")
+        assert re.fullmatch(rf"batch 4 @64x64 {re.escape(label)}: "
+                            r"[0-9.]+ ms/batch, [0-9]+ img/s\n",
+                            capsys.readouterr().out)
+        return
     if item is None:
         from ffcnn_tpu_torch import export as ex
         out = str(tmp_path / argv[1])

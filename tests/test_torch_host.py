@@ -245,3 +245,34 @@ def test_port_file_imports_nothing_of_jax(path):
               if isinstance(n, ast.ImportFrom) and n.level == 0]
     bad = [m for m in names if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
+
+
+def test_capture_holds_the_collector_off(monkeypatch):
+    """A CUDA graph capture (a Net's bucket, ``bench_block``'s timing
+    graphs) runs in ``thread_local`` mode with the garbage collector off:
+    a collection that frees a dead graph mid-capture destroys it there and
+    invalidates the capture.  The collector is back on after it, also where
+    the captured block raises."""
+    import contextlib
+    import gc
+
+    import torch
+    from ffcnn_tpu_torch import runtime
+
+    modes = []
+
+    @contextlib.contextmanager
+    def graph(cuda_graph, pool=None, capture_error_mode="global"):
+        modes.append(capture_error_mode)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    assert gc.isenabled()
+    assert runtime.capture(None, lambda x: gc.isenabled(), None,
+                           None) is False
+    assert gc.isenabled()
+    with pytest.raises(ValueError):
+        with runtime.capturing(None):
+            assert not gc.isenabled()
+            raise ValueError
+    assert gc.isenabled() and modes == ["thread_local"] * 2

@@ -371,25 +371,39 @@ def test_detect_rejects_oversized_body(server):
     (["--mode", "int8"], "--calib")])
 def test_main_refuses_what_is_not_ported(args, item, capsys, tmp_path,
                                          monkeypatch):
-    """test_serve's --dp serving case has no counterpart yet: the port's
-    main refuses --dp, naming the ROADMAP item, and --mode int8 without a
-    plan to serve (--calib frames or a saved --quant-plan), as the JAX
-    server does, before it loads anything.  --artifact (M15) is ported: main
+    """The port's main refuses --mode int8 without a plan to serve (--calib
+    frames or a saved --quant-plan), as the JAX server does, before it
+    loads anything.  --dp (ROADMAP M14, refused before) is ported: main
+    serves the Net behind a ``DPNet`` over two CPU slots (the mesh's
+    devices, one CPU slot with ``--device cpu``, made two here), goes
+    healthy once both replicas' buckets are warm, and answers POST /detect
+    as ``Net.detect`` does.  --artifact (M15) is ported: main
     serves an exported artifact with no cfg or weights, goes healthy once
     its golden probe replays, and answers POST /detect as the Net's bucket
     does."""
-    if args[0] == "--artifact":
-        net, _ = _net()
-        art = str(tmp_path / args[1])
-        net.export(art, batch_size=1)
+    if args[0] in ("--artifact", "--dp"):
+        net, params = _net()
+        if args[0] == "--artifact":
+            art = str(tmp_path / args[1])
+            net.export(art, batch_size=1)
+            argv = ["--artifact", art, "--port", "0"]
+        else:
+            wpath = str(tmp_path / "micro.weights")
+            with open(wpath, "wb") as f:
+                f.write(synth_weights_bytes(parse_cfg(MICRO), seed=7,
+                                            obj_bias=2.0))
+            argv = ["--cfg", MICRO, "--weights", wpath, "--device", "cpu",
+                    "--mode", "parity", "--dp", "--port", "0"]
+            from ffcnn_tpu_torch.parallel import mesh
+            monkeypatch.setattr(mesh, "slot_devices",
+                                lambda device: [torch.device(device)] * 2)
         servers = []
 
         def make(*a, **k):
             servers.append(make_server(*a, **k))
             return servers[-1]
         monkeypatch.setattr(serve, "make_server", make)
-        th = threading.Thread(target=serve.main, args=(
-            ["--artifact", art, "--port", "0"],), daemon=True)
+        th = threading.Thread(target=serve.main, args=(argv,), daemon=True)
         th.start()
         try:
             deadline = time.time() + 120
@@ -404,7 +418,8 @@ def test_main_refuses_what_is_not_ported(args, item, capsys, tmp_path,
                         pass
                 time.sleep(0.2)
             else:
-                raise AssertionError("the artifact server never went healthy")
+                raise AssertionError(f"the {args[0]} server never went "
+                                     f"healthy")
             img = np.random.RandomState(2).randint(0, 256, (64, 64, 3),
                                                    dtype=np.uint8)
             bmp = str(tmp_path / "req.bmp")
@@ -415,8 +430,10 @@ def test_main_refuses_what_is_not_ported(args, item, capsys, tmp_path,
             with urllib.request.urlopen(req, timeout=60) as r:
                 got = json.loads(r.read())["detections"]
             # the artifact's top-k is sealed (no parity K-growth retry):
-            # the bucket's own result at the Net's K
-            want = net._to_detections(net.detect_device(img[None]))[0]
+            # the bucket's own result at the Net's K; DPNet grows K as
+            # Net.detect does
+            want = (net._to_detections(net.detect_device(img[None]))[0]
+                    if args[0] == "--artifact" else net.detect(img))
             assert got == [{"score": round(d.score, 4),
                             "class_id": d.class_id,
                             "box": [round(v, 2) for v in d[2:]]}

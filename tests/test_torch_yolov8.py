@@ -569,11 +569,17 @@ def test_int8_on_v8(v8_64):
     (["bench", "--dp"], "M14"),                # test_dp_sharded_pipeline_v8
     (["bench", "--sp", "2"], "M14"),           # test_pp_pipeline_v8
 ], ids=["export", "dp", "pp"])
-def test_v8_refusals_name_their_item(argv, item, sd, tmp_path, capsys):
-    """--dp and --sp on converted v8 files are refused, naming ROADMAP M14.
-    ``export`` (M15), refused before, is ported: the v8 artifact (DFL
-    decode, union NMS) reproduces the Net's bucket bit for bit, as
-    tests/test_yolov8.py's test_export_artifact_v8 holds JAX's."""
+def test_v8_refusals_name_their_item(argv, item, sd, tmp_path, capsys,
+                                     monkeypatch):
+    """``bench --dp`` and ``--sp`` on converted v8 files, refused before,
+    naming ROADMAP M14, are ported: each prints its line over two CPU
+    slots (the mesh's devices, one CPU slot with ``--device cpu``, made
+    two here), and (tests/test_yolov8.py's test_dp_sharded_pipeline_v8 and
+    test_pp_pipeline_v8) the sharded pipeline on 8 data slots and the
+    GPipe pipeline over 4 stages, every v8 head in the last, give the
+    parity Net's detections (DFL decode, union NMS).  ``export`` (M15),
+    refused before, is ported: the v8 artifact reproduces the Net's bucket
+    bit for bit, as test_export_artifact_v8 holds JAX's."""
     cfg, wbytes = ty.convert(sd, NC, SCALE, size=64)
     (tmp_path / "v8.cfg").write_text(cfg)
     (tmp_path / "v8.weights").write_bytes(wbytes)
@@ -593,11 +599,47 @@ def test_v8_refusals_name_their_item(argv, item, sd, tmp_path, capsys):
         assert all(torch.equal(a, b) for a, b in
                    zip(art.call(x), net.detect_device(x)))
         return
-    with pytest.raises(SystemExit) as e:
-        tcli.main(argv + ["--cfg", str(tmp_path / "v8.cfg"), "--weights",
-                          str(tmp_path / "v8.weights"), "--device", "cpu"])
-    assert e.value.code != 0
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    from ffcnn_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "slot_devices",
+                        lambda device: [torch.device(device)] * 2)
+    assert tcli.main(argv + ["--cfg", str(tmp_path / "v8.cfg"), "--weights",
+                             str(tmp_path / "v8.weights"), "--device", "cpu",
+                             "--size", "64", "--batch", "2", "--iters",
+                             "1"]) == 0
+    assert capsys.readouterr().out.startswith("batch 2 @64x64 ")
+    from ffcnn_tpu_torch import parallel as tpar
+    from ffcnn_tpu_torch.darknet.ir import LayerType
+    from ffcnn_tpu_torch.graph.build import params_from_numpy
+    # the heads' score gate at 0.05: the synthetic class scores sit near 0.1
+    _, tir, _, params = _graph(sd, 64, 0.05)
+    images = _frames(64, 8, seed=4)[:, :48]
+    cpu = [torch.device("cpu")]
+    if item == "M14" and argv[1] == "--dp":
+        fn, place = tpar.build_sharded_pipeline(
+            tir, tpar.make_mesh(cpu * 8), 48, 64, dtype=torch.float32,
+            topk=64)
+        got = fn(place(params_from_numpy(params)), images, (0.0,) * 3,
+                 (1 / 255.0,) * 3)
+    else:
+        stages = tpar.plan_stages(tir, 4)
+        heads = {li for li, l in enumerate(tir.layers)
+                 if l.type == LayerType.YOLOV8}
+        assert heads <= set(range(stages[-1].start, stages[-1].stop))
+        fn = tpar.build_pp_pipeline(
+            tir, params_from_numpy(params),
+            tpar.make_mesh(cpu * 4, pipeline_parallel=4), 48, 64,
+            n_microbatches=4, topk=64)
+        got = fn(images)
+    want = pt.Net(tir, params, mode="parity", topk=64,
+                  device="cpu").detect_device(images)
+    assert int(want.count.sum()) > 0
+    assert torch.equal(got.count, want.count)
+    assert torch.equal(got.classes[want.scores > 0],
+                       want.classes[want.scores > 0])
+    torch.testing.assert_close(got.scores, want.scores, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.boxes[want.scores > 0],
+                               want.boxes[want.scores > 0], atol=1e-3,
+                               rtol=0)
 
 
 # -------------------------------------------------------------- the bench
