@@ -140,19 +140,28 @@ K9.  Phases, each of which exits non-zero on failure:
      11's, its timings last: ``Net.calibrate`` on the card against the CPU
      on 8 seeded frames (blob scales to 1e-5, wq codes 99.9% equal); the
      int8 conv (``csrc/conv_int8.cu``) against its plain version at batch
-     64 on every unfused int8 conv of xl's default plan (29: dense 1x1,
-     depthwise 3x3 and 5x5) and three seeded dense convs (3x3 at stride 1
-     and 2, C64->128 SiLU; a per-channel requantize): int32 accumulators
-     bit for bit, codes equal or one apart at a tie of the plain version's
-     float32 value; each of xl's shapes timed alone (20 launches in one
-     CUDA graph, its replays between CUDA events), the plain version by
-     events, the 1x1 ones beside ``torch._int_mm`` with the epilogue; K1 (run 84-108 block by block), K4 (in groups of three) and
-     K3 (block 81) with the plan's int8 boundaries against their plain
-     versions, timed beside the same launches with bf16 boundaries; int8
+     64 on every unfused int8 conv of xl's default plan (29: 16 dense 1x1
+     on the gemm path, 13 depthwise 3x3 and 5x5 on the dw path), the
+     seeded dense convs (3x3 at stride 1 and 2, C64->128 SiLU; a
+     per-channel requantize; 1x1 to F 272, 240 and 16 and from K 384 at
+     odd sizes; C40 on the first dense kernel) and the seeded depthwise
+     convs (C40 on dw4; 3x3 at stride 2 and 5x5 at odd sizes; SiLU with a
+     per-channel requantize), then v8n's distinct unfused int8 convs under
+     its plan at batch 4: int32 accumulators bit for bit, codes equal or
+     one apart at a tie of the plain version's float32 value, each call's
+     path (``conv_int8.routes``) the one ``conv_int8.route`` names; each
+     of xl's shapes timed alone (20 launches in one CUDA graph, its
+     replays between CUDA events), the plain version by events, the 1x1
+     ones beside ``torch._int_mm`` with the epilogue, and v8n's shapes
+     summed at batch 16; K1 (run 84-108 block by block), K4 (in groups
+     of three) and K3 (block 81) with the plan's int8 boundaries against
+     their plain versions, timed beside the same launches with bf16
+     boundaries; int8
      default and int8 region on the card against the CPU under one plan
      installed with ``set_quant_plan`` (the first detect's launches equal
-     to the plan's: the int8 conv on each unfused int8 conv, K1/K3/K6 as
-     the plan, K5 = K7 = 0; a replay's kernels equal an eager run's;
+     to the plan's: the int8 conv on each unfused int8 conv, on default 16
+     a forward through gemm and 13 through dw, K1/K3/K6 as the plan, K5 =
+     K7 = 0; a replay's kernels equal an eager run's;
      phase 4's tolerances); v8n at 640x640 in int8 on one frame, card
      against CPU; ``cli detect --mode int8`` against ``Net.detect``;
      ``serve --mode int8 --quant-plan`` with a saved plan, four POSTs
@@ -206,8 +215,10 @@ at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's
 launches are their wrappers' counts over phase 4's first detect on the
 region, cascade and mega paths, which builds the bucket; K1, K3 and K4
 also with their int8-boundary times; the int8 conv, its launches counted
-over phase 12's first int8 default detect, its times summed over xl's 29
-unfused int8 convs; its uint8 mode, conv-1 in int8, at xl's stem, its
+over phase 12's first int8 default detect (also by path), its times summed
+over xl's 29 unfused int8 convs (also split into the 13 depthwise and the
+16 1x1 convs, each beside its bound) and over v8n's distinct ones at batch
+16; its uint8 mode, conv-1 in int8, at xl's stem, its
 launches counted over the region Net's first detect under the flag);
 the line before it is the card's name and power
 limit; the last line of standard output is one JSON object with the
@@ -281,7 +292,7 @@ for _want in WANT_COUNTS.values():
 # S = 1 and S = 2.  A replay runs no Python, so the kernels a graph's replay
 # ran are counted from these events, not by the wrappers.
 KERNEL_SYMBOLS = {
-    "conv_int8": r"conv_int8_(dense|dw4|grouped)_kernel",
+    "conv_int8": r"conv_int8_(dense|dw4|dw|gemm|grouped)_kernel",
     "K1": r"mma::block_kernel<1,|3mma12block_kernelILi1E",
     "K2": r"(?<![A-Za-z_])nms_keep_kernel",
     "K3": r"mma::block_kernel<2,|3mma12block_kernelILi2E",
@@ -1500,19 +1511,13 @@ def bench_phase() -> None:
             raise AssertionError("the bench's int8 row is empty")
 
 
-def unfused_int8(net) -> list:
-    """The convs of an int8 Net's plan that run through the int8 conv (the
-    plan's quantized convs outside its fused runs)."""
-    inside = {li for r in net._fused_runs for li in range(r.start, r.end + 1)}
-    return sorted(li for li in net.quant.weights if li not in inside)
-
-
 def plan_counts(net) -> dict:
     """The K1, K3, K6, K7 and int8 conv launches one forward of a
     region-style Net makes, from its plan (each block one launch, no
     cascade or mega; K6 where the stem's guard holds: an int8 plan keeps
     layer 0 and blob 1 float on xl)."""
     import ffcnn_tpu_torch as pt
+    from ffcnn_tpu_torch.quant import unfused_int8
     blocks = [b for r in net._fused_runs for b in r.blocks]
     c0 = net._folded_params(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[1]
     return {"K1": sum(not b.down for b in blocks),
@@ -1762,11 +1767,29 @@ def v8_times(v8, dev) -> None:
 # convs (ISSUE counts), and the seeded dense convs held beside xl's shapes.
 INT8_FLAGS = {"default": {}, "region": REGION_FLAGS}
 INT8_CALIB = 8
-XL_INT8_BLOBS, XL_INT8_CONVS = 102, 29
+XL_INT8_BLOBS, XL_INT8_CONVS, XL_INT8_DW = 102, 29, 13
 INT8_SEEDED = (("dense 3x3 s1 C64->128 silu", 20, 64, 128, 3, 1, 6, 0.05),
                ("dense 3x3 s2 C64->128 silu", 20, 64, 128, 3, 2, 6, 0.05),
                ("dense 1x1 C96->64 leaky, per-channel requantize", 20, 96,
-                64, 1, 1, 2, "perch"))
+                64, 1, 1, 2, "perch"),
+               ("dense 1x1 C48->272 leaky 13x13", 13, 48, 272, 1, 1, 2,
+                0.05),
+               ("dense 1x1 C240->240 21x21 bf16", 21, 240, 240, 1, 1, 0,
+                None),
+               ("dense 1x1 C384->192 leaky 11x11", 11, 384, 192, 1, 1, 2,
+                0.05),
+               ("dense 1x1 C48->16 13x13 bf16", 13, 48, 16, 1, 1, 0, None),
+               ("dense 3x3 s1 C40->24 leaky 9x9", 9, 40, 24, 3, 1, 2, 0.05))
+# Seeded depthwise convs (label, H = W, C, k, stride, act, out scale): C
+# off the dw path's 16-channel slice (dw4), and the dw path at odd sizes.
+INT8_SEEDED_DW = (("depthwise 3x3 s1 C40 21x21", 21, 40, 3, 1, 2, 0.05),
+                  ("depthwise 3x3 s2 C48 21x21", 21, 48, 3, 2, 2, 0.05),
+                  ("depthwise 5x5 s1 C240 19x19", 19, 240, 5, 1, 2, 0.05),
+                  ("depthwise 3x3 s1 C64 23x23 silu, per-channel", 23, 64,
+                   3, 1, 6, "perch"))
+# v8n's distinct unfused int8 convs: checked at V8_INT8_CHECK, timed at
+# V8_INT8_TIME
+V8_INT8_CHECK, V8_INT8_TIME = 4, 16
 # A code of the kernel may differ from its plain version's by one where
 # the plain version's float32 value before rounding lies this close to a
 # tie (k + 1/2): another sum order (K1/K3/K4) or another exp (SiLU).
@@ -1782,6 +1805,18 @@ def int8_bound(nbytes, tc_ops=0.0, int32_ops=0.0):
     t_b = nbytes / rf.HBM_BYTES_S
     t_o = max(tc_ops / rf.TC_INT8_OP_S, int32_ops / rf.INT32_OP_S)
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def int8_work(x, cvp, y):
+    """(bytes, int8 tensor-core operations, int32 operations) of one int8
+    conv of ``x`` to ``y``: the input read and the output written once,
+    the weights and eff, bias, inv once; two operations a multiply-add, on
+    the tensor cores (dense) or the CUDA cores (grouped)."""
+    n, oh, ow, f = y.shape
+    ops = 2 * n * oh * ow * f * cvp.fs * cvp.fs * cvp.wq.shape[2]
+    nbytes = x.numel() + y.numel() * y.element_size() + cvp.wq.numel() \
+        + 12 * f
+    return nbytes, ops if cvp.groups == 1 else 0, ops if cvp.groups > 1 else 0
 
 
 def check_codes(label, got, want, pre=None) -> int:
@@ -1802,6 +1837,43 @@ def check_codes(label, got, want, pre=None) -> int:
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version")
     return err
+
+
+def routed(ci, fn):
+    """``fn()`` and the int8 conv's path it launched (``conv_int8.routes``);
+    raises unless it launched exactly one."""
+    before = dict(ci.conv_int8.routes)
+    out = fn()
+    took = [k for k, v in ci.conv_int8.routes.items() if v != before[k]]
+    if len(took) != 1:
+        raise AssertionError(f"int8 conv: paths launched {took}")
+    return out, took[0]
+
+
+def int8_conv_check(ci, label, x, cvp, batch):
+    """The int8 conv on ``x`` against its plain version: the accumulators
+    bit for bit, codes by ``check_codes``, float outputs by
+    ``check_kernel``; the path the kernel took must be ``ci.route``'s.
+    Returns (output, largest code or float difference, path)."""
+    import torch
+    from ffcnn_tpu_torch.ops.activations import activate
+    acc, path = routed(ci, lambda: ci.conv_int8(x, cvp, raw=True))
+    accp = ci.conv_int8_plain(x, cvp, raw=True)
+    if not torch.equal(acc, accp):
+        raise AssertionError(f"int8 conv {label}: accumulators differ")
+    c, fn = x.shape[3], cvp.filters
+    want = ci.route(c, fn, cvp.fs, cvp.stride, cvp.groups)
+    if path != want:
+        raise AssertionError(f"int8 conv {label}: took {path}, want {want}")
+    y, yp = ci.conv_int8(x, cvp), ci.conv_int8_plain(x, cvp)
+    if cvp.inv is not None:
+        pre = activate(accp.float() * cvp.eff + cvp.bias, cvp.act) * cvp.inv
+        e = check_codes(f"int8 conv {label} batch {batch} ({path}), "
+                        f"accumulators bit for bit", y, yp, pre)
+    else:
+        e = check_kernel(f"int8 conv {label} batch {batch} ({path}; "
+                         f"accumulators bit for bit)", y, yp, phase=12)
+    return y, e, path
 
 
 def load_int8(pt, wbytes, flags, device):
@@ -1862,7 +1934,7 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
     for t in INT8_FLAGS:
         nets[t].set_quant_plan(plan)
         cpus[t].set_quant_plan(plan)
-    convs = unfused_int8(net)
+    convs = tq.unfused_int8(net)
     if len(convs) != XL_INT8_CONVS:
         raise AssertionError(f"{len(convs)} unfused int8 convs, want "
                              f"{XL_INT8_CONVS}")
@@ -1876,50 +1948,44 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
         kind = "dw" if l.groups > 1 else f"{l.fs}x{l.fs}"
         cases.append((f"L{li} {kind} s{l.stride} {b.h}x{b.w} C{b.c}->"
                       f"{l.fn}", b.h, b.c, qs.convs[li]))
-    for label, hw, c, f, k, st, act, osc in INT8_SEEDED:
-        wq = torch.randint(-127, 128, (k, k, c, f), generator=gen,
+    seeded = [(label, hw, c, f, k, st, 1, act, osc)
+              for label, hw, c, f, k, st, act, osc in INT8_SEEDED]
+    seeded += [(label, hw, c, c, k, st, c, act, osc)
+               for label, hw, c, k, st, act, osc in INT8_SEEDED_DW]
+    for label, hw, c, f, k, st, groups, act, osc in seeded:
+        wq = torch.randint(-127, 128, (k, k, c // groups, f), generator=gen,
                            dtype=torch.int8).to(dev)
         ws = (torch.rand(f, generator=gen) * 0.02 + 1e-3).numpy()
         bias = (torch.rand(f, generator=gen) * 2 - 1).numpy()
         out = (np.linspace(0.02, 0.3, f).astype(np.float32)
                if osc == "perch" else osc)
         cases.append((label, hw, c, ci.prepare(
-            wq, 0.0413, ws, bias, stride=st, pad=k // 2, groups=1, act=act,
-            out_scale=out)))
+            wq, 0.0413, ws, bias, stride=st, pad=k // 2, groups=groups,
+            act=act, out_scale=out)))
     err = 0
-    rows = []
+    rows, paths = [], {}
     for label, hw, c, cvp in cases:
         x = torch.randint(-127, 128, (BATCH, hw, hw, c), generator=gen,
                           dtype=torch.int8).to(dev)
-        acc = ci.conv_int8(x, cvp, raw=True)
-        accp = ci.conv_int8_plain(x, cvp, raw=True)
-        if not torch.equal(acc, accp):
-            raise AssertionError(f"int8 conv {label}: accumulators differ")
-        y, yp = ci.conv_int8(x, cvp), ci.conv_int8_plain(x, cvp)
-        if cvp.inv is not None:
-            pre = activate(accp.float() * cvp.eff + cvp.bias, cvp.act) \
-                * cvp.inv
-            err = max(err, check_codes(f"int8 conv {label} batch {BATCH}, "
-                                       f"accumulators bit for bit", y, yp,
-                                       pre))
-        else:
-            e = check_kernel(f"int8 conv {label} (accumulators bit for "
-                             f"bit)", y, yp, phase=12)
-            err = max(err, e)
+        y, e, path = int8_conv_check(ci, label, x, cvp, BATCH)
+        err = max(err, e)
+        paths[label] = path
         rows.append((label, x, cvp, y))
-    log(f"[12] int8 conv checks: {len(cases)} shapes "
-        f"({time.perf_counter() - t0:.1f} s so far)")
+    xl_paths = [paths[label] for label, _, _, _ in cases[:len(convs)]]
+    log(f"[12] int8 conv checks: {len(cases)} shapes; xl's {len(convs)} "
+        f"by path: " + ", ".join(f"{k} {xl_paths.count(k)}"
+                                 for k in sorted(set(xl_paths)))
+        + f" ({time.perf_counter() - t0:.1f} s so far)")
+    if xl_paths.count("dw") != XL_INT8_DW or \
+            xl_paths.count("gemm") != XL_INT8_CONVS - XL_INT8_DW:
+        raise AssertionError("xl's int8 convs did not take the dw and gemm "
+                             "paths")
     tim = {}
     for label, x, cvp, y in rows[:len(convs)]:
         ms = bb.graph_launch_ms(lambda: ci.conv_int8(x, cvp))
         pms = cuda_ms(lambda: ci.conv_int8_plain(x, cvp), iters=2, warmup=1)
-        n, oh, ow, f = y.shape
-        fs, icg = cvp.fs, cvp.wq.shape[2]
-        ops = 2 * n * oh * ow * f * fs * fs * icg
-        nbytes = x.numel() + y.numel() * y.element_size() \
-            + cvp.wq.numel() + 12 * f
-        work = (nbytes, ops if cvp.groups == 1 else 0,
-                ops if cvp.groups > 1 else 0)
+        f, fs, icg = y.shape[3], cvp.fs, cvp.wq.shape[2]
+        work = int8_work(x, cvp, y)
         bound = int8_bound(*work)
         lib = None
         if fs == 1 and cvp.groups == 1:
@@ -2035,18 +2101,29 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
     # the whole int8 nets on the card against the CPU, one plan
     built = WARMUP_RUNS + 1
     main_counts = {}
+    main_paths = {}
     for tag, n in nets.items():
         want = plan_counts(n)
+        ci.conv_int8.routes.update(dict.fromkeys(ci.ROUTES, 0))
         dets, counts = counted(counters, lambda: n.detect(frames))
+        by_path = {k: v for k, v in ci.conv_int8.routes.items() if v}
         log(f"[12] int8 {tag} detect batch {len(frames)}, its bucket built "
             f"in the call: {sum(map(len, dets))} detections; one forward's "
             f"launches by the plan {want}; launches "
-            + " ".join(f"{k} {v}" for k, v in counts.items()))
+            + " ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; the int8 conv's by path {by_path}")
         if counts["K2"] != built or any(counts[k] != v * built
                                         for k, v in want.items()) \
-                or counts["K5"] or counts["K7"] or not counts["conv_int8"]:
+                or counts["K5"] or counts["K7"] or not counts["conv_int8"] \
+                or sum(by_path.values()) != counts["conv_int8"]:
             raise AssertionError(f"int8 {tag}: launches differ from the plan")
+        if tag == "default" and by_path != {
+                "gemm": (XL_INT8_CONVS - XL_INT8_DW) * built,
+                "dw": XL_INT8_DW * built}:
+            raise AssertionError("int8 default: the int8 conv's launches "
+                                 "did not go 16 a forward to gemm, 13 to dw")
         main_counts[tag] = counts
+        main_paths[tag] = by_path
         check_dets(f"int8 {tag}", dets)
         check_replay(f"int8 {tag}", n, counters, frames, dets, want)
         check_against_cpu(f"int8 {tag}", n, cpus[tag], frames, dets, 12)
@@ -2062,10 +2139,33 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
         f" int8 blobs, {len(v8n.quant.weights)} int8 convs; detect batch 1 "
         f"(bucket built): {len(dets[0])} detections; launches "
         + " ".join(f"{k} {v}" for k, v in counts.items() if v))
-    if counts["conv_int8"] != len(unfused_int8(v8n)) * built:
+    if counts["conv_int8"] != len(tq.unfused_int8(v8n)) * built:
         raise AssertionError("v8n int8 did not launch its int8 convs")
     check_dets("v8n int8", dets)
     check_against_cpu("v8n int8", v8n, v8c, one, dets, 12)
+
+    # v8n's distinct unfused int8 convs under its plan: checked at batch
+    # V8_INT8_CHECK, timed at V8_INT8_TIME
+    qs8 = tq.quant_state(v8n.quant, v8n.ir, torch.bfloat16, dev)
+    v8_rows = []
+    for li, geo in tq.conv_shapes(v8n, distinct=True):
+        h, w, c = geo[:3]
+        cvp = qs8.convs[li]
+        label = f"v8n L{li} {cvp.fs}x{cvp.fs} s{cvp.stride} {h}x{w} " \
+            f"C{c}->{cvp.filters}"
+        x = torch.randint(-127, 128, (V8_INT8_CHECK, h, w, c),
+                          generator=gen, dtype=torch.int8).to(dev)
+        _, e, path = int8_conv_check(ci, label, x, cvp, V8_INT8_CHECK)
+        err = max(err, e)
+        if path != "gemm":
+            raise AssertionError(f"{label} took {path}")
+        xt = torch.randint(-127, 128, (V8_INT8_TIME, h, w, c),
+                           generator=gen, dtype=torch.int8).to(dev)
+        v8_rows.append(bb.graph_launch_ms(lambda: ci.conv_int8(xt, cvp)))
+    log(f"[12] v8n's {len(v8_rows)} distinct unfused int8 convs bit for "
+        f"bit at batch {V8_INT8_CHECK}; at batch {V8_INT8_TIME} the "
+        f"kernel alone (a graph of 20 launches a shape) {sum(v8_rows):.4f} "
+        f"ms summed")
 
     # the surfaces: cli detect --mode int8 (calibrated on its image),
     # serve --mode int8 --quant-plan (saved, then loaded)
@@ -2122,7 +2222,9 @@ def int8_phase(pt, counters, wbytes, frames, v8) -> dict:
             raise AssertionError("serve --mode int8 answers differ")
     log(f"[12] phase 12 checks took {time.perf_counter() - t0:.1f} s")
     return {"nets": nets, "err": err, "kerr": kerr, "tim": tim,
-            "blk": blk_ms, "counts": main_counts, "nconv": len(convs)}
+            "blk": blk_ms, "counts": main_counts, "paths": main_paths,
+            "nconv": len(convs), "v8n_ms": sum(v8_rows),
+            "v8n_shapes": len(v8_rows)}
 
 
 def int8_entry(i8) -> dict:
@@ -2138,6 +2240,7 @@ def int8_entry(i8) -> dict:
     t_o = sum(t[2][1] for t in tim) / rf.TC_INT8_OP_S \
         + sum(t[2][2] for t in tim) / rf.INT32_OP_S
     ones = [t for t in tim if t[3] is not None]
+    dws = [t for t in tim if t[2][2]]
     return {"name": "conv_int8", "route": "cuda",
             "source": "ffcnn_tpu_torch/csrc/conv_int8.cu",
             "replaces": "ffcnn_tpu/ops/conv.py:99 (conv2d_int8, XLA's int8 "
@@ -2150,7 +2253,12 @@ def int8_entry(i8) -> dict:
             "library_ms": None, "shapes": len(i8["tim"]),
             "ms_1x1": sum(t[0] for t in ones),
             "int_mm_ms_1x1": sum(t[3] for t in ones),
-            "bound_ms_1x1": sum(int8_bound(*t[2])[0] for t in ones)}
+            "bound_ms_1x1": sum(int8_bound(*t[2])[0] for t in ones),
+            "ms_dw": sum(t[0] for t in dws),
+            "bound_ms_dw": sum(int8_bound(*t[2])[0] for t in dws),
+            "launches_by_path": i8["paths"]["default"],
+            "v8n_shapes": i8["v8n_shapes"],
+            f"v8n_ms_batch{V8_INT8_TIME}": i8["v8n_ms"]}
 
 
 def int8_times(i8, frames, dev) -> None:

@@ -82,9 +82,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ float dequant(int8_t q, float scale) {
   return __fmul_rn((float)q, scale);
 }
-__device__ __forceinline__ void store_q(int8_t* p, float v, float inv) {
+__device__ __forceinline__ int8_t quant(float v, float inv) {
   const int q = __float2int_rn(__fmul_rn(v, inv));
-  *p = (int8_t)max(-127, min(127, q));
+  return (int8_t)max(-127, min(127, q));
+}
+__device__ __forceinline__ void store_q(int8_t* p, float v, float inv) {
+  *p = quant(v, inv);
 }
 
 }  // namespace ffcnn_block

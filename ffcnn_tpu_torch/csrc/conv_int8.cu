@@ -26,42 +26,75 @@
 // an int8 blob outside the fused runs).  PyTorch has no int8 convolution on
 // the card.
 //
-// Two paths, one epilogue:
+// Bound on this card: xl's int8 convs are 1x1 convs of 32-384 channels and
+// 3x3 and 5x5 depthwise convs, a few operations a byte, so the bytes bound
+// them (the input read and the output written once: int8 in, int8 or bf16
+// out); the int8 tensor cores' 1,979 TOP/s are far away.  What held the
+// first version back was latency and instructions, not bytes: dead filter
+// columns, two barriers a 32-byte K step, a depthwise tap's two global
+// loads, and an epilogue that switched on the activation and the output
+// kind for every output.  ffcnn_conv_int8 routes each call by its shape,
+// dtype and alignment alone (route_of), one path a call:
 //
-// * dense (groups == 1, any k x k, stride, pad): an implicit GEMM, rows =
-//   output pixels, columns = filters, K = k*k*C in (ky, kx, c) order,
-//   padded with zero weights to a multiple of 32 (the wrapper repacks the
-//   weights once, when the plan is installed, to (F, Kp)).  A CTA of four
-//   warps owns 64 rows x 64 filters and walks K in steps of 32 bytes; each
-//   step's A tile (gathered from the NHWC input, taps outside the image
-//   read as code 0, which is 0.0 in a symmetric scheme, as XLA's zero pad)
-//   and B tile go to shared memory in two buffers, by 16-byte cp.async
-//   where C is a multiple of 16 (one tap a 16 bytes) and by 4- or 1-byte
-//   loads otherwise, the next step's tiles on their way while this one
-//   computes.  A warp holds 32 x 32 of the output in int32 fragments and
-//   runs mma.sync.m16n8k32.s8.s8.s32 on the int8 tensor cores.  Rows of
-//   the tiles are 48 bytes apart, so the fragment loads (rows g, words t)
-//   fall in 32 distinct banks.
-// * grouped and depthwise: int32 multiply-adds on the CUDA cores, a thread
-//   a (pixel, filter); depthwise (one input channel a filter) with C a
-//   multiple of 4 takes four channels a thread by char4 loads, and a
-//   grouped conv with a multiple of 4 input channels a group sums four
-//   products a __dp4a.
+// * gemm (groups == 1, int8 codes in, C a multiple of 16, x, wp and y
+//   16-byte aligned): an implicit GEMM, rows = output pixels, columns =
+//   filters, K = k*k*C in (ky, kx, c) order padded with zero weights to
+//   Kp, a multiple of 32 (the wrapper packs the weights once, when the
+//   plan is installed, to (F, Kp)).  The CTA's filter tile BN follows F
+//   (16, 32 or 64; F past 64 takes tiles of 64, which measured faster
+//   than 128 on every shape of xl and v8n), so no warp computes a dead
+//   column at F 16, and n8 steps past F are skipped: four warps, 4 x 1 of
+//   32 x 16 at BN 16 (128 pixels), else 2 x 2 of 32 x BN / 2 (64 pixels).
+//   The (BN, Kp) slice of the weights stays in shared memory where it
+//   fits kGemmWres, else it streams beside A.  Persistent CTAs walk the
+//   pixel tiles; A (gathered from the NHWC input by 16-byte cp.async, a
+//   tap outside the image read as code 0, XLA's zero pad) streams in
+//   64-byte K steps through a ring of kGemmStages with one barrier a step,
+//   the next tile's steps loading while this one finishes.
+//   mma.sync.m16n8k32.s8.s8.s32 on the int8 tensor cores.  The epilogue
+//   holds eff, bias and inv of a thread's fragment columns in registers,
+//   fixes the activation and output kind once a tile (with_epilogue),
+//   packs the outputs into a shared stage and writes 16-byte runs of each
+//   pixel's row (at F 16 an int8 row is one run).
+// * dw (depthwise, c == groups == f, C a multiple of 16, 3x3 or 5x5,
+//   stride 1 or 2, aligned as gemm): a CTA owns a 16-channel slice and
+//   walks tiles of output rows x columns; each tile's input window with
+//   its halo, (th - 1) * s + k rows, comes into shared memory once by
+//   16-byte cp.async (stride 2: even and odd columns in two planes, so a
+//   warp's reads fall in distinct banks), double-buffered across the
+//   CTA's tiles.  A thread computes four channels of kDwRows outputs down
+//   a column (half as many where the output is under 2 kDwRows high),
+//   loads each input row's words once for every output row they feed and
+//   sums four taps a __dp4a (one channel's bytes gathered by __byte_perm,
+//   the weights packed likewise once a CTA); the epilogue, from registers
+//   with the activation and kind fixed, packs the outputs into a stage
+//   written out 16 bytes a thread.
+// * dense (groups == 1 otherwise: C not a multiple of 16, or the uint8
+//   mode): the first version, unchanged.  A CTA of four warps owns 64 rows
+//   x 64 filters and walks K in 32-byte steps through two buffers, the A
+//   tile gathered by 4- or 1-byte loads; epilogue element by element.
+// * dw4 (depthwise with C % 4 == 0 that dw does not take) and grouped (any
+//   other grouped conv): int32 multiply-adds on the CUDA cores, a thread a
+//   (pixel, four channels) by char4 loads, or a (pixel, filter) with four
+//   products a __dp4a where C/groups is a multiple of 4.
 //
-// Bound on this card: xl's int8 convs are 1x1 convs of 48-384 channels and
-// 3x3 depthwise convs, a few operations a byte, so the bytes bound them (the
-// input read and the output written once: int8 in, int8 or bf16 out); the
-// int8 tensor cores' 1,979 TOP/s are far away.  This first version aims to
-// be right: a later one takes wgmma and TMA.
+// The uint8 mode runs only on the dense path and is as the first version
+// left it.
 //
 // The epilogue rounds as the plain version does: the product and the sum
 // are separate roundings (__fmul_rn, __fadd_rn: no FMA contraction), and
 // the requantize rounds half to even (__float2int_rn, as torch.round and
-// jnp.round).
+// jnp.round).  The int32 sums are exact in any order, so every path equals
+// the plain version bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <type_traits>
+#include <vector>
 
 #include "block_fused.cuh"
 
@@ -73,6 +106,23 @@ constexpr int kBN = 64;        // filters a dense CTA
 constexpr int kBK = 32;        // K bytes a step (one m16n8k32)
 constexpr int kLd = 48;        // bytes between tile rows in shared memory
 constexpr int kEwThreads = 256;
+// the gemm path: threads a CTA, K bytes a ring stage (two m16n8k32
+// steps), ring stages, bytes between A rows (an odd multiple of 16: the
+// fragment loads of rows g, words t fall in 32 distinct banks), and the
+// largest (BN, Kp + 16) weight slice kept in shared memory
+constexpr int kGemmThreads = 128;
+constexpr int kGemmSK = 64;
+constexpr int kGemmStages = 3;
+constexpr int kGemmALd = kGemmSK + 16;
+constexpr int kGemmWres = 16 * 1024;
+// the dw path: threads a CTA, channels a slice (16 bytes a pixel), output
+// rows a thread (half of them where the output is under twice as high),
+// the widest tile
+constexpr int kDwThreads = 256;
+constexpr int kDwSlice = 16;
+constexpr int kDwRows = 8;
+constexpr int kDwMaxTw = 32;
+constexpr int kSmemMax = 232448;  // the most a CTA can take on sm_90
 
 enum OutKind { kF32 = 0, kBf16 = 1, kI8 = 2, kI32 = 3 };
 
@@ -135,10 +185,9 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
-// The dense path.  mode: how the A tile is gathered, 0 one 16-byte
-// cp.async a thread (C % 16 == 0, x 16-byte aligned, int8 x), 1 four
-// 4-byte loads (C % 4 == 0), 2 sixteen byte loads.  Modes 1 and 2 shift
-// uint8 pixels to codes (x ^ 0x80) as they load them.
+// The dense path.  mode: how the A tile is gathered, 1 four 4-byte loads
+// (C % 4 == 0), 2 sixteen byte loads; both shift uint8 pixels to codes
+// (x ^ 0x80) as they load them.
 __global__ void __launch_bounds__(kThreads)
     conv_int8_dense_kernel(const __grid_constant__ ConvArgs a, int mode) {
   __shared__ __align__(16) int8_t as[2][kBM * kLd];
@@ -172,30 +221,21 @@ __global__ void __launch_bounds__(kThreads)
     cp_async16(&bs[st][row * kLd + half * 16], wrow + k0, frow);
     int8_t* dst = &as[st][row * kLd + half * 16];
     const int kk0 = k0 + half * 16;
-    if (mode == 0) {
-      const int tap = kk0 / a.c, ci = kk0 - tap * a.c;
+    const int step = mode == 1 ? 4 : 1;
+    for (int j = 0; j < 16; j += step) {
+      const int kk = kk0 + j;
+      const int tap = kk / a.c, ci = kk - tap * a.c;
       const int ky = tap / a.k, iy = iy0 + ky, ix = ix0 + tap - ky * a.k;
-      const bool ok = mrow && kk0 < a.ktot && iy >= 0 && iy < a.h &&
+      const bool ok = mrow && kk < a.ktot && iy >= 0 && iy < a.h &&
                       ix >= 0 && ix < a.w;
-      cp_async16(dst, ok ? ximg + ((size_t)iy * a.w + ix) * a.c + ci : a.x,
-                 ok);
-    } else {
-      const int step = mode == 1 ? 4 : 1;
-      for (int j = 0; j < 16; j += step) {
-        const int kk = kk0 + j;
-        const int tap = kk / a.c, ci = kk - tap * a.c;
-        const int ky = tap / a.k, iy = iy0 + ky, ix = ix0 + tap - ky * a.k;
-        const bool ok = mrow && kk < a.ktot && iy >= 0 && iy < a.h &&
-                        ix >= 0 && ix < a.w;
-        const int8_t* src = ximg + ((size_t)iy * a.w + ix) * a.c + ci;
-        if (step == 4)
-          *reinterpret_cast<uint32_t*>(dst + j) =
-              ok ? *reinterpret_cast<const uint32_t*>(src) ^
-                       (a.x_u8 ? 0x80808080u : 0u)
-                 : 0u;
-        else
-          dst[j] = ok ? (int8_t)(*src ^ (a.x_u8 ? 0x80 : 0)) : (int8_t)0;
-      }
+      const int8_t* src = ximg + ((size_t)iy * a.w + ix) * a.c + ci;
+      if (step == 4)
+        *reinterpret_cast<uint32_t*>(dst + j) =
+            ok ? *reinterpret_cast<const uint32_t*>(src) ^
+                     (a.x_u8 ? 0x80808080u : 0u)
+               : 0u;
+      else
+        dst[j] = ok ? (int8_t)(*src ^ (a.x_u8 ? 0x80 : 0)) : (int8_t)0;
     }
     cp_commit();
   };
@@ -257,6 +297,508 @@ __global__ void __launch_bounds__(kThreads)
           if (o < a.f) emit(a, (size_t)mm, o, acc[i][j][2 * h + u]);
         }
     }
+}
+
+// ------------------------------------------------ the epilogue of dw, gemm
+
+template <int V>
+using IntC = std::integral_constant<int, V>;
+
+// f(IntC<act>, IntC<kind>): the epilogue's activation and output kind fixed
+// at compile time, chosen once a tile (a switch per output would keep the
+// outputs of a thread apart; this way they interleave).
+template <typename F>
+__device__ __forceinline__ void with_epilogue(int act, int kind, F&& f) {
+  if (kind == kI32) return f(IntC<0>{}, IntC<kI32>{});
+  auto by_kind = [&](auto A) {
+    if (kind == kI8) f(A, IntC<kI8>{});
+    else if (kind == kBf16) f(A, IntC<kBf16>{});
+    else f(A, IntC<kF32>{});
+  };
+  switch (act) {
+    case 1: return by_kind(IntC<1>{});
+    case 2: return by_kind(IntC<2>{});
+    case 3: return by_kind(IntC<3>{});
+    case 4: return by_kind(IntC<4>{});
+    case 5: return by_kind(IntC<5>{});
+    case 6: return by_kind(IntC<6>{});
+    default: return by_kind(IntC<0>{});
+  }
+}
+
+// N outputs (2 or 4) of consecutive channels from their sums, packed into
+// N es bytes at dst (aligned to them): the raw sums, or act(acc * eff +
+// bias) (the product and the sum rounded apart) as float32, bfloat16 or
+// int8 codes (store_q's arithmetic).
+template <int ACT, int KIND, int N>
+__device__ __forceinline__ void put_outputs(int8_t* dst, const int (&acc)[N],
+                                            const float (&e)[N],
+                                            const float (&b)[N],
+                                            const float (&q)[N]) {
+  uint32_t w[N];
+  if constexpr (KIND == kI32) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) w[n] = (uint32_t)acc[n];
+  } else {
+    float v[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      v[n] = ffcnn_block::act(
+          __fadd_rn(__fmul_rn((float)acc[n], e[n]), b[n]), ACT);
+    if constexpr (KIND == kI8) {
+      uint32_t p = 0;
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        p |= (uint32_t)(uint8_t)ffcnn_block::quant(v[n], q[n]) << (8 * n);
+      if constexpr (N == 4)
+        *reinterpret_cast<uint32_t*>(dst) = p;
+      else
+        *reinterpret_cast<uint16_t*>(dst) = (uint16_t)p;
+      return;
+    } else if constexpr (KIND == kBf16) {
+#pragma unroll
+      for (int n = 0; n < N; n += 2)
+        w[n / 2] = __bfloat16_as_ushort(__float2bfloat16_rn(v[n])) |
+                   (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(
+                       v[n + 1])) << 16;
+      if constexpr (N == 4)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = w[0];
+      return;
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) w[n] = __float_as_uint(v[n]);
+    }
+  }
+  if constexpr (N == 4)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+}
+
+__host__ __device__ inline int out_bytes(int kind) {
+  return kind == kI8 ? 1 : kind == kBf16 ? 2 : 4;
+}
+
+// ------------------------------------------------------------- the gemm path
+
+// A gemm CTA: four warps over BM pixels x BN filters, 4 x 1 warps of 32 x
+// 16 at BN 16, else 2 x 2 warps of 32 x BN / 2.
+__host__ __device__ constexpr int gemm_bm(int bn) {
+  return bn == 16 ? 128 : 64;
+}
+
+// The gemm path's shared memory, byte offsets: the A ring, the weights
+// (resident (BN, Kp + 16) or a ring like A's), the output stage (BM rows
+// of BN outputs of up to 4 bytes, 16 bytes apart more).
+struct GemmSmem {
+  int b, o, total;
+};
+
+__host__ __device__ inline GemmSmem gemm_smem(int bn, bool wres, int kp) {
+  GemmSmem s;
+  s.b = kGemmStages * gemm_bm(bn) * kGemmALd;
+  s.o = s.b + (wres ? bn * (kp + 16) : kGemmStages * bn * kGemmALd);
+  s.total = s.o + gemm_bm(bn) * (bn * 4 + 16);
+  return s;
+}
+
+__host__ inline int gemm_bn(int f) { return f <= 16 ? 16 : f <= 32 ? 32 : 64; }
+
+__host__ inline bool gemm_wres(int bn, int kp) {
+  return bn * (kp + 16) <= kGemmWres;
+}
+
+// The gemm path: CTA (blockIdx.x, blockIdx.y) owns filters [BN y, BN y +
+// BN) and walks pixel tiles x, x + gridDim.x, ... of mtiles.
+template <int BN, bool WRES>
+__global__ void __launch_bounds__(kGemmThreads)
+    conv_int8_gemm_kernel(const __grid_constant__ ConvArgs a, int mtiles) {
+  constexpr int BM = gemm_bm(BN), WMW = BM / 32, WN = BN / (4 / WMW);
+  constexpr int NJ = WN / 8, AR = BM / 32;
+  extern __shared__ __align__(16) int8_t sm[];
+  const GemmSmem L = gemm_smem(BN, WRES, a.kp);
+  int8_t* const as = sm;
+  int8_t* const bs = sm + L.b;
+  int8_t* const os = sm + L.o;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WMW, wn = warp / WMW;
+  const int f0 = blockIdx.y * BN, live = min(BN, a.f - f0);
+  // rows < 2^31 (route_of), so the pixel arithmetic is 32-bit
+  const int npix = a.oh * a.ow, rows = a.n * npix;
+  const int nks = (a.kp + kGemmSK - 1) / kGemmSK;
+  const int mine = mtiles > (int)blockIdx.x
+                       ? (mtiles - 1 - (int)blockIdx.x) / gridDim.x + 1
+                       : 0;
+  const int total = mine * nks;
+
+  // eff, bias, inv of this thread's fragment columns (wn WN + 8 j + 2 t +
+  // u; past F, the last filter's)
+  float pe[NJ][2], pb[NJ][2], pq[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int o = min(f0 + wn * WN + j * 8 + 2 * t + u, a.f - 1);
+      pe[j][u] = a.eff[o];
+      pb[j][u] = a.bias[o];
+      pq[j][u] = a.out_kind == kI8 ? a.inv[a.inv_vec ? o : 0] : 0.f;
+    }
+  if (WRES) {
+    const int cpr = a.kp / 16, ld = a.kp + 16;
+    for (int i = tid; i < BN * cpr; i += kGemmThreads) {
+      const int r = i / cpr, c = i - r * cpr;
+      const bool ok = r < live;
+      cp_async16(bs + r * ld + c * 16,
+                 ok ? a.wp + (size_t)(f0 + r) * a.kp + c * 16 : a.wp, ok);
+    }
+    cp_commit();
+  }
+
+  // the loader: its step (tile, ks) and slot, this thread's A rows (row0
+  // + 32 i) of the tile it is loading, their images and first taps
+  const int ck = tid & 3, row0 = tid >> 2;
+  int ld_tile = 0, ld_ks = 0, ld_slot = 0;
+  const int8_t* xrow[AR];
+  int iy0[AR], ix0[AR];
+  auto load = [&]() {
+    const int ks = ld_ks, slot = ld_slot;
+    if (ks == 0) {
+      const int m0 = (blockIdx.x + ld_tile * gridDim.x) * BM;
+#pragma unroll
+      for (int i = 0; i < AR; ++i) {
+        const int m = m0 + row0 + 32 * i;
+        xrow[i] = nullptr;
+        iy0[i] = ix0[i] = 0;
+        if (m < rows) {
+          const int img = m / npix, rem = m - img * npix, oy = rem / a.ow;
+          iy0[i] = oy * a.stride - a.pad;
+          ix0[i] = (rem - oy * a.ow) * a.stride - a.pad;
+          xrow[i] = a.x + (size_t)img * a.h * a.w * a.c;
+        }
+      }
+    }
+    const int kk = ks * kGemmSK + ck * 16;
+    if (kk < a.kp) {
+      const int tap = kk / a.c, ci = kk - tap * a.c;
+      const int ky = tap / a.k, kx = tap - ky * a.k;
+      const bool kin = kk < a.ktot;
+#pragma unroll
+      for (int i = 0; i < AR; ++i) {
+        const int iy = iy0[i] + ky, ix = ix0[i] + kx;
+        const bool ok = xrow[i] != nullptr && kin && iy >= 0 && iy < a.h &&
+                        ix >= 0 && ix < a.w;
+        cp_async16(as + (slot * BM + row0 + 32 * i) * kGemmALd + ck * 16,
+                   ok ? xrow[i] + ((size_t)iy * a.w + ix) * a.c + ci : a.x,
+                   ok);
+      }
+    }
+    if (!WRES) {
+      for (int i = tid; i < BN * 4; i += kGemmThreads) {
+        const int r = i >> 2, kb = ks * kGemmSK + (i & 3) * 16;
+        if (kb < a.kp) {
+          const bool ok = r < live;
+          cp_async16(bs + (slot * BN + r) * kGemmALd + (i & 3) * 16,
+                     ok ? a.wp + (size_t)(f0 + r) * a.kp + kb : a.wp, ok);
+        }
+      }
+    }
+    ld_slot = ld_slot + 1 == kGemmStages ? 0 : ld_slot + 1;
+    if (++ld_ks == nks) {
+      ld_ks = 0;
+      ++ld_tile;
+    }
+  };
+
+  int acc[2][NJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < total) load();
+    cp_commit();
+  }
+  int tile = 0, ks = 0, slot = 0;
+  for (int it = 0; it < total; ++it) {
+    cp_wait<kGemmStages - 2>();
+    __syncthreads();  // stage it is in; every thread is done with it - 1
+    if (it + kGemmStages - 1 < total) load();
+    cp_commit();
+    const int steps = min(kGemmSK, a.kp - ks * kGemmSK) / 32;
+    const int8_t* at = as + slot * BM * kGemmALd;
+    const int8_t* bt = WRES ? bs + ks * kGemmSK : bs + slot * BN * kGemmALd;
+    const int bld = WRES ? a.kp + 16 : kGemmALd;
+#pragma unroll
+    for (int s = 0; s < kGemmSK / 32; ++s) {
+      if (s >= steps) break;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* p = at + (wm * 32 + i * 16 + g) * kGemmALd + s * 32 +
+                          4 * t;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kGemmALd);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kGemmALd + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = wn * WN + j * 8;
+        if (col >= live) break;  // warp-uniform: n8 steps past F
+        const int8_t* p = bt + (col + g) * bld + s * 32 + 4 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma_s8(acc[i][j], af[i], *reinterpret_cast<const uint32_t*>(p),
+                 *reinterpret_cast<const uint32_t*>(p + 16));
+      }
+    }
+    slot = slot + 1 == kGemmStages ? 0 : slot + 1;
+    if (++ks < nks) continue;
+    ks = 0;
+
+    // the tile's epilogue: each fragment pair's outputs (rows g + 8h,
+    // columns 2t, 2t + 1 of each 16 x 8 tile), the activation and kind
+    // fixed once a tile, packed into the stage; then 16-byte runs of each
+    // pixel's row out
+    const int m0 = (blockIdx.x + tile++ * gridDim.x) * BM;
+    const int es = out_bytes(a.out_kind), sld = BN * es + 16;
+    with_epilogue(a.act, a.out_kind, [&](auto A, auto K) {
+      constexpr int ACT = decltype(A)::value, KIND = decltype(K)::value;
+      constexpr int kEs = KIND == kI8 ? 1 : KIND == kBf16 ? 2 : 4;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pair[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+            put_outputs<ACT, KIND, 2>(
+                os + (wm * 32 + i * 16 + g + 8 * h) * sld +
+                    (wn * WN + j * 8 + 2 * t) * kEs,
+                pair, pe[j], pb[j], pq[j]);
+          }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][j][u] = 0;
+    __syncthreads();  // the stage is whole
+    const int vrows = min(BM, rows - m0);
+    int8_t* y = static_cast<int8_t*>(a.y) + ((size_t)m0 * a.f + f0) * es;
+    if ((a.f * es) % 16 == 0 && (uintptr_t)a.y % 16 == 0) {
+      const int cpr = live * es / 16;
+      for (int i = tid; i < vrows * cpr; i += kGemmThreads) {
+        const int r = i / cpr, c = i - r * cpr;
+        *reinterpret_cast<uint4*>(y + (size_t)r * a.f * es + c * 16) =
+            *reinterpret_cast<const uint4*>(os + r * sld + c * 16);
+      }
+    } else {
+      for (int i = tid; i < vrows * live; i += kGemmThreads) {
+        const int r = i / live, c = i - r * live;
+        const int8_t* src = os + r * sld + c * es;
+        int8_t* dst = y + ((size_t)r * a.f + c) * es;
+        if (es == 1)
+          *dst = *src;
+        else if (es == 2)
+          *reinterpret_cast<uint16_t*>(dst) =
+              *reinterpret_cast<const uint16_t*>(src);
+        else
+          *reinterpret_cast<uint32_t*>(dst) =
+              *reinterpret_cast<const uint32_t*>(src);
+      }
+    }
+    // the next write of the stage follows at least one ring barrier
+  }
+  cp_wait<0>();
+}
+
+// --------------------------------------------------------------- the dw path
+
+// A dw tile: rows output rows a thread, tw output columns x th output
+// rows (th / rows threads' rows), its input window wr x wc pixels (wcp
+// columns in shared memory: stride 2 keeps even columns, then odd, each
+// plane wcp / 2 wide), and the tiles across and down the output.
+struct DwTile {
+  int rows, tw, th, wr, wc, wcp, tx, ty;
+};
+
+__host__ __device__ inline DwTile dw_tile(int oh, int ow, int k, int s) {
+  DwTile d;
+  d.rows = oh < 2 * kDwRows ? kDwRows / 2 : kDwRows;
+  const int parts = (ow + kDwMaxTw - 1) / kDwMaxTw;
+  d.tw = ow <= kDwMaxTw ? ow : ow % 16 == 0 ? 16 : (ow + parts - 1) / parts;
+  const int fit = kDwThreads / (4 * d.tw);
+  const int down = (oh + d.rows - 1) / d.rows;
+  const int tr = fit < 1 ? 1 : fit < down ? fit : down;
+  d.th = tr * d.rows;
+  d.wr = (d.th - 1) * s + k;
+  d.wc = (d.tw - 1) * s + k;
+  d.wcp = s == 1 ? d.wc : 2 * ((d.wc + 1) / 2);
+  d.tx = (ow + d.tw - 1) / d.tw;
+  d.ty = (oh + d.th - 1) / d.th;
+  return d;
+}
+
+// Two windows and the output stage (16 channels of 4 bytes a pixel, the
+// widest output).
+__host__ __device__ inline int dw_smem(const DwTile& d) {
+  return 2 * d.wr * d.wcp * 16 + d.th * d.tw * kDwSlice * 4;
+}
+
+// Byte c (channel c) of pixel words px[0 .. 3], one tap a byte, for
+// __dp4a; K 3 has three, its fourth byte is px[0]'s (its weight is 0).
+template <int K>
+__device__ __forceinline__ uint32_t taps4(const uint32_t (&px)[K], int c) {
+  const uint32_t lo = __byte_perm(px[0], px[1], c | (4 + c) << 4);
+  if constexpr (K == 3)
+    return __byte_perm(lo, px[2], 0x0010 | (4 + c) << 8);
+  else
+    return __byte_perm(lo, __byte_perm(px[2], px[3], c | (4 + c) << 4),
+                       0x5410);
+}
+
+// The dw path: CTA (blockIdx.x, blockIdx.y) owns channels [16 y, 16 y +
+// 16) and walks tiles x, x + gridDim.x, ... (image, tile row, tile column);
+// a thread takes four channels (q = tid & 3) of one output column and R
+// (d.rows) rows in each pass over the tile.  Each input row's K pixel words
+// are loaded once for every output row they feed; the taps of a row go
+// four a __dp4a (the bytes of one channel gathered by __byte_perm, the
+// weights packed so once a CTA; K 5's fifth tap a __dp4a of its own).
+template <int K, int S, int R>
+__global__ void __launch_bounds__(kDwThreads)
+    conv_int8_dw_kernel(const __grid_constant__ ConvArgs a) {
+  constexpr int NW = K == 3 ? 1 : 2;  // __dp4a words a row of taps
+  extern __shared__ __align__(16) int8_t sm[];
+  const DwTile d = dw_tile(a.oh, a.ow, K, S);
+  const int wbuf = d.wr * d.wcp * 16;
+  int8_t* const os = sm + 2 * wbuf;
+  const int tid = threadIdx.x, q = tid & 3;
+  const int c0 = blockIdx.y * kDwSlice, ch = c0 + 4 * q;
+  const int per_img = d.ty * d.tx, ntiles = a.n * per_img;
+  const int es = out_bytes(a.out_kind);
+
+  // this thread's weights, (ky, channel): taps kx 0..3 a word, K 5's tap 4
+  // in the low byte of a second; and its channels' eff, bias, inv
+  uint32_t wk[K][4][NW];
+#pragma unroll
+  for (int ky = 0; ky < K; ++ky) {
+    uint32_t px[K];
+#pragma unroll
+    for (int kx = 0; kx < K; ++kx)
+      px[kx] = *reinterpret_cast<const uint32_t*>(
+          a.wp + (size_t)(ky * K + kx) * a.f + ch);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wk[ky][c][0] = taps4(px, c) & (K == 3 ? 0x00ffffffu : 0xffffffffu);
+      if constexpr (NW == 2) wk[ky][c][1] = (px[4] >> (8 * c)) & 0xffu;
+    }
+  }
+  float eff[4], bias[4], inv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    eff[c] = a.eff[ch + c];
+    bias[c] = a.bias[ch + c];
+    inv[c] = a.out_kind == kI8 ? a.inv[a.inv_vec ? ch + c : 0] : 0.f;
+  }
+
+  auto load = [&](int tile, int8_t* buf) {
+    const int img = tile / per_img, rem = tile - img * per_img;
+    const int ty = rem / d.tx;
+    const int iyb = ty * d.th * S - a.pad;
+    const int ixb = (rem - ty * d.tx) * d.tw * S - a.pad;
+    const int8_t* xi = a.x + (size_t)img * a.h * a.w * a.c + c0;
+    for (int i = tid; i < d.wr * d.wc; i += kDwThreads) {
+      const int r = i / d.wc, p = i - r * d.wc;
+      const int iy = iyb + r, ix = ixb + p;
+      const bool ok = iy >= 0 && iy < a.h && ix >= 0 && ix < a.w;
+      const int pc = S == 1 ? p : (p & 1) * (d.wcp / 2) + (p >> 1);
+      cp_async16(buf + (r * d.wcp + pc) * 16,
+                 ok ? xi + ((size_t)iy * a.w + ix) * a.c : a.x, ok);
+    }
+    cp_commit();
+  };
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) load(tile, sm);
+  for (int b = 0; tile < ntiles; tile += gridDim.x, b ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      load(next, sm + (b ^ 1) * wbuf);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // this tile's window is in
+    const uint32_t* win = reinterpret_cast<const uint32_t*>(sm + b * wbuf);
+    const int img = tile / per_img, rem = tile - img * per_img;
+    const int ty = rem / d.tx, tx = rem - ty * d.tx;
+    const int items = 4 * d.tw * (d.th / R);
+    for (int it = tid; it < items; it += kDwThreads) {
+      const int x = (it >> 2) % d.tw, tr = (it >> 2) / d.tw;
+      int acc[R][4];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+      // input row r of the thread's window feeds output rows j with
+      // ky = r - j S in [0, K): its words are loaded once for all of them
+      const uint32_t* wrow = win + (tr * R * S * d.wcp) * 4 + q;
+#pragma unroll
+      for (int r = 0; r < (R - 1) * S + K; ++r) {
+        uint32_t px[K];
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx)
+          px[kx] = wrow[(r * d.wcp +
+                         (S == 1 ? x + kx
+                                 : (kx & 1) * (d.wcp / 2) + x + (kx >> 1))) *
+                        4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t t4 = taps4(px, c);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int ky = r - j * S;
+            if (ky >= 0 && ky < K) {
+              acc[j][c] = __dp4a((int)t4, (int)wk[ky][c][0], acc[j][c]);
+              if constexpr (NW == 2)
+                acc[j][c] = __dp4a((int)(px[K - 1] >> (8 * c)),
+                                   (int)wk[ky][c][1], acc[j][c]);
+            }
+          }
+        }
+      }
+      with_epilogue(a.act, a.out_kind, [&](auto A, auto K_) {
+        constexpr int ACT = decltype(A)::value, KIND = decltype(K_)::value;
+        constexpr int kEs = KIND == kI8 ? 1 : KIND == kBf16 ? 2 : 4;
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          put_outputs<ACT, KIND, 4>(
+              os + (((tr * R + j) * d.tw + x) * kDwSlice + 4 * q) * kEs,
+              acc[j], eff, bias, inv);
+      });
+    }
+    __syncthreads();  // the stage is whole; the window is free to refill
+    // 16 bytes a thread: es of them a pixel's slice
+    int8_t* y = static_cast<int8_t*>(a.y) + (size_t)c0 * es;
+    for (int i = tid; i < d.th * d.tw * es; i += kDwThreads) {
+      const int pix = i / es, part = i - pix * es;
+      const int ly = pix / d.tw, lx = pix - ly * d.tw;
+      const int oy = ty * d.th + ly, ox = tx * d.tw + lx;
+      if (oy >= a.oh || ox >= a.ow) continue;
+      *reinterpret_cast<uint4*>(
+          y + (((size_t)img * a.oh + oy) * a.ow + ox) * a.c * es +
+          part * 16) = *reinterpret_cast<const uint4*>(os + i * 16);
+    }
+  }
 }
 
 // Depthwise, C % 4 == 0: a thread a (pixel, four channels), char4 loads of
@@ -325,25 +867,117 @@ __global__ void __launch_bounds__(kEwThreads)
   emit(a, (size_t)m, o, s);
 }
 
+// ------------------------------------------------------------------- host
+
+// The paths, as ffcnn_conv_int8 reports them (kernels/conv_int8.py's
+// ROUTES in this order).
+enum Route { kDense = 0, kGemm = 1, kDw = 2, kDw4 = 3, kGrouped = 4 };
+
+// The path a call takes, from its shape, dtype and alignment alone.
+int route_of(const ConvArgs& a) {
+  // the 16-byte paths: aligned tensors, pixel counts below 2^31
+  const bool a16 = (uintptr_t)a.x % 16 == 0 && (uintptr_t)a.wp % 16 == 0 &&
+                   (uintptr_t)a.y % 16 == 0 &&
+                   (long long)a.n * a.oh * a.ow <= 0x7fffffffLL &&
+                   (long long)a.n * a.h * a.w <= 0x7fffffffLL;
+  if (a.groups == 1)
+    return !a.x_u8 && a.c % 16 == 0 && a16 ? kGemm : kDense;
+  if (a.c == a.groups && a.f == a.groups) {
+    if (a.c % kDwSlice == 0 && (a.k == 3 || a.k == 5) &&
+        (a.stride == 1 || a.stride == 2) && a16)
+      return kDw;
+    if (a.c % 4 == 0) return kDw4;
+  }
+  return kGrouped;
+}
+
+// The CTAs of kernel k the card holds at once (at least one an SM), its
+// shared-memory cap raised first where it needs more than it had.  The
+// driver is asked once a kernel, device and size (an eager int8 forward
+// launches the conv 29 times), and the cap is only ever raised.
+template <typename Kernel>
+long long resident(Kernel k, int threads, size_t smem) {
+  struct Seen {
+    Kernel k;
+    int dev;
+    size_t smem;
+    long long fit;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  size_t cap = 48 * 1024;
+  for (const Seen& e : seen) {
+    if (e.k != k || e.dev != dev) continue;
+    if (e.smem == smem) return e.fit;
+    cap = std::max(cap, e.smem);
+  }
+  if (smem > cap)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  int sms = 1, occ = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, threads, smem);
+  const long long fit = (long long)std::max(occ, 1) * std::max(sms, 1);
+  seen.push_back({k, dev, smem, fit});
+  return fit;
+}
+
+template <int BN, bool WRES>
+void launch_gemm(const ConvArgs& a, long long mtiles, int ntiles,
+                 size_t smem, cudaStream_t s) {
+  auto* k = conv_int8_gemm_kernel<BN, WRES>;
+  const long long fit = resident(k, kGemmThreads, smem);
+  const long long gx = std::max(1LL, std::min(mtiles, fit / ntiles));
+  k<<<dim3((unsigned)gx, ntiles), kGemmThreads, smem, s>>>(a, (int)mtiles);
+}
+
+void launch_gemm(const ConvArgs& a, int bn, bool wres, long long mtiles,
+                 int ntiles, size_t smem, cudaStream_t s) {
+  switch (bn * 2 + wres) {
+    case 32: return launch_gemm<16, false>(a, mtiles, ntiles, smem, s);
+    case 33: return launch_gemm<16, true>(a, mtiles, ntiles, smem, s);
+    case 64: return launch_gemm<32, false>(a, mtiles, ntiles, smem, s);
+    case 65: return launch_gemm<32, true>(a, mtiles, ntiles, smem, s);
+    case 128: return launch_gemm<64, false>(a, mtiles, ntiles, smem, s);
+    default: return launch_gemm<64, true>(a, mtiles, ntiles, smem, s);
+  }
+}
+
+template <int K, int S, int R>
+void launch_dw(const ConvArgs& a, long long ntiles, size_t smem,
+               cudaStream_t s) {
+  auto* k = conv_int8_dw_kernel<K, S, R>;
+  const int slices = a.c / kDwSlice;
+  const long long fit = resident(k, kDwThreads, smem);
+  const long long gx = std::max(1LL, std::min(ntiles, fit / slices));
+  k<<<dim3((unsigned)gx, slices), kDwThreads, smem, s>>>(a);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x (n, h, w, c) int8, contiguous; with x_u8, uint8 pixels (groups == 1
-// only) and m128 (oh * ow, f) float32, the uint8 mode.  wp: the packed int8 weights: groups ==
-// 1 (F, kp), K in (ky, kx, c) order, zero past k*k*c, kp a multiple of 32,
-// 16-byte aligned; depthwise (c == groups == f) with c % 4 == 0 (k, k, f),
-// x and wp 4-byte aligned; any other grouped conv (f, k, k, c / groups).  eff, bias: (f,) float32;
-// inv: (f,) float32 where inv_vec, else (1,), read for out_kind 2 only.  y
-// (n, oh, ow, f): float32 (out_kind 0), bfloat16 (1), int8 (2) or the int32
-// accumulators (3).  Returns cudaErrorInvalidValue for arguments it cannot
-// take, else cudaGetLastError().
+// only) and m128 (oh * ow, f) float32, the uint8 mode.  wp: the packed int8
+// weights: groups == 1 (F, kp), K in (ky, kx, c) order, zero past k*k*c,
+// kp a multiple of 32, 16-byte aligned; depthwise (c == groups == f) with
+// c % 4 == 0 (k, k, f), x and wp 4-byte aligned; any other grouped conv
+// (f, k, k, c / groups).  eff, bias: (f,) float32; inv: (f,) float32 where
+// inv_vec, else (1,), read for out_kind 2 only.  y (n, oh, ow, f): float32
+// (out_kind 0), bfloat16 (1), int8 (2) or the int32 accumulators (3).
+// *route: the path launched (Route), -1 where none was.  Returns
+// cudaErrorInvalidValue for arguments it cannot take, else
+// cudaGetLastError().
 int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
                     const void* bias, const void* inv, int inv_vec,
                     const void* m128, int x_u8, void* y, int out_kind, int n,
                     int h, int w, int c, int f, int k, int stride, int pad,
                     int groups, int oh, int ow, int kp, int act,
-                    void* stream) {
+                    void* stream, int* route) {
+  *route = -1;
   if (groups < 1 || c < 1 || f < 1 || k < 1 || stride < 1 || pad < 0 ||
       c % groups || f % groups || out_kind < 0 || out_kind > 3 ||
       (out_kind == 2 && inv == nullptr) || n < 0 || oh < 0 || ow < 0 ||
@@ -356,24 +990,57 @@ int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
   const long long rows = (long long)n * oh * ow;
   if (rows == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  const int r = route_of(a);
   if (groups == 1) {
-    if (kp % kBK || kp < k * k * c || (uintptr_t)wp % 16 ||
-        (rows + kBM - 1) / kBM > 0x7fffffffLL || (f + kBN - 1) / kBN > 65535)
+    if (kp % kBK || kp < k * k * c || (uintptr_t)wp % 16)
       return (int)cudaErrorInvalidValue;
-    const int mode = !x_u8 && c % 16 == 0 && (uintptr_t)x % 16 == 0 ? 0
-                     : c % 4 == 0 && (uintptr_t)x % 4 == 0 ? 1
-                                                            : 2;
-    const dim3 grid((unsigned)((rows + kBM - 1) / kBM), (f + kBN - 1) / kBN);
-    conv_int8_dense_kernel<<<grid, kThreads, 0, s>>>(a, mode);
+    if (r == kGemm) {
+      const int bn = gemm_bn(f);
+      const bool wres = gemm_wres(bn, kp);
+      const long long mtiles = (rows + gemm_bm(bn) - 1) / gemm_bm(bn);
+      const int ntiles = (f + bn - 1) / bn;
+      const int smem = gemm_smem(bn, wres, kp).total;
+      if (mtiles > 0x7fffffffLL || ntiles > 65535 || smem > kSmemMax)
+        return (int)cudaErrorInvalidValue;
+      launch_gemm(a, bn, wres, mtiles, ntiles, smem, s);
+    } else {
+      if ((rows + kBM - 1) / kBM > 0x7fffffffLL ||
+          (f + kBN - 1) / kBN > 65535)
+        return (int)cudaErrorInvalidValue;
+      const int mode = c % 4 == 0 && (uintptr_t)x % 4 == 0 ? 1 : 2;
+      const dim3 grid((unsigned)((rows + kBM - 1) / kBM),
+                      (f + kBN - 1) / kBN);
+      conv_int8_dense_kernel<<<grid, kThreads, 0, s>>>(a, mode);
+    }
+    *route = r;
     return (int)cudaGetLastError();
   }
-  const bool dw4 = c == groups && f == groups && c % 4 == 0;
-  if (dw4 && ((uintptr_t)x % 4 || (uintptr_t)wp % 4))
+  if (r == kDw) {
+    const DwTile d = dw_tile(oh, ow, k, stride);
+    const long long ntiles = (long long)n * d.ty * d.tx;
+    const int smem = dw_smem(d);
+    if (ntiles > 0x7fffffffLL || c / kDwSlice > 65535 || smem > kSmemMax)
+      return (int)cudaErrorInvalidValue;
+    const int rows = d.rows == kDwRows;
+    switch ((k == 5) * 4 + (stride == 2) * 2 + rows) {
+      case 0: launch_dw<3, 1, kDwRows / 2>(a, ntiles, smem, s); break;
+      case 1: launch_dw<3, 1, kDwRows>(a, ntiles, smem, s); break;
+      case 2: launch_dw<3, 2, kDwRows / 2>(a, ntiles, smem, s); break;
+      case 3: launch_dw<3, 2, kDwRows>(a, ntiles, smem, s); break;
+      case 4: launch_dw<5, 1, kDwRows / 2>(a, ntiles, smem, s); break;
+      case 5: launch_dw<5, 1, kDwRows>(a, ntiles, smem, s); break;
+      case 6: launch_dw<5, 2, kDwRows / 2>(a, ntiles, smem, s); break;
+      default: launch_dw<5, 2, kDwRows>(a, ntiles, smem, s); break;
+    }
+    *route = r;
+    return (int)cudaGetLastError();
+  }
+  if (r == kDw4 && ((uintptr_t)x % 4 || (uintptr_t)wp % 4))
     return (int)cudaErrorInvalidValue;
-  const long long items = rows * (dw4 ? f / 4 : f);
+  const long long items = rows * (r == kDw4 ? f / 4 : f);
   const long long blocks = (items + kEwThreads - 1) / kEwThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (dw4) {
+  if (r == kDw4) {
     conv_int8_dw4_kernel<<<(unsigned)blocks, kEwThreads, 0, s>>>(a);
   } else {
     const int icg = c / groups;
@@ -381,6 +1048,7 @@ int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
                     (uintptr_t)wp % 4 == 0;
     conv_int8_grouped_kernel<<<(unsigned)blocks, kEwThreads, 0, s>>>(a, vec);
   }
+  *route = r;
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,14 @@ each pixel to a code (``x ^ 0x80``) and adds ``m128`` back before the
 epilogue, exactly.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.
+raise.  The kernel routes each call by its shape, dtype and alignment to
+one of its paths (``ROUTES``; ``csrc/conv_int8.cu``'s note): ``gemm``
+(dense, int8 codes in, C a multiple of 16), ``dw`` (depthwise 3x3 and 5x5
+at stride 1 and 2, C a multiple of 16), and the first version's ``dense``
+(the uint8 mode, and C not a multiple of 16), ``dw4`` and ``grouped``.
+``route`` names the path a call takes (the tiles and shared memory are the
+kernel's own choice); ``conv_int8.routes`` counts the launches of each
+path.
 """
 
 from __future__ import annotations
@@ -138,6 +145,25 @@ def prepare_conv0(weights: torch.Tensor, scale, bias, *, h: int, w: int,
                                          device=dev).contiguous(),
                     inv=None, stride=stride, pad=pad, groups=1, act=act,
                     kp=kp, m128=m128.contiguous())
+
+
+# csrc/conv_int8.cu's paths, in the order of its Route
+ROUTES = ("dense", "gemm", "dw", "dw4", "grouped")
+
+
+def route(c: int, f: int, k: int, stride: int, groups: int,
+          x_u8: bool = False, aligned: bool = True) -> str:
+    """The path the kernel takes (``route_of``); ``aligned``: x, the
+    packed weights and the output 16-byte aligned, as every tensor torch
+    allocates, and fewer than 2^31 input and output pixels."""
+    if groups == 1:
+        return "gemm" if not x_u8 and c % 16 == 0 and aligned else "dense"
+    if c == groups == f:
+        if c % 16 == 0 and k in (3, 5) and stride in (1, 2) and aligned:
+            return "dw"
+        if c % 4 == 0:
+            return "dw4"
+    return "grouped"
 
 
 def _shift(x_u8: torch.Tensor) -> torch.Tensor:
@@ -254,14 +280,17 @@ def _conv_cuda(xq, wq, wp, eff, bias, inv, m128, stride, pad, groups, act,
                          f"{(oh * ow, fn)} on {xq.device} (prepare_conv0)")
     y = torch.empty((n, oh, ow, fn), dtype=out, device=xq.device)
     lib = build()
+    path = ctypes.c_int(-1)
     err = lib.ffcnn_conv_int8(
         xq.data_ptr(), wp.data_ptr(), eff.data_ptr(), bias.data_ptr(),
         None if inv is None else inv.data_ptr(),
         int(inv is not None and inv.numel() > 1),
         m128.data_ptr() if u8 else None, int(u8), y.data_ptr(), _KINDS[out],
         n, h, w, c, fn, wq.shape[0], stride, pad, groups, oh, ow, kp, act,
-        _build.stream_ptr())
+        _build.stream_ptr(), ctypes.byref(path))
     conv_int8.launches += 1
+    if path.value >= 0:
+        conv_int8.routes[ROUTES[path.value]] += 1
     if err:
         raise RuntimeError("int8 conv launch failed: "
                            + lib.ffcnn_conv_int8_error_string(err).decode())
@@ -289,6 +318,7 @@ def conv_int8(xq: torch.Tensor, cp: Int8Conv, float_dtype=torch.bfloat16,
 
 
 conv_int8.launches = 0
+conv_int8.routes = dict.fromkeys(ROUTES, 0)   # launches a path
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -298,7 +328,8 @@ def build() -> ctypes.CDLL:
     """Build (if needed) and load the int8 conv's library."""
     lib = _build.load_library("conv_int8")
     lib.ffcnn_conv_int8.argtypes = ([_PTR] * 5 + [_INT, _PTR, _INT, _PTR]
-                                    + [_INT] * 14 + [_PTR])
+                                    + [_INT] * 14 + [_PTR,
+                                                     ctypes.POINTER(_INT)])
     lib.ffcnn_conv_int8.restype = _INT
     lib.ffcnn_conv_int8_error_string.argtypes = [_INT]
     lib.ffcnn_conv_int8_error_string.restype = ctypes.c_char_p

@@ -452,3 +452,26 @@ def quant_state(plan: QuantPlan, ir: NetIR, float_dtype,
     if st is None or st.ir is not ir:
         st = plan.prepared[key] = QuantState(plan, ir, float_dtype, dev)
     return st
+
+
+def unfused_int8(net) -> List[int]:
+    """The convs of an int8 ``Net``'s plan that run through the int8 conv
+    kernel: the plan's quantized convs outside the Net's fused runs."""
+    inside = {li for r in net._fused_runs for li in range(r.start, r.end + 1)}
+    return sorted(li for li in net.quant.weights if li not in inside)
+
+
+def conv_shapes(net, distinct: bool = False) -> list:
+    """(layer, geometry) of each of ``unfused_int8(net)``: (h, w, c, f, k,
+    stride, pad, groups, act, codes out); with ``distinct`` the first
+    layer of each geometry only."""
+    out, seen = [], set()
+    for li in unfused_int8(net):
+        b, l = net.ir.blobs[li], net.ir.layers[li]
+        geo = (b.h, b.w, b.c, l.fn, l.fs, l.stride, l.pad, l.groups,
+               l.activation, li + 1 in net.quant.blob_scale)
+        if distinct and geo in seen:
+            continue
+        seen.add(geo)
+        out.append((li, geo))
+    return out

@@ -212,6 +212,10 @@ CONV_CASES = {
     "grouped": (2, 7, 7, 16, 8, 3, 1, 1, 4, 3),
     # K = 3 * 3 * 256 = 2,304: float32 accumulation would round past 2^24
     "dense3x3_k2304": (1, 5, 5, 256, 8, 3, 1, 1, 1, 0),
+    # the dw path's 5x5 at an odd size, the gemm path's F 16 at an odd
+    # pixel count
+    "depthwise5x5_odd": (2, 9, 7, 16, 16, 5, 1, 2, 16, 2),
+    "dense1x1_f16_odd": (1, 7, 5, 48, 16, 1, 1, 0, 1, 0),
 }
 
 
@@ -777,3 +781,100 @@ def test_conv0_int8_flag_refused_in_int8_mode(xl96, xl96_plan, monkeypatch):
         err = np.abs(g - w)
         assert err.max() <= 2 ** -3 * scale, err.max() / scale
         assert err.mean() <= 2 ** -8 * scale, err.mean() / scale
+
+
+# ------------------------------------------- the int8 conv's paths and plans
+CU = os.path.join(REPO, "ffcnn_tpu_torch", "csrc", "conv_int8.cu")
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_pack_weights_unpacks_to_wq(case):
+    """Each packing (dense (F, Kp) with zero padding; depthwise (k, k, F);
+    grouped (F, k, k, C/groups)) gives back ``wq``."""
+    _, _, _, c, f, fs, _, _, groups, _ = CONV_CASES[case]
+    wq = torch.from_numpy(np.random.RandomState(3).randint(
+        -127, 128, (fs, fs, c // groups, f)).astype(np.int8))
+    wp, kp = tci.pack_weights(wq, groups)
+    if groups == 1:
+        k = fs * fs * c
+        assert kp % 32 == 0 and kp - k < 32 and not wp[:, k:].any()
+        back = wp[:, :k].reshape(f, fs, fs, c).permute(1, 2, 3, 0)
+    elif c == groups == f and f % 4 == 0:
+        assert kp == 0 and tuple(wp.shape) == (fs, fs, f)
+        back = wp.reshape(fs, fs, 1, f)
+    else:
+        back = wp.permute(1, 2, 3, 0)
+    assert torch.equal(back, wq)
+
+
+def test_plan_mirror_pinned_to_the_source():
+    """The wrapper's ``ROUTES`` are the source's ``Route`` in order, and
+    ``route``'s depthwise slice of 16 channels is the source's
+    ``kDwSlice``."""
+    import re
+    src = open(CU).read()
+    enum = re.search(r"enum Route \{([^}]*)\}", src).group(1)
+    names = [e.split("=")[0].strip() for e in enum.split(",")]
+    assert names == ["k" + r.capitalize() for r in tci.ROUTES]
+    assert tci.ROUTES == ("dense", "gemm", "dw", "dw4", "grouped")
+    assert re.search(r"constexpr int kDwSlice = 16;", src)
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    ((48, 16, 1, 1, 1), {}, "gemm"),
+    ((16, 272, 3, 2, 1), {}, "gemm"),
+    ((48, 16, 1, 1, 1), {"x_u8": True}, "dense"),
+    ((40, 16, 1, 1, 1), {}, "dense"),
+    ((48, 16, 1, 1, 1), {"aligned": False}, "dense"),
+    ((48, 48, 3, 2, 48), {}, "dw"),
+    ((240, 240, 5, 1, 240), {}, "dw"),
+    ((40, 40, 3, 1, 40), {}, "dw4"),
+    ((32, 32, 7, 1, 32), {}, "dw4"),
+    ((32, 32, 3, 3, 32), {}, "dw4"),
+    ((32, 32, 3, 1, 32), {"aligned": False}, "dw4"),
+    ((16, 8, 3, 1, 4), {}, "grouped"),
+    ((6, 6, 3, 1, 6), {}, "grouped")])
+def test_routes_by_shape(args, kw, want):
+    """The routing (c, f, k, stride, groups): dense int8 codes with C a
+    multiple of 16 take gemm, the uint8 mode and other C the first dense
+    kernel; depthwise 3x3 and 5x5 at stride 1 and 2 with C a multiple of
+    16 take dw, other depthwise convs with C a multiple of 4 dw4; the rest
+    grouped; an unaligned tensor leaves the 16-byte paths."""
+    assert tci.route(*args, **kw) == want
+
+
+@pytest.fixture(scope="module")
+def int8_shapes():
+    """xl's unfused int8 convs and v8n's distinct ones
+    (``quant.conv_shapes``), from int8 Nets calibrated on the CPU at 96x96
+    and 64x64 (which convs run unfused, and their routes, do not depend on
+    the size)."""
+    from ffcnn_tpu_torch.darknet.weights import load_weights as tload
+    rng = np.random.RandomState(0)
+    wbytes = pt.synth_weights_bytes(pt.parse_cfg(XL), seed=42, obj_bias=2.0)
+    xl = pt.load(XL, wbytes, input_w=96, input_h=96, mode="int8",
+                 device="cpu")
+    xl.calibrate(rng.randint(0, 256, (2, 96, 96, 3), np.uint8))
+    cfg, w = ty.convert(ty.synthesize_state_dict(80, "n", seed=0), 80, "n",
+                        size=64, conf=0.05)
+    ir = tparse(cfg, is_path=False)
+    v8 = pt.Net(ir, tload(ir, w)[0], mode="int8", device="cpu")
+    v8.calibrate(rng.randint(0, 256, (1, 64, 64, 3), np.uint8))
+    return {"xl": tq.conv_shapes(xl), "v8n": tq.conv_shapes(v8, True)}
+
+
+def test_every_xl_and_v8n_shape_gets_a_plan(int8_shapes):
+    """xl's 29 unfused int8 convs are 13 depthwise convs at stride 1 and 2,
+    all on the dw path, and 16 1x1 convs on the gemm path; v8n's 34
+    distinct dense convs all take gemm.  Each path's tile and shared memory
+    are the kernel's own: the card checks that every one of these shapes
+    fits (``chip_smoke.py`` phase 12 launches each; the kernel refuses a
+    CTA past 227 KB)."""
+    xl, v8 = int8_shapes["xl"], int8_shapes["v8n"]
+    assert len(xl) == 29 and len(v8) == 34
+    routes = [tci.route(geo[2], geo[3], geo[4], geo[5], geo[7])
+              for _, geo in xl]
+    assert routes.count("dw") == 13 and routes.count("gemm") == 16
+    assert {geo[5] for (_, geo), r in zip(xl, routes) if r == "dw"} == {1, 2}
+    assert {tci.route(geo[2], geo[3], geo[4], geo[5], geo[7])
+            for _, geo in v8} == {"gemm"}
