@@ -292,7 +292,7 @@ for _want in WANT_COUNTS.values():
 # S = 1 and S = 2.  A replay runs no Python, so the kernels a graph's replay
 # ran are counted from these events, not by the wrappers.
 KERNEL_SYMBOLS = {
-    "conv_int8": r"conv_int8_(dense|dw4|dw|gemm|grouped)_kernel",
+    "conv_int8": r"conv_int8_(dense|dw4|dw|gemm|grouped|u8)_kernel",
     "K1": r"mma::block_kernel<1,|3mma12block_kernelILi1E",
     "K2": r"(?<![A-Za-z_])nms_keep_kernel",
     "K3": r"mma::block_kernel<2,|3mma12block_kernelILi2E",
@@ -2293,14 +2293,118 @@ def int8_times(i8, frames, dev) -> None:
 C0Q_SIZES = (320, 322)
 C0Q_FLAGS = {**REGION_FLAGS, "FFCNN_CONV0_INT8": "1"}
 C0Q_COUNTS = {**WANT_COUNTS["region"], "K6": 0, "conv_int8": 1}
+# the other stems the u8 path specialises, each at its model's input size
+# and batch C0Q_STEM_BATCH, seeded weights of its layer 0's shape: (tag,
+# cfg, size), the size None for YOLOv8n's (F 16, stride 2, swish; V8_SIZE)
+C0Q_STEMS = (("micro", "models/ffcnn-micro.cfg", 64),
+             ("yolov3-tiny", "models/yolov3-tiny.cfg", 416),
+             ("yolov4-tiny", "models/yolov4-tiny.cfg", 416),
+             ("yolov4", "models/yolov4.cfg", 416),
+             ("v8n", None, None))
+C0Q_STEM_BATCH = 4
+# mish on the card (block_fused.cuh: v * tanhf(log1pf(expf(v)))) may round
+# apart from torch's; its float32 outputs may differ by this many ulps
+C0Q_MISH_ULPS = 2
+
+
+def ulps(got, want):
+    """The largest distance in units in the last place between two float32
+    or bfloat16 tensors of one shape (their bits as ordered integers)."""
+    import torch
+    bits, sign = ((torch.int32, 0x7FFFFFFF) if want.dtype == torch.float32
+                  else (torch.int16, 0x7FFF))
+
+    def key(v):
+        i = v.contiguous().view(bits).long()
+        return torch.where(i >= 0, i, -(i & sign))
+    return int((key(got) - key(want)).abs().max())
+
+
+def check_u8(label, got, want, act) -> float:
+    """The u8 path against its plain version: bit for bit, except mish's
+    float outputs, within C0Q_MISH_ULPS float32 ulps (a bfloat16 output one
+    bf16 ulp, the float32 difference's rounding), the largest logged.
+    Returns max |err|."""
+    import torch
+    torch.cuda.synchronize()
+    ok = got.shape == want.shape and got.dtype == want.dtype
+    err = (got.double() - want.double()).abs().max().item() if ok \
+        else float("inf")
+    same = ok and torch.equal(got, want)
+    note = "bit for bit required"
+    if ok and not same and act == 4 and got.dtype != torch.int32:
+        u = ulps(got, want)
+        lim = C0Q_MISH_ULPS if got.dtype == torch.float32 else 1
+        note = f"mish: {u} ulp(s) apart at most, {lim} allowed"
+        same = u <= lim and bool(torch.isfinite(got.float()).all())
+    log(f"[12] {label}: max|err| {err:.3e}, {note} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def stem_case(pt, ci, cfg, size, gen, dev, batch=C0Q_STEM_BATCH):
+    """Seeded uint8 pixels (batch, size, size, 3) and a uint8-mode
+    ``Int8Conv`` of ``cfg``'s layer 0 (YOLOv8n's stem where ``cfg`` is
+    None) with seeded folded weights, scale and bias."""
+    import torch
+    if cfg is None:
+        size, f, stride, act = V8_SIZE, 16, 2, 6
+    else:
+        l0 = pt.parse_cfg(os.path.join(REPO, cfg)).layers[0]
+        f, stride, act = l0.fn, l0.stride, l0.activation
+    w = torch.randn((3, 3, 3, f), generator=gen) * 0.01
+    scale = torch.rand(f, generator=gen) + 0.5
+    bias = torch.randn(f, generator=gen) * 0.1
+    cp = ci.prepare_conv0(w.to(dev), scale.to(dev), bias.to(dev), h=size,
+                          w=size, stride=stride, pad=1, act=act)
+    x = torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+                      dtype=torch.uint8).to(dev)
+    return x, cp
+
+
+def u8_bound(x, cp):
+    """(ms, by) the least an H100 takes for a uint8-mode stem (3x3, pad 1)
+    on ``x`` to a bf16 output: the pixels, the output, the packed weight
+    codes, eff and bias moved once (not m128, which the kernel does not
+    read), 27 multiply-adds an output on the int8 tensor cores."""
+    n, h, w, _ = x.shape
+    oh, ow = (h - 1) // cp.stride + 1, (w - 1) // cp.stride + 1
+    f = cp.filters
+    nbytes = x.numel() + 2 * n * oh * ow * f + cp.wp.numel() + 8 * f
+    return int8_bound(nbytes, tc_ops=2 * n * oh * ow * f * 27)
+
+
+def u8_cases(ci, label, x, cp) -> float:
+    """The u8 path on ``x`` against its plain version in its three output
+    kinds (int32 accumulators, float32, bf16), each launch routed ``u8``.
+    Returns the largest float difference."""
+    import torch
+    worst = 0.0
+    for raw, dt in ((True, None), (False, torch.float32),
+                    (False, torch.bfloat16)):
+        got, path = routed(ci, lambda: ci.conv_int8(
+            x, cp, dt or torch.bfloat16, raw))
+        want = ci.conv_int8_plain(x, cp, dt or torch.bfloat16, raw)
+        kind = "int32 accumulators" if raw else str(dt).split(".")[-1]
+        if path != "u8":
+            raise AssertionError(f"{label} took {path}, not u8")
+        e = check_u8(f"{label} -> {tuple(got.shape[1:])} {kind} ({path})",
+                     got, want, cp.act)
+        if not raw:
+            worst = max(worst, e)
+    return worst
 
 
 def conv0q_phase(pt, counters, wbytes, frames) -> dict:
     """Phase 12, conv-1 in int8, its checks (after phase 12's, before the
-    timing phases' traces): the uint8 mode against its plain version at
-    xl's layer 0 (the region Net's folded weights) at 320x320 and 322x322,
-    batch 64, its int32 accumulators and its float32 and bf16 outputs bit
-    for bit; the region Net under the flag: its first detect's launches (the
+    timing phases' traces): the uint8 mode (the kernel's u8 path) against
+    its plain version at xl's layer 0 (the region Net's folded weights) at
+    320x320 and 322x322, batch 64, and at the other stems of C0Q_STEMS
+    (batch 4, each model's input size), its int32 accumulators and its
+    float32 and bf16 outputs bit for bit (mish within C0Q_MISH_ULPS), every
+    launch routed u8; the region Net under the flag: its first detect's launches (the
     uint8 mode, no K6, the region path's others), a replay's kernels equal
     to an eager run's, its heads and detections held to the CPU by phase
     4's tolerances.  Returns what ``conv0q_times`` and the kernels line
@@ -2322,25 +2426,16 @@ def conv0q_phase(pt, counters, wbytes, frames) -> dict:
                               pad=l0.pad, act=l0.activation)
         x = torch.randint(0, 256, (BATCH, size, size, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
-        for raw, dt in ((True, None), (False, torch.float32),
-                        (False, torch.bfloat16)):
-            got = ci.conv_int8(x, cp, dt or torch.bfloat16, raw)
-            want = ci.conv_int8_plain(x, cp, dt or torch.bfloat16, raw)
-            torch.cuda.synchronize()
-            same = got.shape == want.shape and torch.equal(got, want)
-            err = (got.double() - want.double()).abs().max().item() \
-                if got.shape == want.shape else float("inf")
-            log(f"[12] conv-1 int8 (the uint8 mode) {size}x{size} batch "
-                f"{BATCH} -> {tuple(got.shape[1:])} "
-                f"{'int32 accumulators' if raw else str(dt).split('.')[-1]}"
-                f": max|err| {err:.3e}, bit for bit required "
-                f"{'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError(f"conv-1 int8 at {size} disagrees with "
-                                     f"its plain version")
-            if not raw:
-                worst = max(worst, err)
+        worst = max(worst, u8_cases(
+            ci, f"conv-1 int8 (the uint8 mode) xl {size}x{size} batch "
+                f"{BATCH}", x, cp))
         cases[size] = (x, cp)
+    for tag, cfg, size in C0Q_STEMS:
+        x, cp = stem_case(pt, ci, cfg, size, gen, dev)
+        worst = max(worst, u8_cases(
+            ci, f"conv-1 int8 {tag} stem F {cp.filters} s{cp.stride} act "
+                f"{cp.act} {x.shape[1]}x{x.shape[2]} batch {x.shape[0]}", x,
+            cp))
     built = WARMUP_RUNS + 1
     dets, counts = counted(counters, lambda: qnet.detect(frames))
     log(f"[12] region + FFCNN_CONV0_INT8=1 detect batch {len(frames)}, its "
@@ -2361,8 +2456,9 @@ def conv0q_times(q, rnet, frames, dev) -> dict:
     batch 64, 320x320 and 322x322 (``graph_launch_ms``), beside K6 on the
     same pixels and the default fast path's stem (cuDNN: the pixels cast to
     bf16, ``conv2d_fused`` on the folded weights), its plain version by
-    events and its bound; then the region Net's ``detect_device`` at batch
-    64 with and without the flag, in turns.  Returns the kernels line's
+    events and its bound; YOLOv8n's stem at 640x640, batch V8_INT8_TIME,
+    against its bound; then the region Net's ``detect_device`` at batch 64
+    with and without the flag, in turns.  Returns the kernels line's
     entry."""
     import torch
     import ffcnn_tpu_torch as pt
@@ -2380,17 +2476,19 @@ def conv0q_times(q, rnet, frames, dev) -> dict:
         stem = bb.graph_launch_ms(lambda: conv2d_fused(
             x.to(torch.bfloat16), p0["weights"], p0["scale"], p0["bias"],
             stride=l0.stride, pad=l0.pad, groups=1, act=l0.activation))
-        n, oh, ow, f = BATCH, (size + 1) // 2, (size + 1) // 2, cp.filters
-        # the uint8 pixels, the bf16 output, the packed weight codes and
-        # eff and bias; not m128, which a kernel can compute from a
-        # pixel's distance to the border and the codes
-        nbytes = x.numel() + 2 * n * oh * ow * f + cp.wp.numel() + 8 * f
-        bound = int8_bound(nbytes, tc_ops=2 * n * oh * ow * f * 27)
+        bound = u8_bound(x, cp)
         rows[size] = (ms, pms, k6, stem, bound)
         log(f"[12] conv-1 int8 {size}x{size} batch {BATCH}: kernel alone "
             f"{ms:.4f} ms (a graph of 20 launches), K6 {k6:.4f} ms, the "
             f"cuDNN stem (bf16 cast + conv2d_fused) {stem:.4f} ms, plain "
             f"{pms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    xv, cpv = stem_case(pt, ci, None, None, torch.Generator().manual_seed(
+        SEED + 20), dev, batch=V8_INT8_TIME)
+    v8ms = bb.graph_launch_ms(lambda: ci.conv_int8(xv, cpv))
+    v8bound = u8_bound(xv, cpv)
+    log(f"[12] conv-1 int8 v8n stem (F 16, s2, swish) {V8_SIZE}x{V8_SIZE} "
+        f"batch {V8_INT8_TIME}: kernel alone {v8ms:.4f} ms, bound "
+        f"{v8bound[0]:.4f} ms ({v8bound[1]})")
     xb = torch.from_numpy(frames).to(dev)
     qnet = q["net"]
     (a1, a2), (b1, b2) = turns(lambda: qnet.detect_device(xb),
@@ -2405,8 +2503,11 @@ def conv0q_times(q, rnet, frames, dev) -> dict:
                         "int8 conv)",
             "launches": q["counts"]["conv_int8"], "max_abs_err": q["err"],
             "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "k6_ms": k6, "cudnn_stem_ms": stem,
-            "ms_322": rows[322][0], "k6_ms_322": rows[322][2],
+            "library_ms": None, "path": "u8", "k6_ms": k6,
+            "cudnn_stem_ms": stem, "ms_322": rows[322][0],
+            "k6_ms_322": rows[322][2],
+            f"v8n_ms_{V8_SIZE}_batch{V8_INT8_TIME}": v8ms,
+            f"v8n_bound_ms_{V8_SIZE}_batch{V8_INT8_TIME}": v8bound[0],
             "detect_device_ms": (a1 + a2) / 2,
             "region_detect_device_ms": (b1 + b2) / 2}
 

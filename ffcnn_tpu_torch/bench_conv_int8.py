@@ -4,7 +4,7 @@ give it: yolo-fastest-xl's unfused int8 convs at 320x320 (13 depthwise, 16
 convs at 640x640 at its ``V8_INT8_TIME``, each with seeded codes and
 weights of its shape, its output kind and activation, on the card:
 
-    python -m ffcnn_tpu_torch.bench_conv_int8 [--detect]
+    python -m ffcnn_tpu_torch.bench_conv_int8 [--detect] [--stems]
 
 The same shapes through another tree's copy of the package (an A/B
 against a parent commit unpacked beside this one, one process a tree on
@@ -21,8 +21,13 @@ between CUDA events (``bench_block.graph_launch_ms``), beside the plain
 version (CUDA events) and the bound (``chip_smoke.int8_bound``).  With
 ``--detect`` it also times xl's int8 default and int8 region Nets (one
 plan) end to end: ``detect_device`` at batch 1 and ``BATCH``, the
-bucket's replays between CUDA events.  The last line is one JSON object:
-the card, the tree, and per model the summed ms (split into depthwise and
+bucket's replays between CUDA events.  With ``--stems`` it also times the
+uint8 mode (conv-1 straight off the pixels, ``FFCNN_CONV0_INT8``) at
+xl's stem, 320x320 and 322x322 at ``BATCH``, and YOLOv8n's at 640x640 at
+``V8_INT8_TIME`` (seeded weights of each stem's shape, checked bit for bit
+first), and xl's region Net with and without the flag, ``detect_device``
+at batch 1 and ``BATCH`` in turns.  The last line is one JSON object: the
+card, the tree, and per model the summed ms (split into depthwise and
 dense) and each shape's ms, plain ms, bound and path.
 """
 
@@ -145,6 +150,59 @@ def detect_ms(pt, xl, iters: int = 20) -> dict:
     return out
 
 
+def stem_rows(pt, ci, dev) -> list:
+    """The uint8 mode at xl's stem (320, 322; ``BATCH``) and YOLOv8n's
+    (640; ``V8_INT8_TIME``): each checked against its plain version (the
+    int32 accumulators and the bf16 output bit for bit), then timed alone
+    (``graph_launch_ms``) beside its bound."""
+    import torch
+    from ffcnn_tpu_torch.bench_block import graph_launch_ms
+    cs = smoke()
+    gen = torch.Generator().manual_seed(cs.SEED + 20)
+    rows = []
+    for tag, cfg, size, batch in (("xl", cs.CFG, 320, cs.BATCH),
+                                  ("xl", cs.CFG, 322, cs.BATCH),
+                                  ("v8n", None, None, cs.V8_INT8_TIME)):
+        x, cp = cs.stem_case(pt, ci, cfg, size, gen, dev, batch=batch)
+        check_case(ci, x, cp)
+        ms = graph_launch_ms(lambda: ci.conv_int8(x, cp))
+        bound, by = cs.u8_bound(x, cp)
+        rows.append({"label": f"{tag} stem {x.shape[1]}x{x.shape[2]} F "
+                              f"{cp.filters} s{cp.stride} act {cp.act}",
+                     "batch": batch, "route": route_of(ci, x, cp), "ms": ms,
+                     "bound_ms": bound, "bound_by": by})
+        print(f"uint8 mode {rows[-1]['label']} batch {batch}: {ms:.4f} ms "
+              f"({rows[-1]['route']}), bound {bound:.4f} ({by})", flush=True)
+    return rows
+
+
+def flag_detect_ms(pt, iters: int = 20) -> dict:
+    """ms a ``detect_device`` call of xl's region Net with and without
+    ``FFCNN_CONV0_INT8=1`` (conv-1 in the uint8 mode, else K6), at batch 1
+    and ``BATCH``, in turns (flag, region, region, flag)."""
+    import torch
+    cs = smoke()
+    wbytes = pt.synth_weights_bytes(pt.parse_cfg(cs.CFG), seed=cs.SEED,
+                                    obj_bias=2.0)
+    flag = cs.load_net(pt, wbytes, cs.C0Q_FLAGS, "cuda")
+    region = cs.load_net(pt, wbytes, cs.REGION_FLAGS, "cuda")
+    frames = np.random.RandomState(cs.SEED).randint(
+        0, 256, (cs.BATCH, XL_SIZE, XL_SIZE, 3), np.uint8)
+    out = {}
+    for nb in (1, cs.BATCH):
+        batch = torch.from_numpy(frames[:nb]).cuda()
+        for net in (flag, region):
+            net.warmup(batch_sizes=(nb,))
+        (a1, a2), (b1, b2) = cs.turns(lambda: flag.detect_device(batch),
+                                      lambda: region.detect_device(batch),
+                                      iters)
+        out[f"flag_b{nb}"], out[f"region_b{nb}"] = [a1, a2], [b1, b2]
+        print(f"region detect_device batch {nb}: with FFCNN_CONV0_INT8=1 "
+              f"{a1:.3f}, {a2:.3f} ms; without {b1:.3f}, {b2:.3f} ms",
+              flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
@@ -152,6 +210,10 @@ def main(argv=None) -> int:
                          "this one)")
     ap.add_argument("--detect", action="store_true",
                     help="also time the int8 Nets' detect_device")
+    ap.add_argument("--stems", action="store_true",
+                    help="also time the uint8 mode's stems and the region "
+                         "Net's detect_device with and without "
+                         "FFCNN_CONV0_INT8")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.abspath(__file__))
     # run as a file, its own directory (the package's) leads sys.path
@@ -200,6 +262,9 @@ def main(argv=None) -> int:
               f"{result[name]['bound_ms']:.4f})", flush=True)
     if args.detect:
         result["detect_ms"] = detect_ms(pt, xl)
+    if args.stems:
+        result["stems"] = stem_rows(pt, ci, dev)
+        result["flag_detect_ms"] = flag_detect_ms(pt)
     print(json.dumps(result))
     return 0
 

@@ -7,18 +7,21 @@
 // at a scalar or per-channel inv = 1 / out_scale; or (the check's raw mode)
 // the int32 accumulators themselves.
 //
-// A uint8 mode (the dense path) runs conv-1 straight off the raw pixels,
-// the port of ffcnn_tpu/ops/conv.py::conv0_int8_from_u8: each pixel is
-// shifted to a code by x ^ 0x80 (x - 128) as the A tile is gathered, a
-// tap outside the image reads code 0 in the shifted domain (JAX pads the
-// shifted input with zeros), and the epilogue adds back the shift exactly,
+// A uint8 mode (the u8 path) runs conv-1 straight off the raw pixels, the
+// port of ffcnn_tpu/ops/conv.py::conv0_int8_from_u8.  JAX shifts each pixel
+// to a code x - 128 and adds the shift back in the epilogue, (acc + 128 M);
+// both sides of that equal the one integer
 //
-//   y = act((acc + m128[pixel, f]) * eff[f] + bias[f])
+//   S[pixel, f] = sum over the pixel's in-bounds taps of wq * x
 //
-// where m128 = 128 * conv(ones, wq) counts each output pixel's in-bounds
-// taps (made once a Net and geometry by the wrapper).  Every term of
-// acc + m128 is an integer below 27 * 127 * 255 < 2^24, so the sum is
-// exact in float32 and the kernel equals its plain version bit for bit.
+// which the card computes directly: its integer mma takes unsigned A with
+// signed B (m16n8k32 .u8.s8), so the pixels go in as they are and a tap
+// outside the image is byte 0.  Every S is below 27 * 127 * 255 < 2^24,
+// exact in float32, so y = act(S * eff[f] + bias[f]) equals the plain
+// version's act((acc + m128) * eff + bias) bit for bit.  No shift and no
+// m128 on the card; only the raw mode (the checks' int32 accumulators,
+// JAX's acc of the shifted codes) subtracts 128 T, T the sum of the codes
+// of the pixel's in-bounds taps.
 //
 // Replaces the XLA convolution with int8 operands of
 // ffcnn_tpu/ops/conv.py::conv2d_int8 (lax.conv_general_dilated with
@@ -69,17 +72,34 @@
 //   the weights packed likewise once a CTA); the epilogue, from registers
 //   with the activation and kind fixed, packs the outputs into a stage
 //   written out 16 bytes a thread.
-// * dense (groups == 1 otherwise: C not a multiple of 16, or the uint8
-//   mode): the first version, unchanged.  A CTA of four warps owns 64 rows
-//   x 64 filters and walks K in 32-byte steps through two buffers, the A
-//   tile gathered by 4- or 1-byte loads; epilogue element by element.
+// * u8 (the uint8 mode, any shape): bands of R output rows x up to 512
+//   columns of one image, walked by persistent CTAs of four warps; a
+//   band's (R - 1) * s + k input rows come into shared memory once, the
+//   pad row and columns as zero bytes, by 16-byte cp.async where a row is
+//   a multiple of 16 bytes (and x aligned), else by 4-byte words shifted
+//   into place, into one of two buffers while the CTA computes the other
+//   (conv0_fused.cu's staging).  A warp tile is 16 pixels of one output
+//   row by all F filters (F / 8 n8 tiles: no dead column at F 8 or 16).
+//   The stems of the repo's models (k 3, C 3, pad 1, stride 1 or 2, F 8,
+//   16 or 32) take an instance with F and the stride fixed: K = 27 is one
+//   k-step in an order chosen for the gather (lanes t < 3 take row t's
+//   bytes 0..3 and 4..7, lane 3 the three rows' byte 8), so a pixel's A
+//   words are three aligned shared-memory words and three __byte_perm a
+//   lane, with selectors fixed for the launch (a tile starts on a 16-pixel
+//   boundary); the B fragments, permuted to match, sit in registers for
+//   the launch.  Any other uint8-mode shape takes the generic instance:
+//   K walked in steps of 32 in (ky, kx, c) order, each lane's taps
+//   decoded once a step, F in passes of four n8 tiles, masked.  The
+//   epilogue as gemm's (activation and kind fixed once a tile; 16-byte
+//   runs of each pixel's row out of a staged tile where F bytes allow).
+// * dense (groups == 1 and C not a multiple of 16, int8 codes): the first
+//   version.  A CTA of four warps owns 64 rows x 64 filters and walks K in
+//   32-byte steps through two buffers, the A tile gathered by 4- or 1-byte
+//   loads; epilogue element by element.
 // * dw4 (depthwise with C % 4 == 0 that dw does not take) and grouped (any
 //   other grouped conv): int32 multiply-adds on the CUDA cores, a thread a
 //   (pixel, four channels) by char4 loads, or a (pixel, filter) with four
 //   products a __dp4a where C/groups is a multiple of 4.
-//
-// The uint8 mode runs only on the dense path and is as the first version
-// left it.
 //
 // The epilogue rounds as the plain version does: the product and the sum
 // are separate roundings (__fmul_rn, __fadd_rn: no FMA contraction), and
@@ -122,6 +142,12 @@ constexpr int kDwThreads = 256;
 constexpr int kDwSlice = 16;
 constexpr int kDwRows = 8;
 constexpr int kDwMaxTw = 32;
+// the u8 path: threads a CTA, output columns a band at most, n8 tiles a
+// pass of its generic instance
+constexpr int kU8Threads = 128;
+constexpr int kU8Warps = kU8Threads / 32;
+constexpr int kU8MaxCols = 512;
+constexpr int kU8Nt = 4;
 constexpr int kSmemMax = 232448;  // the most a CTA can take on sm_90
 
 enum OutKind { kF32 = 0, kBf16 = 1, kI8 = 2, kI32 = 3 };
@@ -132,10 +158,9 @@ struct ConvArgs {
   const float* eff;
   const float* bias;
   const float* inv;
-  const float* m128;  // uint8 mode: (oh * ow, f), else null
   void* y;
   int n, h, w, c, f, k, stride, pad, groups, oh, ow, kp, ktot, act;
-  int out_kind, inv_vec, x_u8;
+  int out_kind, inv_vec, x_u8;  // x_u8: x holds uint8 pixels (the u8 path)
 };
 
 // Output (m, o), m the pixel (image, oy, ox) in row-major order.
@@ -146,10 +171,7 @@ __device__ __forceinline__ void emit(const ConvArgs& a, size_t m, int o,
     static_cast<int*>(a.y)[at] = acc;
     return;
   }
-  float s = (float)acc;
-  if (a.m128 != nullptr)  // the uint8 mode's shift, per pixel (exact)
-    s = __fadd_rn(s, a.m128[(m % ((size_t)a.oh * a.ow)) * a.f + o]);
-  float v = __fadd_rn(__fmul_rn(s, a.eff[o]), a.bias[o]);
+  float v = __fadd_rn(__fmul_rn((float)acc, a.eff[o]), a.bias[o]);
   v = ffcnn_block::act(v, a.act);
   if (a.out_kind == kI8)
     ffcnn_block::store_q(static_cast<int8_t*>(a.y) + at, v,
@@ -164,6 +186,16 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// unsigned A (the uint8 mode's raw pixels) times signed B
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -186,8 +218,7 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // The dense path.  mode: how the A tile is gathered, 1 four 4-byte loads
-// (C % 4 == 0), 2 sixteen byte loads; both shift uint8 pixels to codes
-// (x ^ 0x80) as they load them.
+// (C % 4 == 0), 2 sixteen byte loads.
 __global__ void __launch_bounds__(kThreads)
     conv_int8_dense_kernel(const __grid_constant__ ConvArgs a, int mode) {
   __shared__ __align__(16) int8_t as[2][kBM * kLd];
@@ -231,11 +262,9 @@ __global__ void __launch_bounds__(kThreads)
       const int8_t* src = ximg + ((size_t)iy * a.w + ix) * a.c + ci;
       if (step == 4)
         *reinterpret_cast<uint32_t*>(dst + j) =
-            ok ? *reinterpret_cast<const uint32_t*>(src) ^
-                     (a.x_u8 ? 0x80808080u : 0u)
-               : 0u;
+            ok ? *reinterpret_cast<const uint32_t*>(src) : 0u;
       else
-        dst[j] = ok ? (int8_t)(*src ^ (a.x_u8 ? 0x80 : 0)) : (int8_t)0;
+        dst[j] = ok ? *src : (int8_t)0;
     }
     cp_commit();
   };
@@ -867,11 +896,401 @@ __global__ void __launch_bounds__(kEwThreads)
   emit(a, (size_t)m, o, s);
 }
 
+// --------------------------------------------------------------- the u8 path
+
+// A band's staged row starts p16 = align_up(c * pad, 16) bytes before input
+// column s * c0 (16-byte aligned where c * w is), so a pixel's first tap
+// lies at lead + c * s * (its column in the band), lead = p16 - c * pad;
+// the stems' lead (c 3, pad 1) is 13.
+constexpr int kU8Lead = 13;
+
+// A u8 launch as the host plans it: output rows and columns a band (the
+// columns a multiple of 16), the staged row stride (48 mod 128 bytes: the
+// three rows a gather instruction reads fall in mostly distinct banks),
+// the lead and p16, the 16-byte chunks staged a row, the bands down and
+// across, the copy path, and in shared memory a band buffer's bytes and
+// the byte offsets of the output stages (16 pixels a warp, osld bytes a
+// pixel; the stem instances) and of the raw mode's tap-sum table.
+struct U8Plan {
+  int rows, cols, ld, lead, p16, nchunk, bands_h, bands_w, aligned;
+  int sbuf, ostage, osld, tsum;
+};
+
+struct U8Band {
+  int img, r0, c0, nr, nc;
+};
+
+__device__ __forceinline__ U8Band u8_band(const ConvArgs& a,
+                                          const U8Plan& p, int i) {
+  const int per_img = p.bands_h * p.bands_w;
+  U8Band b;
+  b.img = i / per_img;
+  const int rem = i - b.img * per_img, bh = rem / p.bands_w;
+  b.r0 = bh * p.rows;
+  b.c0 = (rem - bh * p.bands_w) * p.cols;
+  b.nr = min(p.rows, a.oh - b.r0);
+  b.nc = min(p.cols, a.ow - b.c0);
+  return b;
+}
+
+// Bytes [rb, rb + 4) of the input row that starts at byte `row` of x, 0
+// outside the row, as one little-endian word (two aligned loads and a
+// funnel shift inside x, else byte by byte).
+__device__ __forceinline__ uint32_t u8_row_word(const ConvArgs& a,
+                                                long long row, long long rb) {
+  const long long rbytes = (long long)a.c * a.w;
+  const uint8_t* x = reinterpret_cast<const uint8_t*>(a.x);
+  const uintptr_t base = (uintptr_t)x;
+  const uintptr_t end = base + (uintptr_t)((long long)a.n * a.h * rbytes);
+  if (rb >= 0 && rb + 4 <= rbytes) {
+    const uintptr_t at = base + (uintptr_t)(row + rb);
+    const uintptr_t w0 = at & ~(uintptr_t)3;
+    const int sh = (int)(at & 3);
+    if (w0 >= base && w0 + 8 <= end) {
+      const uint32_t lo = __ldg(reinterpret_cast<const uint32_t*>(w0));
+      if (sh == 0) return lo;
+      const uint32_t hi = __ldg(reinterpret_cast<const uint32_t*>(w0 + 4));
+      return __funnelshift_r(lo, hi, 8 * sh);
+    }
+  }
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (rb + i >= 0 && rb + i < rbytes)
+      v |= (uint32_t)__ldg(x + row + rb + i) << (8 * i);
+  return v;
+}
+
+// Stage band b's input rows s r0 - pad, ... into buf (row stride p.ld):
+// nchunk 16-byte chunks a row from byte c s c0 - p16 of the input row, the
+// rows and bytes outside the image as zeros.  The aligned path only starts
+// its copies (cp.async; the caller commits), the word path stores before
+// it returns.
+__device__ __forceinline__ void u8_stage(const ConvArgs& a, const U8Plan& p,
+                                         const U8Band& b, uint8_t* buf) {
+  const long long rbytes = (long long)a.c * a.w;
+  const long long seg0 = (long long)a.c * a.stride * b.c0 - p.p16;
+  const int in_rows = (b.nr - 1) * a.stride + a.k;
+  const int iy0 = b.r0 * a.stride - a.pad;
+  if (p.aligned) {
+    for (int i = threadIdx.x; i < in_rows * p.nchunk; i += kU8Threads) {
+      const int r = i / p.nchunk, ch = i - r * p.nchunk;
+      const int gy = iy0 + r;
+      const long long rb = seg0 + 16LL * ch;
+      const bool ok = gy >= 0 && gy < a.h && rb >= 0 && rb < rbytes;
+      cp_async16(buf + r * p.ld + 16 * ch,
+                 ok ? a.x + ((long long)b.img * a.h + gy) * rbytes + rb
+                    : a.x,
+                 ok);
+    }
+  } else {
+    const int nw = p.nchunk * 4;
+    for (int i = threadIdx.x; i < in_rows * nw; i += kU8Threads) {
+      const int r = i / nw, q = i - r * nw;
+      const int gy = iy0 + r;
+      *reinterpret_cast<uint32_t*>(buf + r * p.ld + 4 * q) =
+          gy < 0 || gy >= a.h
+              ? 0u
+              : u8_row_word(a, ((long long)b.img * a.h + gy) * rbytes,
+                            seg0 + 4LL * q);
+    }
+  }
+}
+
+// One output from its sum: the raw sum, or act(acc * eff + bias) (the
+// product and the sum rounded apart) as float32, bfloat16 or an int8 code.
+template <int ACT, int KIND>
+__device__ __forceinline__ void put_one(int8_t* dst, int acc, float e,
+                                        float b, float q) {
+  if constexpr (KIND == kI32) {
+    *reinterpret_cast<int*>(dst) = acc;
+  } else {
+    const float v =
+        ffcnn_block::act(__fadd_rn(__fmul_rn((float)acc, e), b), ACT);
+    if constexpr (KIND == kI8)
+      *dst = ffcnn_block::quant(v, q);
+    else if constexpr (KIND == kBf16)
+      *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(v);
+    else
+      *reinterpret_cast<float*>(dst) = v;
+  }
+}
+
+// F > 0: a stem instance (k 3, c 3, pad 1, stride S, F filters); F == 0:
+// the generic one (any shape, the stride read from a).  A persistent CTA
+// walks the bands blockIdx.x, + gridDim.x, ..., staging the next band into
+// its second buffer while it computes this one; its warps take the band's
+// tiles (16 pixels of one output row) in turn.
+template <int F, int S>
+__global__ void __launch_bounds__(kU8Threads)
+    conv_int8_u8_kernel(const __grid_constant__ ConvArgs a,
+                        const __grid_constant__ U8Plan p) {
+  constexpr bool kGen = F == 0;
+  constexpr int NT = kGen ? kU8Nt : F / 8;
+  extern __shared__ __align__(16) uint8_t su8[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int s = kGen ? a.stride : S;
+  const int nbands = a.n * p.bands_h * p.bands_w;
+  const int kk = a.k * a.k;
+  int8_t* const ost =
+      reinterpret_cast<int8_t*>(su8 + p.ostage) + warp * 16 * p.osld;
+  int* const tsum = reinterpret_cast<int*>(su8 + p.tsum);
+  const bool y16 = (uintptr_t)a.y % 16 == 0;
+
+  // the raw mode's table: (tap, f) filter f's codes of the tap summed over
+  // the channels, row kk their total (the first band's barrier publishes
+  // it)
+  if (a.out_kind == kI32) {
+    for (int i = tid; i < (kk + 1) * a.f; i += kU8Threads) {
+      const int tap = i / a.f, f = i - tap * a.f;
+      const int8_t* wr = a.wp + (size_t)f * a.kp;
+      const int j0 = tap < kk ? tap * a.c : 0;
+      const int j1 = tap < kk ? j0 + a.c : a.ktot;
+      int v = 0;
+      for (int j = j0; j < j1; ++j) v += wr[j];
+      tsum[i] = v;
+    }
+  }
+  // T[pixel, col], the codes of the pixel's in-bounds taps: the total less
+  // the taps that fall outside the image
+  auto tap_total = [&](int oy, int ox, int col) {
+    int tot = tsum[kk * a.f + col];
+    const int iy = oy * s - a.pad, ix = ox * s - a.pad;
+    if (iy < 0 || iy + a.k > a.h || ix < 0 || ix + a.k > a.w)
+      for (int ky = 0; ky < a.k; ++ky)
+        for (int kx = 0; kx < a.k; ++kx)
+          if (iy + ky < 0 || iy + ky >= a.h || ix + kx < 0 || ix + kx >= a.w)
+            tot -= tsum[(ky * a.k + kx) * a.f + col];
+    return tot;
+  };
+
+  // The stem instances' K order: lane t < 3 holds bytes 0..3 (A word a0, B
+  // word b0) and 4..7 (a2, b1) of the 9-byte run of taps (kx, c) of row ky
+  // = t; lane 3 holds byte 8 of rows 0, 1, 2 in a0 / b0, and its a2 meets
+  // zero weights in b1.  A pixel's run starts at staged byte o = 3 S (its
+  // column in the band) + kU8Lead of each of its rows; the lane reads the
+  // three aligned words at (o & ~3) + d0, d1, d2 and picks its bytes with
+  // __byte_perm (sel_a, sel_b), whose offset o & 3 depends on g alone
+  // (tiles start every 16 pixels, 48 S bytes; pixel g + 8 lies 24 S bytes
+  // on).
+  uint32_t sel_a = 0, sel_b = 0;
+  int d0 = 0, d1 = 0, d2 = 0;
+  uint32_t bw[NT][2];
+  float pe[NT][2], pb[NT][2], pq[NT][2];
+  if constexpr (!kGen) {
+    const uint32_t o3 = (uint32_t)(3 * S * g + kU8Lead) & 3u;
+    if (t < 3) {
+      sel_a = 0x3210u + 0x1111u * o3;
+      sel_b = 0x3210u;
+      d0 = t * p.ld;
+      d1 = d0 + 4;
+      d2 = d0 + 8;
+    } else {
+      sel_a = o3 | (4u + o3) << 4;
+      sel_b = 0x0010u | (4u + o3) << 8;
+      d0 = 8;
+      d1 = p.ld + 8;
+      d2 = 2 * p.ld + 8;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int8_t* wr = a.wp + (size_t)(8 * j + g) * a.kp;
+      uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k0 = t < 3 ? 9 * t + i : i < 3 ? 9 * i + 8 : -1;
+        if (k0 >= 0) w0 |= (uint32_t)(uint8_t)wr[k0] << (8 * i);
+        if (t < 3) w1 |= (uint32_t)(uint8_t)wr[9 * t + 4 + i] << (8 * i);
+      }
+      bw[j][0] = w0;
+      bw[j][1] = w1;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int o = 8 * j + 2 * t + u;
+        pe[j][u] = a.eff[o];
+        pb[j][u] = a.bias[o];
+        pq[j][u] = a.out_kind == kI8 ? a.inv[a.inv_vec ? o : 0] : 0.f;
+      }
+    }
+  }
+
+  if ((int)blockIdx.x < nbands)
+    u8_stage(a, p, u8_band(a, p, blockIdx.x), su8);
+  cp_commit();
+  for (int bi = blockIdx.x, buf = 0; bi < nbands;
+       bi += gridDim.x, buf ^= 1) {
+    if (bi + (int)gridDim.x < nbands)
+      u8_stage(a, p, u8_band(a, p, bi + gridDim.x),
+               su8 + (buf ^ 1) * p.sbuf);
+    cp_commit();
+    cp_wait<1>();  // this band's copies
+    __syncthreads();
+    const U8Band bd = u8_band(a, p, bi);
+    const uint8_t* staged = su8 + buf * p.sbuf;
+    const int tpr = (bd.nc + 15) >> 4, ntiles = bd.nr * tpr;
+    int orow = warp / tpr, cb = warp - orow * tpr;
+    for (int tile = warp; tile < ntiles; tile += kU8Warps) {
+      const int oc0 = 16 * cb, valid = min(16, bd.nc - oc0);
+      const int oy = bd.r0 + orow;
+      const size_t px0 = ((size_t)bd.img * a.oh + oy) * a.ow + bd.c0 + oc0;
+      // the tile's rows in the band buffer (a pixel past the band's last
+      // column reads staged bytes inside the band's width: no clamp)
+      const uint8_t* rp = staged + s * orow * p.ld;
+      if constexpr (!kGen) {
+        uint32_t af[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint8_t* q =
+              rp + ((3 * S * (oc0 + g) + kU8Lead) & ~3) + 24 * S * h;
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(q + d0);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(q + d1);
+          const uint32_t w2 = *reinterpret_cast<const uint32_t*>(q + d2);
+          af[h] = __byte_perm(__byte_perm(w0, w1, sel_a), w2, sel_b);
+          af[2 + h] = __byte_perm(w1, w2, sel_a);
+        }
+        int acc[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[j][u] = 0;
+          mma_u8s8(acc[j], af, bw[j][0], bw[j][1]);
+        }
+        // the epilogue: each fragment pair (row g + 8h, columns 8j + 2t,
+        // + 1) packed into the warp's stage, then the tile's valid pixels
+        // out, F outputs each, contiguous in y
+        with_epilogue(a.act, a.out_kind, [&](auto A_, auto K_) {
+          constexpr int ACT = decltype(A_)::value, KIND = decltype(K_)::value;
+          constexpr int kEs = KIND == kI8 ? 1 : KIND == kBf16 ? 2 : 4;
+          constexpr int kRow = F * kEs;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              int pair[2] = {acc[j][2 * h], acc[j][2 * h + 1]};
+              if constexpr (KIND == kI32) {
+                const int ox = bd.c0 + oc0 + g + 8 * h;
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                  pair[u] -= 128 * tap_total(oy, ox, 8 * j + 2 * t + u);
+              }
+              put_outputs<ACT, KIND, 2>(
+                  ost + (g + 8 * h) * p.osld + (8 * j + 2 * t) * kEs, pair,
+                  pe[j], pb[j], pq[j]);
+            }
+          __syncwarp();
+          int8_t* out = static_cast<int8_t*>(a.y) + px0 * kRow;
+          bool done = false;
+          if constexpr (kRow % 16 == 0) {
+            if (y16) {
+              constexpr int V = kRow / 16;
+              for (int i = lane; i < valid * V; i += 32)
+                *reinterpret_cast<uint4*>(out + 16 * i) =
+                    *reinterpret_cast<const uint4*>(ost + (i / V) * p.osld +
+                                                    16 * (i % V));
+              done = true;
+            }
+          }
+          if (!done)
+            for (int i = lane; i < valid * F; i += 32) {
+              const int r = i / F, c = i - r * F;
+              const int8_t* src = ost + r * p.osld + c * kEs;
+              int8_t* dst = out + i * kEs;
+              if constexpr (kEs == 1)
+                *dst = *src;
+              else if constexpr (kEs == 2)
+                *reinterpret_cast<uint16_t*>(dst) =
+                    *reinterpret_cast<const uint16_t*>(src);
+              else
+                *reinterpret_cast<uint32_t*>(dst) =
+                    *reinterpret_cast<const uint32_t*>(src);
+            }
+          __syncwarp();  // the stage is free for the next tile
+        });
+      } else {
+        // the generic instance: K in (ky, kx, c) order in steps of 32, this
+        // lane's eight taps decoded once a step; F in passes of NT n8 tiles
+        const int c = a.c, k = a.k;
+        const uint8_t* p0 = rp + c * s * (oc0 + g) + p.lead;
+        const uint8_t* p1 = p0 + 8 * c * s;
+        const int nks = a.kp / 32;
+        for (int f0 = 0; f0 < a.f; f0 += 8 * NT) {
+          int acc[NT][4];
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[j][u] = 0;
+          for (int ks = 0; ks < nks; ++ks) {
+            uint32_t af[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              // slots past k*k*c meet zero weights: read staged byte 0
+              const int kq = 32 * ks + (e < 4 ? 4 * t + e : 12 + 4 * t + e);
+              int off = 0;
+              if (kq < a.ktot) {
+                const int tap = kq / c, ci = kq - tap * c, ky = tap / k;
+                off = ky * p.ld + c * (tap - ky * k) + ci;
+              }
+              const int sh = 8 * (e & 3);
+              af[e < 4 ? 0 : 2] |= (uint32_t)p0[off] << sh;
+              af[e < 4 ? 1 : 3] |= (uint32_t)p1[off] << sh;
+            }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int col = f0 + 8 * j;
+              if (col >= a.f) break;  // warp-uniform: n8 tiles past F
+              uint32_t b0 = 0u, b1 = 0u;
+              if (col + g < a.f) {
+                const int8_t* wr =
+                    a.wp + (size_t)(col + g) * a.kp + 32 * ks + 4 * t;
+                b0 = __ldg(reinterpret_cast<const uint32_t*>(wr));
+                b1 = __ldg(reinterpret_cast<const uint32_t*>(wr + 16));
+              }
+              mma_u8s8(acc[j], af, b0, b1);
+            }
+          }
+          with_epilogue(a.act, a.out_kind, [&](auto A_, auto K_) {
+            constexpr int ACT = decltype(A_)::value,
+                          KIND = decltype(K_)::value;
+            constexpr int kEs = KIND == kI8 ? 1 : KIND == kBf16 ? 2 : 4;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                  const int col = f0 + 8 * j + 2 * t + u;
+                  const int lx = oc0 + g + 8 * h;
+                  if (col >= a.f || lx >= bd.nc) continue;
+                  int v = acc[j][2 * h + u];
+                  if constexpr (KIND == kI32)
+                    v -= 128 * tap_total(oy, bd.c0 + lx, col);
+                  put_one<ACT, KIND>(
+                      static_cast<int8_t*>(a.y) +
+                          ((px0 + g + 8 * h) * a.f + col) * kEs,
+                      v, a.eff[col], a.bias[col],
+                      KIND == kI8 ? a.inv[a.inv_vec ? col : 0] : 0.f);
+                }
+          });
+        }
+      }
+      cb += kU8Warps;
+      while (cb >= tpr) {
+        cb -= tpr;
+        ++orow;
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 // The paths, as ffcnn_conv_int8 reports them (kernels/conv_int8.py's
 // ROUTES in this order).
-enum Route { kDense = 0, kGemm = 1, kDw = 2, kDw4 = 3, kGrouped = 4 };
+enum Route {
+  kDense = 0, kGemm = 1, kDw = 2, kDw4 = 3, kGrouped = 4, kU8 = 5
+};
 
 // The path a call takes, from its shape, dtype and alignment alone.
 int route_of(const ConvArgs& a) {
@@ -880,8 +1299,8 @@ int route_of(const ConvArgs& a) {
                    (uintptr_t)a.y % 16 == 0 &&
                    (long long)a.n * a.oh * a.ow <= 0x7fffffffLL &&
                    (long long)a.n * a.h * a.w <= 0x7fffffffLL;
-  if (a.groups == 1)
-    return !a.x_u8 && a.c % 16 == 0 && a16 ? kGemm : kDense;
+  if (a.x_u8) return kU8;
+  if (a.groups == 1) return a.c % 16 == 0 && a16 ? kGemm : kDense;
   if (a.c == a.groups && a.f == a.groups) {
     if (a.c % kDwSlice == 0 && (a.k == 3 || a.k == 5) &&
         (a.stride == 1 || a.stride == 2) && a16)
@@ -946,6 +1365,60 @@ void launch_gemm(const ConvArgs& a, int bn, bool wres, long long mtiles,
   }
 }
 
+// The u8 path's plan for stem instance f_inst (0: the generic one): band
+// columns the output's width up to kU8MaxCols (halved while a CTA's shared
+// memory would pass kSmemMax), rows the first of 4, 2, 1 that gives two
+// bands an SM.  Returns the CTA's shared memory, -1 where it cannot fit.
+long long plan_u8(const ConvArgs& a, int f_inst, bool raw, int sms,
+                  U8Plan* out) {
+  U8Plan p{};
+  p.p16 = (a.c * a.pad + 15) / 16 * 16;
+  p.lead = p.p16 - a.c * a.pad;
+  p.aligned = (uintptr_t)a.x % 16 == 0 && ((long long)a.c * a.w) % 16 == 0;
+  p.osld = f_inst ? f_inst * 4 + 16 : 0;
+  const long long stages = (long long)kU8Warps * 16 * p.osld;
+  const long long table = raw ? (long long)(a.k * a.k + 1) * a.f * 4 : 0;
+  p.cols = std::min((a.ow + 15) / 16 * 16, kU8MaxCols);
+  long long total = 0;
+  for (;;) {
+    // a pixel's taps end c (s (cols - 1) + k) bytes past the lead; a stem
+    // lane's three words read up to 3 bytes further
+    const long long need =
+        p.lead + (long long)a.c * (a.stride * (p.cols - 1LL) + a.k) + 4;
+    const long long ld = (need + 15) / 16 * 16;
+    const long long ld48 = ld + ((48 - ld % 128) + 128) % 128;
+    p.bands_w = (a.ow + p.cols - 1) / p.cols;
+    for (int r : {4, 2, 1}) {
+      p.rows = r;
+      if ((long long)a.n * ((a.oh + r - 1) / r) * p.bands_w >= 2LL * sms)
+        break;
+    }
+    const long long sbuf = ((p.rows - 1LL) * a.stride + a.k) * ld48;
+    total = 2 * sbuf + stages + table;
+    if (total <= kSmemMax || p.cols == 16) {
+      p.nchunk = (int)((need + 15) / 16);
+      p.ld = (int)std::min(ld48, (long long)kSmemMax);
+      p.sbuf = (int)std::min(sbuf, (long long)kSmemMax);
+      break;
+    }
+    p.cols = std::max(16, (p.cols / 2 + 15) / 16 * 16);
+  }
+  p.bands_h = (a.oh + p.rows - 1) / p.rows;
+  p.ostage = 2 * p.sbuf;
+  p.tsum = p.ostage + (int)stages;
+  *out = p;
+  return total <= kSmemMax ? total : -1;
+}
+
+template <int F, int S>
+void launch_u8(const ConvArgs& a, const U8Plan& p, size_t smem,
+               long long nbands, cudaStream_t s) {
+  auto* k = conv_int8_u8_kernel<F, S>;
+  const long long gx =
+      std::max(1LL, std::min(nbands, resident(k, kU8Threads, smem)));
+  k<<<(unsigned)gx, kU8Threads, smem, s>>>(a, p);
+}
+
 template <int K, int S, int R>
 void launch_dw(const ConvArgs& a, long long ntiles, size_t smem,
                cudaStream_t s) {
@@ -961,9 +1434,9 @@ void launch_dw(const ConvArgs& a, long long ntiles, size_t smem,
 extern "C" {
 
 // x (n, h, w, c) int8, contiguous; with x_u8, uint8 pixels (groups == 1
-// only) and m128 (oh * ow, f) float32, the uint8 mode.  wp: the packed int8
-// weights: groups == 1 (F, kp), K in (ky, kx, c) order, zero past k*k*c,
-// kp a multiple of 32, 16-byte aligned; depthwise (c == groups == f) with
+// only), the uint8 mode.  wp: the packed int8 weights: groups == 1 (F,
+// kp), K in (ky, kx, c) order, zero past k*k*c, kp a multiple of 32,
+// 16-byte aligned; depthwise (c == groups == f) with
 // c % 4 == 0 (k, k, f), x and wp 4-byte aligned; any other grouped conv
 // (f, k, k, c / groups).  eff, bias: (f,) float32; inv: (f,) float32 where
 // inv_vec, else (1,), read for out_kind 2 only.  y (n, oh, ow, f): float32
@@ -973,7 +1446,7 @@ extern "C" {
 // cudaGetLastError().
 int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
                     const void* bias, const void* inv, int inv_vec,
-                    const void* m128, int x_u8, void* y, int out_kind, int n,
+                    int x_u8, void* y, int out_kind, int n,
                     int h, int w, int c, int f, int k, int stride, int pad,
                     int groups, int oh, int ow, int kp, int act,
                     void* stream, int* route) {
@@ -981,10 +1454,10 @@ int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
   if (groups < 1 || c < 1 || f < 1 || k < 1 || stride < 1 || pad < 0 ||
       c % groups || f % groups || out_kind < 0 || out_kind > 3 ||
       (out_kind == 2 && inv == nullptr) || n < 0 || oh < 0 || ow < 0 ||
-      (x_u8 && (groups != 1 || m128 == nullptr)))
+      (x_u8 && groups != 1))
     return (int)cudaErrorInvalidValue;
   ConvArgs a{(const int8_t*)x, (const int8_t*)wp, (const float*)eff,
-             (const float*)bias, (const float*)inv, (const float*)m128, y,
+             (const float*)bias, (const float*)inv, y,
              n, h, w, c, f, k, stride, pad, groups, oh, ow, kp, k * k * c,
              act, out_kind, inv_vec, x_u8 ? 1 : 0};
   const long long rows = (long long)n * oh * ow;
@@ -994,7 +1467,30 @@ int ffcnn_conv_int8(const void* x, const void* wp, const void* eff,
   if (groups == 1) {
     if (kp % kBK || kp < k * k * c || (uintptr_t)wp % 16)
       return (int)cudaErrorInvalidValue;
-    if (r == kGemm) {
+    if (r == kU8) {
+      int dev = 0, sms = 1;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      // the stems' instances: F and the stride fixed (F 8 at stride 1, which
+      // no model has, takes the generic one)
+      const bool stem = c == 3 && k == 3 && pad == 1 &&
+                        (f == 16 || f == 32 || (f == 8 && stride == 2)) &&
+                        (stride == 1 || stride == 2);
+      U8Plan p;
+      const long long smem =
+          plan_u8(a, stem ? f : 0, out_kind == kI32, sms, &p);
+      const long long nbands = (long long)n * p.bands_h * p.bands_w;
+      if (smem < 0 || nbands > 0x3fffffffLL)
+        return (int)cudaErrorInvalidValue;
+      switch (stem ? f * 4 + stride : 0) {
+        case 8 * 4 + 2: launch_u8<8, 2>(a, p, smem, nbands, s); break;
+        case 16 * 4 + 1: launch_u8<16, 1>(a, p, smem, nbands, s); break;
+        case 16 * 4 + 2: launch_u8<16, 2>(a, p, smem, nbands, s); break;
+        case 32 * 4 + 1: launch_u8<32, 1>(a, p, smem, nbands, s); break;
+        case 32 * 4 + 2: launch_u8<32, 2>(a, p, smem, nbands, s); break;
+        default: launch_u8<0, 0>(a, p, smem, nbands, s); break;
+      }
+    } else if (r == kGemm) {
       const int bn = gemm_bn(f);
       const bool wres = gemm_wres(bn, kp);
       const long long mtiles = (rows + gemm_bm(bn) - 1) / gemm_bm(bn);

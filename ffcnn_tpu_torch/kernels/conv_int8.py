@@ -23,20 +23,25 @@ The uint8 mode is conv-1 straight off the raw pixels
 (``FFCNN_CONV0_INT8=1``), the port of
 ``ffcnn_tpu/ops/conv.py::conv0_int8_from_u8``: ``prepare_conv0`` quantizes
 the folded float32 weights per filter (``wscale = wmax / 127``, round half
-to even), and makes ``eff = wscale * scale`` and the shift's correction
-``m128 = 128 * conv(ones, wq)`` for one input geometry; the conv shifts
-each pixel to a code (``x ^ 0x80``) and adds ``m128`` back before the
-epilogue, exactly.
+to even), and makes ``eff = wscale * scale`` and JAX's correction of its
+shift ``m128 = 128 * conv(ones, wq)`` for one input geometry.  The plain
+version computes JAX's formula: the pixels shifted to codes (``x ^
+0x80``), their int32 accumulators, then ``(acc + m128) * eff + bias``.
+The card needs no shift: its ``u8`` path multiplies the raw pixels as the
+unsigned operand of the integer tensor cores (``u8 x s8``), a tap outside
+the image a zero byte, and ``acc + m128`` is that sum exactly (integers
+below 2^24), so the two agree bit for bit.  ``m128`` stays the mark of the
+geometry an ``Int8Conv`` was made for; the kernel never reads it.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  The kernel routes each call by its shape, dtype and alignment to
 one of its paths (``ROUTES``; ``csrc/conv_int8.cu``'s note): ``gemm``
 (dense, int8 codes in, C a multiple of 16), ``dw`` (depthwise 3x3 and 5x5
-at stride 1 and 2, C a multiple of 16), and the first version's ``dense``
-(the uint8 mode, and C not a multiple of 16), ``dw4`` and ``grouped``.
-``route`` names the path a call takes (the tiles and shared memory are the
-kernel's own choice); ``conv_int8.routes`` counts the launches of each
-path.
+at stride 1 and 2, C a multiple of 16), ``u8`` (the uint8 mode, any
+shape), and the first version's ``dense`` (int8 codes, C not a multiple of
+16), ``dw4`` and ``grouped``.  ``route`` names the path a call takes (the
+tiles and shared memory are the kernel's own choice);
+``conv_int8.routes`` counts the launches of each path.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ class Int8Conv:
     act: int
     kp: int                      # K padded to 32 (dense), else 0
     # the uint8 mode's (OH * OW, F) float32 128 * conv(ones, wq), for one
-    # input geometry; None for int8 codes in
+    # input geometry (the plain version's term; the kernel reads none);
+    # None for int8 codes in
     m128: Optional[torch.Tensor] = None
 
     @property
@@ -148,16 +154,19 @@ def prepare_conv0(weights: torch.Tensor, scale, bias, *, h: int, w: int,
 
 
 # csrc/conv_int8.cu's paths, in the order of its Route
-ROUTES = ("dense", "gemm", "dw", "dw4", "grouped")
+ROUTES = ("dense", "gemm", "dw", "dw4", "grouped", "u8")
 
 
 def route(c: int, f: int, k: int, stride: int, groups: int,
           x_u8: bool = False, aligned: bool = True) -> str:
     """The path the kernel takes (``route_of``); ``aligned``: x, the
     packed weights and the output 16-byte aligned, as every tensor torch
-    allocates, and fewer than 2^31 input and output pixels."""
+    allocates, and fewer than 2^31 input and output pixels.  Every uint8
+    call (``x_u8``) takes ``u8``, aligned or not."""
+    if x_u8:
+        return "u8"
     if groups == 1:
-        return "gemm" if not x_u8 and c % 16 == 0 and aligned else "dense"
+        return "gemm" if c % 16 == 0 and aligned else "dense"
     if c == groups == f:
         if c % 16 == 0 and k in (3, 5) and stride in (1, 2) and aligned:
             return "dw"
@@ -199,27 +208,34 @@ def _epilogue(acc: torch.Tensor, cp: Int8Conv, float_dtype):
     return torch.clamp(torch.round(y * cp.inv), -127, 127).to(torch.int8)
 
 
+def _check_geometry(m128, oh: int, ow: int, fn: int) -> None:
+    """Refuse a uint8-mode call on an ``Int8Conv`` made for another input
+    geometry (or not by ``prepare_conv0``), the same on the CPU and the
+    card."""
+    if m128 is None:
+        raise ValueError("uint8 pixels need the uint8 mode's m128 "
+                         "(prepare_conv0)")
+    if tuple(m128.shape) != (oh * ow, fn):
+        raise ValueError(f"m128 {tuple(m128.shape)} was made for another "
+                         f"geometry than this ({oh}x{ow} outputs, {fn} "
+                         f"filters)")
+
+
 def conv0_int8_plain(x_u8: torch.Tensor, cp: Int8Conv,
                      float_dtype=torch.bfloat16, raw: bool = False
                      ) -> torch.Tensor:
-    """The uint8 mode in plain PyTorch, uint8 NHWC (N, H, W, C) -> (N, OH,
-    OW, F): the int32 accumulators of the shifted codes (``raw``, as
-    ``conv_int8_plain`` accumulates them), else ``act((acc + m128) * eff +
-    bias)`` in float32, each step rounded, stored as ``float_dtype`` (or
-    int8 codes where ``cp.inv`` is set)."""
-    if cp.m128 is None:
-        raise ValueError("uint8 pixels need the uint8 mode's m128 "
-                         "(prepare_conv0)")
+    """The uint8 mode in plain PyTorch, JAX's formula, uint8 NHWC (N, H, W,
+    C) -> (N, OH, OW, F): the int32 accumulators of the shifted codes
+    (``raw``, as ``conv_int8_plain`` accumulates them), else ``act((acc +
+    m128) * eff + bias)`` in float32, each step rounded, stored as
+    ``float_dtype`` (or int8 codes where ``cp.inv`` is set)."""
+    oh, ow = _out_hw(x_u8, cp.wq, cp.stride, cp.pad)
+    _check_geometry(cp.m128, oh, ow, cp.filters)
     acc = conv_int8_plain(_shift(x_u8), dataclasses.replace(cp, m128=None),
                           raw=True)
     if raw:
         return acc
-    n, oh, ow, fn = acc.shape
-    if tuple(cp.m128.shape) != (oh * ow, fn):
-        raise ValueError(f"m128 {tuple(cp.m128.shape)} was made for another "
-                         f"geometry than this ({oh}x{ow} outputs, {fn} "
-                         f"filters)")
-    return _epilogue(acc.float() + cp.m128.view(oh, ow, fn), cp,
+    return _epilogue(acc.float() + cp.m128.view(oh, ow, cp.filters), cp,
                      float_dtype)
 
 
@@ -273,19 +289,16 @@ def _conv_cuda(xq, wq, wp, eff, bias, inv, m128, stride, pad, groups, act,
         raise ValueError(f"float_dtype must be float32 or bfloat16, got "
                          f"{float_dtype}")
     oh, ow = _out_hw(xq, wq, stride, pad)
-    if u8 and (m128 is None or m128.device != xq.device
-               or m128.dtype != torch.float32 or not m128.is_contiguous()
-               or tuple(m128.shape) != (oh * ow, fn)):
-        raise ValueError(f"uint8 pixels need a contiguous float32 m128 of "
-                         f"{(oh * ow, fn)} on {xq.device} (prepare_conv0)")
+    if u8:      # the kernel reads no m128; it marks the geometry
+        _check_geometry(m128, oh, ow, fn)
     y = torch.empty((n, oh, ow, fn), dtype=out, device=xq.device)
     lib = build()
     path = ctypes.c_int(-1)
     err = lib.ffcnn_conv_int8(
         xq.data_ptr(), wp.data_ptr(), eff.data_ptr(), bias.data_ptr(),
         None if inv is None else inv.data_ptr(),
-        int(inv is not None and inv.numel() > 1),
-        m128.data_ptr() if u8 else None, int(u8), y.data_ptr(), _KINDS[out],
+        int(inv is not None and inv.numel() > 1), int(u8), y.data_ptr(),
+        _KINDS[out],
         n, h, w, c, fn, wq.shape[0], stride, pad, groups, oh, ow, kp, act,
         _build.stream_ptr(), ctypes.byref(path))
     conv_int8.launches += 1
@@ -309,7 +322,9 @@ def conv_int8(xq: torch.Tensor, cp: Int8Conv, float_dtype=torch.bfloat16,
     """The int8 conv (``ffcnn::conv_int8``), NHWC int8 (N, H, W, C) -> (N,
     OH, OW, F) in ``float_dtype`` (float32 or bfloat16), int8 codes where
     ``cp.inv`` is set, or with ``raw`` the int32 accumulators.  uint8
-    ``xq`` with ``cp.m128`` (``prepare_conv0``) is the uint8 mode.
+    ``xq`` with an ``Int8Conv`` of ``prepare_conv0`` is the uint8 mode (the
+    kernel's ``u8`` path; ``raw`` gives JAX's accumulators of the shifted
+    codes there too).
 
     CPU tensors take ``conv_int8_plain``; CUDA tensors launch the kernel."""
     return CONV_INT8_OP(xq, cp.wq, cp.wp, cp.eff, cp.bias, cp.inv, cp.m128,
@@ -327,7 +342,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the int8 conv's library."""
     lib = _build.load_library("conv_int8")
-    lib.ffcnn_conv_int8.argtypes = ([_PTR] * 5 + [_INT, _PTR, _INT, _PTR]
+    lib.ffcnn_conv_int8.argtypes = ([_PTR] * 5 + [_INT, _INT, _PTR]
                                     + [_INT] * 14 + [_PTR,
                                                      ctypes.POINTER(_INT)])
     lib.ffcnn_conv_int8.restype = _INT

@@ -52,12 +52,15 @@ def conv0_int8_from_u8(x_u8: torch.Tensor, weights, scale, bias, *,
     """``ffcnn_tpu/ops/conv.py::conv0_int8_from_u8``: a dense first conv on
     raw uint8 NHWC pixels through the int8 conv's uint8 mode.  ``weights``
     are the input-folded float32 HWIO weights (fs, fs, 3, F), as JAX takes
-    them, quantized per filter here; the pixels shift to codes x - 128 and
-    the shift is undone exactly in the epilogue, ``(acc + 128 M) * (wscale
-    * scale) + bias``, M counting each output pixel's in-bounds taps
-    (``kernels.conv_int8.prepare_conv0``).  Prepares the parameters on each
-    call: a ``Net`` prepares them once and calls
-    ``kernels.conv_int8.conv_int8``."""
+    them, quantized per filter here (``kernels.conv_int8.prepare_conv0``).
+    JAX shifts the pixels to codes x - 128 and undoes the shift exactly in
+    the epilogue, ``(acc + 128 M) * (wscale * scale) + bias``, M counting
+    each output pixel's in-bounds taps; the plain version (a CPU tensor)
+    computes that formula.  On the card the kernel's ``u8`` path takes the
+    raw pixels as the unsigned operand of the integer tensor cores, with
+    no shift: its sum is ``acc + 128 M`` exactly, so the outputs agree bit
+    for bit.  Prepares the parameters on each call: a ``Net`` prepares
+    them once and calls ``kernels.conv_int8.conv_int8``."""
     from ..kernels.conv_int8 import conv_int8, prepare_conv0
     w = torch.as_tensor(weights).to(x_u8.device)
     cp = prepare_conv0(w, torch.as_tensor(scale).to(x_u8.device),

@@ -5,6 +5,8 @@ conv0_int8_from_u8`` on the CPU, and a fast Net under the flag against the
 JAX forward and detect under it, with the JAX package's guard (its
 precedence over the stem kernel, parity mode ignoring the flag)."""
 
+import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -201,3 +203,183 @@ def test_parity_and_unfolded_paths_ignore_the_flag(monkeypatch):
     fast = pt.Net(tir, params, mode="fast", device="cpu")
     monkeypatch.setattr(tbuild, "conv_int8", refuse)
     fast.forward_heads(x, mean=(1.0, 2.0, 3.0))
+
+
+# ------------------------------------------------ the stems the u8 path takes
+# (tag, cfg, activation) of each stem shape the kernel's u8 path has an
+# instance for beside xl's: micro F 8 s2, yolov3-tiny F 16 s1, yolov4-tiny
+# F 32 s2, yolov4 F 32 s1 mish, YOLOv8n's F 16 s2 swish (cfg None)
+STEMS = {"micro": MICRO,
+         "yolov3-tiny": os.path.join(REPO, "models", "yolov3-tiny.cfg"),
+         "yolov4-tiny": os.path.join(REPO, "models", "yolov4-tiny.cfg"),
+         "yolov4": os.path.join(REPO, "models", "yolov4.cfg"),
+         "v8n": None}
+
+
+def _stem(tag, size):
+    """(folded HWIO float32 weights, scale, bias, stride, act) of a stem:
+    the cfg's layer 0 with ``synth_weights_bytes`` (its first draws, the
+    graph cut to that layer) and the demo input transform folded in;
+    YOLOv8n's a seeded random filter bank (F 16, stride 2, swish)."""
+    cfg = STEMS[tag]
+    if cfg is None:
+        rng = np.random.RandomState(11)
+        return (rng.normal(0, 0.05, (3, 3, 3, 16)).astype(np.float32),
+                (rng.rand(16) + 0.5).astype(np.float32),
+                rng.normal(0, 0.1, 16).astype(np.float32), 2, 6)
+    ir = parse_cfg(cfg, size, size)
+    ir = dataclasses.replace(ir, layers=ir.layers[:1], blobs=ir.blobs[:2])
+    params, _ = load_weights(ir, synth_weights_bytes(ir, seed=42))
+    p = jbuild.fold_input_transform(ir, jbuild.params_to_pytree(params),
+                                    pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[0]
+    l0 = ir.layers[0]
+    return (np.array(p["weights"], np.float32),
+            np.array(p["scale"], np.float32),
+            np.array(p["bias"], np.float32), l0.stride, l0.activation)
+
+
+@pytest.mark.parametrize("size", [33, 34])
+@pytest.mark.parametrize("tag", list(STEMS))
+def test_stem_plain_equals_jax(tag, size):
+    """The plain uint8 mode (the u8 path's yardstick on the card) against
+    JAX's ``conv0_int8_from_u8`` at every stem shape the u8 path has an
+    instance for, on seeded pixels, float32 and bf16.  The integer sums are
+    exact on both sides; linear and leaky take one float32 ulp (an XLA
+    multiply-add) with 99% equal; mish and swish round their
+    transcendentals apart on the two CPUs (up to 3.7e-7 relative): rtol
+    1e-6; a bf16 output one bf16 ulp."""
+    w, scale, bias, stride, act = _stem(tag, size)
+    x = np.random.RandomState(size).randint(0, 256, (2, size, size, 3),
+                                            dtype=np.uint8)
+    kw = dict(stride=stride, pad=1, act=act)
+    smooth = act in (4, 6)
+    # linear and leaky eager (jitted, XLA fuses a multiply-add into the
+    # epilogue), mish and swish jitted (eager compiles each of their ops);
+    # JAX's bf16 output is its float32 result's last cast
+    fn = functools.partial(jconv.conv0_int8_from_u8, weights=w,
+                           scale=scale, bias=bias, float_dtype=jnp.float32,
+                           **kw)
+    y = (jax.jit(fn) if smooth else fn)(jnp.asarray(x))
+    for dtype in ("float32", "bfloat16"):
+        want = np.asarray(y.astype(getattr(jnp, dtype)).astype(jnp.float32))
+        got = tconv.conv0_int8_from_u8(
+            torch.from_numpy(x), torch.from_numpy(w),
+            torch.from_numpy(scale), torch.from_numpy(bias),
+            float_dtype=getattr(torch, dtype), **kw)
+        assert got.dtype == getattr(torch, dtype)
+        got = got.float().numpy()
+        oh = (size - 1) // stride + 1
+        assert got.shape == want.shape == (2, oh, oh, w.shape[3])
+        tol = 2 ** -8 if dtype == "bfloat16" else 1e-6 if smooth else 2 ** -23
+        np.testing.assert_allclose(got, want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+        if dtype == "float32" and not smooth:
+            assert np.mean(got == want) >= 0.99
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: result byte i is byte (sel >>
+    4i) & 7 of the eight bytes y:x."""
+    b = np.stack([(x >> (8 * i)) & 0xFF for i in range(4)]
+                 + [(y >> (8 * i)) & 0xFF for i in range(4)])
+    out = np.zeros(np.broadcast(x, y, sel).shape, np.uint32)
+    for i in range(4):
+        nib = (np.broadcast_to(sel, out.shape) >> (4 * i)) & 7
+        out |= np.take_along_axis(b, nib[None].astype(np.int64), 0)[0] \
+            << np.uint32(8 * i)
+    return out
+
+
+def _u8_stem_sums(x, wp, stride):
+    """A numpy model of the u8 path's stem instance (k 3, C 3, pad 1): the
+    staged rows (pad bytes 0, a row's first tap at byte 3 s ox + 13), each
+    lane's three aligned words and __byte_perm picks, the 32 K slots (lanes
+    t < 3: row t's bytes 0..3 and 4..7; lane 3: byte 8 of each row) against
+    the weight codes permuted to match, and their sum S = sum wq * x.
+    Returns S (n, oh, ow, F) int64."""
+    n, h, w, _ = x.shape
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    ld = -(-(16 + 3 * w + 32) // 16) * 16
+    rows = np.zeros((n, h + 2 + stride, ld), np.uint8)   # input row iy at
+    rows[:, 1:h + 1, 16:16 + 3 * w] = x.reshape(n, h, 3 * w)   # row iy + 1
+    words = rows.view("<u4").astype(np.uint32)           # (n, rows, ld / 4)
+    ox = np.arange(ow)
+    o = 3 * stride * ox + 13
+    o3 = (o & 3).astype(np.uint32)
+    assert np.array_equal(o3, (3 * stride * (ox % 8) + 13) & 3)
+    base = (o & ~3) // 4                                  # word of o & ~3
+    a_slots = np.zeros((n, oh, ow, 32), np.int64)
+    for oy in range(oh):
+        r0 = stride * oy                                  # staged row of ky 0
+
+        def word(ky, at):
+            return words[:, r0 + ky, at]                  # (n, ow)
+        for t in range(4):
+            if t < 3:
+                w0, w1, w2 = (word(t, base + j) for j in range(3))
+                sel_a, sel_b = 0x3210 + 0x1111 * o3, np.uint32(0x3210)
+            else:
+                w0, w1, w2 = (word(j, base + 2) for j in range(3))
+                sel_a = o3 | (4 + o3) << 4
+                sel_b = 0x0010 | (4 + o3) << 8
+            lo = _byte_perm(_byte_perm(w0, w1, sel_a), w2, sel_b)
+            hi = _byte_perm(w1, w2, sel_a)
+            for i in range(4):
+                a_slots[:, oy, :, 4 * t + i] = (lo >> (8 * i)) & 0xFF
+                a_slots[:, oy, :, 16 + 4 * t + i] = (hi >> (8 * i)) & 0xFF
+    b_slots = np.zeros((wp.shape[0], 32), np.int64)       # slot -> code
+    for t in range(3):
+        b_slots[:, 4 * t:4 * t + 4] = wp[:, 9 * t:9 * t + 4]
+        b_slots[:, 16 + 4 * t:20 + 4 * t] = wp[:, 9 * t + 4:9 * t + 8]
+        b_slots[:, 12 + t] = wp[:, 9 * t + 8]
+    return a_slots @ b_slots.T
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_u8_path_integer_identities(stride):
+    """The u8 path's integers at border and interior pixels: S, the sum of
+    its permuted K slots over the raw pixels (a numpy model of the stem
+    instance's gather), equals the shifted codes' accumulators plus m128 (so
+    S * eff + bias is the plain version's (acc + m128) * eff + bias), and
+    its raw mode's S - 128 T (T the codes of the pixel's in-bounds taps,
+    the (tap, F) table's total less the taps outside) equals those
+    accumulators."""
+    rng = np.random.RandomState(20 + stride)
+    w = rng.normal(0, 0.05, (3, 3, 3, 16)).astype(np.float32)
+    x = rng.randint(0, 256, (2, 13, 14, 3)).astype(np.uint8)
+    x[0, :2] = 255            # saturated rows at a border
+    cp = tci.prepare_conv0(torch.from_numpy(w), torch.ones(16),
+                           torch.zeros(16), h=13, w=14, stride=stride,
+                           pad=1, act=0)
+    wp = cp.wp.numpy()
+    s = _u8_stem_sums(x, wp, stride)
+    acc = tci.conv_int8(torch.from_numpy(x), cp, raw=True).numpy()
+    n, oh, ow, f = acc.shape
+    m128 = cp.m128.double().numpy().reshape(oh, ow, f)
+    assert np.array_equal(s, acc + m128)
+    tsum = wp[:, :27].reshape(f, 9, 3).astype(np.int64).sum(-1).T  # (9, F)
+    tot = np.broadcast_to(tsum.sum(0), (oh, ow, f)).copy()
+    for oy in range(oh):
+        for ox in range(ow):
+            for ky in range(3):
+                for kx in range(3):
+                    iy, ix = stride * oy - 1 + ky, stride * ox - 1 + kx
+                    if not (0 <= iy < 13 and 0 <= ix < 14):
+                        tot[oy, ox] -= tsum[3 * ky + kx]
+    assert (tot != tsum.sum(0)).any()          # border pixels were reached
+    assert np.array_equal(s - 128 * tot, acc)
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((3, 16, 3, 2, 1), {}), ((3, 32, 3, 1, 1), {}), ((3, 8, 3, 2, 1), {}),
+    ((3, 8, 3, 1, 1), {}), ((1, 24, 5, 1, 1), {}), ((4, 40, 3, 2, 1), {}),
+    ((48, 16, 1, 1, 1), {}), ((3, 16, 3, 2, 1), {"aligned": False})])
+def test_uint8_calls_route_u8(args, kw):
+    """Every uint8-mode call takes the u8 path (the stems' instances and the
+    generic one alike, aligned or not); no int8-code call does."""
+    assert tci.route(*args, x_u8=True, **kw) == "u8"
+    assert tci.route(*args, **kw) != "u8"
+    assert all(tci.route(c, f, k, s, g, aligned=al) != "u8"
+               for c, f, g in ((3, 16, 1), (16, 16, 16), (48, 96, 1),
+                               (40, 40, 40), (16, 8, 4))
+               for k in (1, 3, 5) for s in (1, 2) for al in (True, False))

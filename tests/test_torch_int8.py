@@ -816,14 +816,14 @@ def test_plan_mirror_pinned_to_the_source():
     enum = re.search(r"enum Route \{([^}]*)\}", src).group(1)
     names = [e.split("=")[0].strip() for e in enum.split(",")]
     assert names == ["k" + r.capitalize() for r in tci.ROUTES]
-    assert tci.ROUTES == ("dense", "gemm", "dw", "dw4", "grouped")
+    assert tci.ROUTES == ("dense", "gemm", "dw", "dw4", "grouped", "u8")
     assert re.search(r"constexpr int kDwSlice = 16;", src)
 
 
 @pytest.mark.parametrize("args,kw,want", [
     ((48, 16, 1, 1, 1), {}, "gemm"),
     ((16, 272, 3, 2, 1), {}, "gemm"),
-    ((48, 16, 1, 1, 1), {"x_u8": True}, "dense"),
+    ((48, 16, 1, 1, 1), {"x_u8": True}, "u8"),
     ((40, 16, 1, 1, 1), {}, "dense"),
     ((48, 16, 1, 1, 1), {"aligned": False}, "dense"),
     ((48, 48, 3, 2, 48), {}, "dw"),
@@ -836,8 +836,8 @@ def test_plan_mirror_pinned_to_the_source():
     ((6, 6, 3, 1, 6), {}, "grouped")])
 def test_routes_by_shape(args, kw, want):
     """The routing (c, f, k, stride, groups): dense int8 codes with C a
-    multiple of 16 take gemm, the uint8 mode and other C the first dense
-    kernel; depthwise 3x3 and 5x5 at stride 1 and 2 with C a multiple of
+    multiple of 16 take gemm, other C the first dense kernel, the uint8
+    mode its u8 path; depthwise 3x3 and 5x5 at stride 1 and 2 with C a multiple of
     16 take dw, other depthwise convs with C a multiple of 4 dw4; the rest
     grouped; an unaligned tensor leaves the 16-byte paths."""
     assert tci.route(*args, **kw) == want
