@@ -89,7 +89,9 @@ K9.  Phases, each of which exits non-zero on failure:
      plain version at batch 64, and ``full`` bit for bit against K1,
      whose template it launches, then each mode chained 20 times at batch
      256 in bf16, counted and timed beside the cuDNN chain and the layout
-     round trip); P4 and P5 (``retest_backend_bugs.py``: bit-exact, timed)
+     round trip); P4 and P5 (``retest_backend_bugs.py``: bit-exact, timed
+     by events and alone, 20 launches in one CUDA graph, beside
+     ``x[::2].contiguous()`` both ways)
   9. serving (its ``detect_stream`` and server parts run after phase 5,
      before the timings, whose traces torch.profiler's counts must
      precede; its ``memory_stats`` and sync-debug parts run last): on
@@ -204,13 +206,26 @@ K9.  Phases, each of which exits non-zero on failure:
      step at 2 and 4 stages, 4 and 8 microbatches, against the serial
      parity forward, and the sharded parity pipeline over SP 2 and TP 2
      against one slot.
+ 15. the BMP codec (``ffcnn_tpu_torch/native/bmp_codec.c``, built by gcc at
+     its first use into ``ffcnn_tpu_torch/_build/``) on the card's host,
+     after phase 10 (whose ``detect`` and ``batch`` already decode through
+     it): the library loaded from ``_build/``; 256 seeded 320x320 frames
+     written by ``bmp_save``, four bit for bit against ``bmp_save_plain``;
+     ``load_batch`` of 64 bit for bit against ``load_batch_plain`` (the
+     thread pool), both timed (median of 10 after a warm-up, the page cache
+     warm) with the host's cores; ``cli batch`` over the 256 frames at
+     ``--batch 64`` under the region flags, its lines against
+     ``Net.detect``'s and the kernels K1, K2, K3, K6 and K7 counted around
+     it, its img/s beside the loader's and ``detect_device``'s ms a chunk;
+     ``Net.load`` of xl from the weights file, median of 3.
 
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
 shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
-P1 and P2 with the kernel's device time alone, K2 with its times and bound
+P1, P2, P4 and P5 with the kernel's device time alone (P4 beside
+``x[::2].contiguous()``'s, ``library_alone_ms``), K2 with its times and bound
 at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's
 launches are their wrappers' counts over phase 4's first detect on the
 region, cascade and mega paths, which builds the bucket; K1, K3 and K4
@@ -234,6 +249,7 @@ import json
 import os
 import struct
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -334,6 +350,10 @@ SERVE_REQUESTS, SERVE_CLIENTS, SERVE_FRAMES = 96, 32, 16
 STREAM_DEPTHS = (2, 3)
 # Phase 10: the steps of the layer profile held to its ranges
 PROFILE_ITERS = 10
+# Phase 15: the BMP codec on the card's host: seeded 320x320 frames
+# written, the chunk ``cli batch`` decodes at a time, the timed repeats of
+# a loader (after one warm-up) and of ``Net.load``
+CODEC_FRAMES, CODEC_CHUNK, LOADER_REPS, NET_LOAD_REPS = 256, 64, 10, 3
 # seconds between a trace's window opening and the traced call (``traced``)
 TRACE_SETTLE_S = 0.2
 # attempts of a replay check whose eager trace lost device events
@@ -1103,16 +1123,22 @@ def probe_phase(dev, counters) -> list:
         launches[key] = only(f"{key} {probe.name}", counts, key, 1)
         err[key] = check_kernel(f"{key} {probe.name} {tuple(x.shape)}", y,
                                 probe.plain(x), EXACT, 8)
+        # by events (host time between the launches included), then alone:
+        # 20 launches in one CUDA graph, its replays between CUDA events
+        library = (lambda: x[::2].contiguous()) if key == "P4" else None
         t = times[key] = dict(
             ms=cuda_ms(lambda: probe.run(x), 200),
             plain=cuda_ms(lambda: probe.plain(x), 200),
-            library=(cuda_ms(lambda: x[::2].contiguous(), 200)
-                     if key == "P4" else None),
+            library=None if library is None else cuda_ms(library, 200),
+            alone=bb.graph_launch_ms(lambda: probe.run(x)),
+            library_alone=(None if library is None
+                           else bb.graph_launch_ms(library)),
             work=bb.Work(2 * y.numel() * y.element_size()))
-        log(f"[8] {key} {probe.name}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain']:.4f} ms" + ("" if t["library"] is None else
-                                      f", x[::2].contiguous() "
-                                      f"{t['library']:.4f} ms"))
+        log(f"[8] {key} {probe.name}: kernel {t['ms']:.4f} ms, alone "
+            f"{t['alone']:.5f} ms; plain {t['plain']:.4f} ms"
+            + ("" if library is None else
+               f"; x[::2].contiguous() {t['library']:.4f} ms, alone "
+               f"{t['library_alone']:.5f} ms"))
 
     return [
         kernel_entry(name, "pw_matmul.cu", f"tools/bench_pw_kernels.py:{line}",
@@ -1130,7 +1156,10 @@ def probe_phase(dev, counters) -> list:
     ] + [kernel_entry(name, "mosaic_probes.cu",
                       f"tools/retest_backend_bugs.py:{line}", launches[key],
                       err[key], times[key]["ms"], times[key]["plain"],
-                      times[key]["work"], times[key]["library"])
+                      times[key]["work"], times[key]["library"],
+                      kernel_alone_ms=times[key]["alone"],
+                      **({} if times[key]["library_alone"] is None else
+                         {"library_alone_ms": times[key]["library_alone"]}))
          for name, key, line in (("strided_rows", "P4", 73),
                                  ("dynslice_carry", "P5", 92))]
 
@@ -1509,6 +1538,154 @@ def bench_phase() -> None:
             f"{row['int8_img_s']:.1f} img/s at batch {row['int8_batch']}")
         if not row["int8_img_s"] > 0:
             raise AssertionError("the bench's int8 row is empty")
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``reps`` calls of ``fn``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fs_of(path: str) -> str:
+    """The type of the file system that holds ``path`` (/proc/mounts)."""
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mount, fstype = line.split()[:3]
+            if (path == mount or path.startswith(mount.rstrip("/") + "/")) \
+                    and len(mount) > len(best):
+                best, kind = mount, fstype
+    return f"{kind} ({best})"
+
+
+def codec_phase(pt, wbytes, counters) -> None:
+    """Phase 15, the BMP codec on the card's host: the codec loaded from
+    ``_build/``; CODEC_FRAMES seeded 320x320 frames written by ``bmp_save``
+    (a few bit for bit against ``bmp_save_plain``); ``load_batch`` of a
+    chunk bit for bit against ``load_batch_plain``, both timed; ``cli
+    batch`` over every frame under the region flags, its lines against
+    ``Net.detect``'s and the region path's kernels counted around it,
+    beside the loader's and ``detect_device``'s ms a chunk; ``Net.load``
+    timed."""
+    import torch
+    from ffcnn_tpu_torch.imageio import bmp, loader, native
+    t_phase = time.perf_counter()
+    lib = native.codec().__file__
+    if lib != str(native.library_path()) or \
+            os.path.dirname(lib) != str(native.BUILD_DIR):
+        raise AssertionError(f"the codec was loaded from {lib}")
+    cpus, usable = os.cpu_count(), len(os.sched_getaffinity(0))
+    log(f"[15] codec {os.path.relpath(lib, REPO)} (gcc at first use); host "
+        f"os.cpu_count() {cpus}, usable cores {usable}; card {card_line()}")
+    frames = np.random.RandomState(SEED).randint(
+        0, 256, (CODEC_FRAMES, 320, 320, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"frame{i:03d}.bmp")
+                 for i in range(CODEC_FRAMES)]
+        t0 = time.perf_counter()
+        for path, frame in zip(paths, frames):
+            bmp.bmp_save(path, frame)
+        save_s = time.perf_counter() - t0
+        plain = os.path.join(tmp, "plain.bmp")
+        checked = (0, 1, CODEC_FRAMES // 2, CODEC_FRAMES - 1)
+        for i in checked:
+            bmp.bmp_save_plain(plain, frames[i])
+            with open(paths[i], "rb") as a, open(plain, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"bmp_save of frame {i} differs "
+                                         f"from bmp_save_plain")
+        chunk = paths[:CODEC_CHUNK]
+        got = loader.load_batch(chunk)
+        if not (np.array_equal(got, loader.load_batch_plain(chunk))
+                and np.array_equal(got, frames[:CODEC_CHUNK])):
+            raise AssertionError("load_batch differs from load_batch_plain")
+        log(f"[15] bmp_save wrote {CODEC_FRAMES} frames in {save_s:.3f} s, "
+            f"frames {checked} bit for bit with bmp_save_plain; load_batch "
+            f"of {CODEC_CHUNK} bit for bit with load_batch_plain and the "
+            f"frames")
+        # the files were just written and read: the page cache is warm
+        def read_files():
+            for path in chunk:
+                with open(path, "rb") as f:
+                    f.read()
+
+        ms = {}
+        for name, fn in (("codec", loader.load_batch),
+                         ("codec, 1 thread", lambda c: loader.load_batch(c,
+                                                                         1)),
+                         ("thread pool", loader.load_batch_plain),
+                         ("open and read alone", lambda c: read_files())):
+            fn(chunk)
+            ms[name] = median_ms(lambda: fn(chunk), LOADER_REPS)
+        log(f"[15] {CODEC_CHUNK} frames of 320x320 in {fs_of(tmp)} (kernel "
+            f"{os.uname().release}), warm page cache, median of "
+            f"{LOADER_REPS} after one warm-up: codec load_batch "
+            f"{ms['codec']:.3f} ms ({min(64, cpus, CODEC_CHUNK)} pthreads; "
+            f"1 pthread {ms['codec, 1 thread']:.3f} ms), thread pool "
+            f"load_batch_plain {ms['thread pool']:.3f} ms ({min(32, cpus)} "
+            f"threads), {ms['thread pool'] / ms['codec']:.2f}x; each file "
+            f"opened and read whole in one Python thread "
+            f"{ms['open and read alone']:.3f} ms")
+
+        wpath = os.path.join(tmp, "xl.weights")
+        with open(wpath, "wb") as f:
+            f.write(wbytes)
+        with environ(REGION_FLAGS):
+            net = pt.load(CFG, wpath, input_w=320, input_h=320,
+                          mode="fast", device="cuda")
+            dets = []
+            for i in range(0, CODEC_FRAMES, CODEC_CHUNK):
+                dets += net.detect(frames[i:i + CODEC_CHUNK])
+            out, counts = counted(counters, lambda: run_cli(
+                ["batch", *paths, "--cfg", CFG, "--weights", wpath,
+                 "--batch", str(CODEC_CHUNK)]))
+            got = out.splitlines()
+            want = [x for p, d in zip(paths, dets)
+                    for x in [p] + det_lines(d, "  ")]
+            log(f"[15] cli batch of {CODEC_FRAMES} BMPs, --batch "
+                f"{CODEC_CHUNK}, region flags: '{got[0]}'; "
+                f"{sum(map(len, dets))} detections, equal to Net.detect's: "
+                f"{got[1:] == want}; launches "
+                + " ".join(f"{k} {v}" for k, v in counts.items()))
+            if got[1:] != want:
+                raise AssertionError("cli batch differs from Net.detect")
+            region = ("K1", "K2", "K3", "K6", "K7")
+            if any(counts[k] == 0 for k in region) or any(
+                    v for k, v in counts.items() if k not in region):
+                raise AssertionError("cli batch did not run the region "
+                                     "path's kernels")
+            img_s = float(re.search(r"\(([0-9.]+) img/s\)",
+                                    got[0]).group(1))
+            x = frames[:CODEC_CHUNK]
+            dev_ms = cuda_ms(lambda: net.detect_device(x), 10, 2)
+            xd = torch.from_numpy(x).to("cuda")
+            card_ms = cuda_ms(lambda: net.detect_device(xd), 10, 2)
+            log(f"[15] a chunk of {CODEC_CHUNK}: decode (codec) "
+                f"{ms['codec']:.3f} ms, detect_device (a bucket's replay) "
+                f"{dev_ms:.3f} ms from host frames, {card_ms:.3f} ms from "
+                f"frames on the card; cli batch {img_s:.1f} "
+                f"img/s = {CODEC_CHUNK / img_s * 1e3:.3f} ms a chunk; the "
+                f"slower of the two: "
+                f"{'decode' if ms['codec'] > dev_ms else 'the card'}")
+            del net
+            loads = []
+            for _ in range(NET_LOAD_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net = pt.load(CFG, wpath, input_w=320, input_h=320,
+                              mode="fast", device="cuda")
+                torch.cuda.synchronize()
+                loads.append(time.perf_counter() - t0)
+                del net
+        log(f"[15] Net.load of xl from the weights file (parse, read, fold, "
+            f"upload), region flags: median of {NET_LOAD_REPS} "
+            f"{statistics.median(loads):.3f} s (each "
+            + ", ".join(f"{t:.3f}" for t in loads) + ")")
+    log(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def plan_counts(net) -> dict:
@@ -3647,6 +3824,9 @@ def main() -> int:
     copy_rate(dev)
     bench_phase()
     log(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # 15. the BMP codec on the card's host, and cli batch through it
+    codec_phase(pt, wbytes, counters)
 
     # 11, its timings: v8n's detect_device; K2's union times (taken in its
     # checks) join K2's entry

@@ -1,8 +1,12 @@
 """24-bit BMP codec, the port's copy of ``ffcnn_tpu/imageio/bmp.py``:
 ``bmp_decode``/``bmp_load``, the writer ``bmp_save`` and the demo's drawing
 helpers ``setpixel``/``getpixel``/``draw_rectangle`` (bmpfile.c:121-156).
-The JAX package's native codec (``native/bmp_codec.c``) is not built for the
-port; these are its pure-numpy paths, which write the same bytes.
+``bmp_load`` and ``bmp_save`` run the port's native codec
+(``ffcnn_tpu_torch/native/bmp_codec.c``, built at first use by
+``native.py``), as the JAX package's do where its extension is built;
+``bmp_load_plain`` and ``bmp_save_plain`` are their numpy versions, which
+read and write the same bytes.  ``bmp_decode`` (the server's uploads) and
+the drawing helpers are numpy, as in the JAX package.
 
 The reference reads a packed 54-byte header and then pixel rows bottom-up with
 4-byte-aligned strides (bmpfile.c:42-69), yielding a top-down BGR buffer in
@@ -11,9 +15,12 @@ memory; it ignores bfOffBits and assumes 24-bit uncompressed.
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
+
+from . import native
 
 _HEADER_FMT = "<HIHHIIiiHHIIIIII"  # BITMAPFILEHEADER + BITMAPINFOHEADER packed
 _HEADER_BYTES = 54
@@ -48,7 +55,14 @@ def bmp_decode(raw: bytes) -> np.ndarray:
 
 
 def bmp_load(path: str) -> np.ndarray:
-    """Load a 24-bit BMP as a top-down (H, W, 3) uint8 BGR array."""
+    """Load a 24-bit BMP as a top-down (H, W, 3) uint8 BGR array (the
+    native codec; a writable view of the buffer it fills)."""
+    ba, h, w = native.codec().bmp_load(os.fspath(path))
+    return np.frombuffer(ba, np.uint8).reshape(h, w, 3)
+
+
+def bmp_load_plain(path: str) -> np.ndarray:
+    """``bmp_load``'s numpy version."""
     with open(path, "rb") as f:
         raw = f.read()
     try:
@@ -58,7 +72,16 @@ def bmp_load(path: str) -> np.ndarray:
 
 
 def bmp_save(path: str, img: np.ndarray) -> None:
-    """Save a top-down (H, W, 3) uint8 BGR array as a bottom-up 24-bit BMP."""
+    """Save a top-down (H, W, 3) uint8 BGR array as a bottom-up 24-bit BMP
+    (the native codec)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {img.shape}")
+    native.codec().bmp_save(os.fspath(path), img, *img.shape[:2])
+
+
+def bmp_save_plain(path: str, img: np.ndarray) -> None:
+    """``bmp_save``'s numpy version."""
     h, w = img.shape[:2]
     stride = _align4(w * 3)
     rows = np.zeros((h, stride), np.uint8)

@@ -2,7 +2,8 @@
 ``tuning``) against the JAX package's, which it copies: the same IR for
 every ``models/*.cfg``, the same folded weights, the same pixels, the same
 BMP bytes written and drawn, the same batches loaded, the same flag
-resolution; and no file of the port imports the JAX package."""
+resolution; and no file of the port imports the JAX package (the codec's
+build-and-load module ``imageio/native.py`` included)."""
 
 import ast
 import dataclasses
@@ -211,6 +212,14 @@ def test_scan_covers_export_and_the_ops():
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for name in ("export.py", "runtime.py", "kernels/ops.py",
                  "kernels/_library.py"):
+        assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
+
+
+def test_scan_covers_the_bmp_codec():
+    """The codec's build-and-load module and the two modules that call it
+    are scanned."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in ("imageio/native.py", "imageio/bmp.py", "imageio/loader.py"):
         assert os.path.join("ffcnn_tpu_torch", name) in scanned, name
 
 
