@@ -77,7 +77,9 @@ K9.  Phases, each of which exits non-zero on failure:
   7. the block bench: its kernel pass with the K8 and K9 launch counts
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
-     times), then every case again in float32 against the plain versions
+     times), then every case again in float32 against the plain versions;
+     last, K8 alone at the tool's configs (20 launches in one CUDA graph,
+     its replays between CUDA events)
   8. the probe kernels of tools/, each behind the port of its probe, with
      its launches read around its probe's pass: P1 and P2 (the dense 1x1
      product, ``bench_pw_kernels.py``: one launch each at the tool's
@@ -89,9 +91,9 @@ K9.  Phases, each of which exits non-zero on failure:
      plain version at batch 64, and ``full`` bit for bit against K1,
      whose template it launches, then each mode chained 20 times at batch
      256 in bf16, counted and timed beside the cuDNN chain and the layout
-     round trip); P4 and P5 (``retest_backend_bugs.py``: bit-exact, timed
-     by events and alone, 20 launches in one CUDA graph, beside
-     ``x[::2].contiguous()`` both ways)
+     round trip, and each mode alone in a CUDA graph); P4 and P5
+     (``retest_backend_bugs.py``: bit-exact, timed by events and alone, 20
+     launches in one CUDA graph, beside ``x[::2].contiguous()`` both ways)
   9. serving (its ``detect_stream`` and server parts run after phase 5,
      before the timings, whose traces torch.profiler's counts must
      precede; its ``memory_stats`` and sync-debug parts run last): on
@@ -1088,7 +1090,7 @@ def probe_phase(dev, counters) -> list:
                          bv.block_variant("full", g.x0, g.vp),
                          bf.fused_block(g.x0, bv.k1_params(g.vp)), EXACT, 8)
     p3 = dict(ms=0.0, plain_ms=0.0, launches=0, chain=0.0, tpose=0.0,
-              full=0.0, work=bb.Work())
+              full=0.0, work=bb.Work(), alone=dict.fromkeys(bv.MODES, 0.0))
     rng = np.random.RandomState(0)
     for geom in bs.GEOMS:
         g = bs.make_geom(geom, P3_BATCH, torch.bfloat16, rng, dev)
@@ -1103,12 +1105,25 @@ def probe_phase(dev, counters) -> list:
                  for m in bv.MODES}
         log("[8]   plain versions, ms: " + ", ".join(
             f"{m} {v:.4f}" for m, v in plain.items()))
+        # each mode alone: its launches in a CUDA graph, replays timed
+        out = torch.empty_like(g.x0)
+        alone = {m: bb.graph_launch_ms(
+            lambda: bv.block_variant(m, g.x0, g.vp, out=out))
+            for m in bv.MODES}
+        log("[8]   alone (CUDA-graph replays), ms: " + ", ".join(
+            f"{m} {v:.4f}" for m, v in alone.items()))
+        for m, v in alone.items():
+            p3["alone"][m] += v
         p3["ms"] += sum(row[m] for m in bv.MODES) / 1e3
         p3["plain_ms"] += sum(plain.values())
         p3["work"] += sum((bs.mode_work(m, g) for m in bv.MODES), bb.Work())
         for k, r in (("chain", "xla"), ("tpose", "tpose"), ("full", "full")):
             p3[k] += row[r] / 1e3
-        del g
+        del g, out
+    log(f"[8] P3 the 4 geometries by mode alone (CUDA-graph replays), bf16 "
+        f"batch {P3_BATCH}: " + ", ".join(
+            f"{m} {v:.4f}" for m, v in p3["alone"].items())
+        + f"; all {sum(p3['alone'].values()):.4f} ms")
     log(f"[8] P3 the 4 geometries x 7 modes, bf16 batch {P3_BATCH}, one "
         f"launch each: kernel {p3['ms']:.4f} ms (bound "
         f"{p3['work'].bound()[0]:.4f} ms), plain {p3['plain_ms']:.4f} ms; "
@@ -1152,7 +1167,9 @@ def probe_phase(dev, counters) -> list:
                      "tools/bisect_smallc.py:182", p3["launches"], err["P3"],
                      p3["ms"], p3["plain_ms"], p3["work"],
                      cudnn_chain_ms=p3["chain"], full_ms=p3["full"],
-                     tpose_ms=p3["tpose"]),
+                     tpose_ms=p3["tpose"],
+                     kernel_alone_ms=sum(p3["alone"].values()),
+                     alone_ms_by_mode=p3["alone"]),
     ] + [kernel_entry(name, "mosaic_probes.cu",
                       f"tools/retest_backend_bugs.py:{line}", launches[key],
                       err[key], times[key]["ms"], times[key]["plain"],
@@ -3730,6 +3747,12 @@ def main() -> int:
             f"{bench[k]['ms']:.4f} ms (bound {bench[k]['work'].bound()[0]:.4f}"
             f" ms), cuDNN chain {bench[k]['chain_ms']:.4f} ms, plain "
             f"{bench[k]['plain_ms']:.4f} ms")
+    # K8 alone: each config's launches in a CUDA graph, its replays timed
+    k8_alone = [bb.graph_launch_ms(lambda: bb.run_k8(c)) for c, _ in part_a]
+    bench["8"]["alone"] = sum(k8_alone)
+    log(f"[7] K8 the tool's {len(part_a)} configs alone (CUDA-graph "
+        f"replays): {bench['8']['alone']:.4f} ms (" + ", ".join(
+            f"{v:.4f}" for v in k8_alone) + ")")
     part_b = [r for c, r in zip(cases, rows) if c.part == "b"]
     # the cuDNN chain at the region path's blocks: K1's and K3's yardstick
     chain_b = {s: sum(r["ms_chain"] for r in part_b if r["stride"] == s)
@@ -3804,7 +3827,8 @@ def main() -> int:
               works["K5"]),
         entry("mbconv", "K8", "mbconv.cu", "block_pallas.py:47",
               bench_counts["K8"], bench["8"]["ms"], bench["8"]["plain_ms"],
-              bench["8"]["work"], cudnn_chain_ms=bench["8"]["chain_ms"]),
+              bench["8"]["work"], cudnn_chain_ms=bench["8"]["chain_ms"],
+              kernel_alone_ms=bench["8"]["alone"]),
         entry("mbconv_cs", "K9", "mbconv_cs.cu", "csblock_pallas.py:59",
               bench_counts["K9"], bench["9"]["ms"], bench["9"]["plain_ms"],
               bench["9"]["work"], cudnn_chain_ms=bench["9"]["chain_ms"]),

@@ -31,6 +31,12 @@ bfloat16 storage T:
 * ``fullbf16``: ``full`` with w1 and w2 rounded to bf16, the expand rounded
   to bf16 after the zeroing, and the depthwise output rounded to bf16
   before the projection.
+
+On the card (``csrc/block_variants.cu``) ``pwonly`` and ``fullbf16`` run the
+tensor-core block body of ``csrc/block_round_mma.cuh`` on ``pick_tile``'s
+tiles, and the tap modes a kernel of their own on bands of whole rows
+(``tap_band``): C a multiple of 8, the band and its halo rows staged in
+shared memory (``tap_smem``).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +59,10 @@ TAP_MODES = MODES[:4]          # the tool picks their rows on C, not E
 _DTYPES = (torch.float32, torch.bfloat16)
 _SLOPE_BF16 = 0.10009765625    # bf16(0.1): JAX's leaky slope on bf16 values
 _MAX_C = 128                   # one output-channel group (csrc kOG)
+MAX_SMEM = 232448              # a CTA's shared memory on sm_90 (csrc kMaxSmem)
+# The tap modes' staged rows a CTA aims at: three CTAs share an SM, so
+# two CTAs' rows are on their way while one computes.
+TAP_BAND_BYTES = 64 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +122,25 @@ def _pad(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 1, 1, 1))
 
 
+def _block_f32(mode: str, x: torch.Tensor, vp: VariantParams,
+               matmul=torch.matmul) -> torch.Tensor:
+    """pwonly, full or fullbf16 with their rounding points, float32 before
+    the final rounding to x's dtype; ``matmul`` computes the two pointwise
+    products (the tests pass the kernel's product scheme)."""
+    h, w = x.shape[1:3]
+    kdw = vp.kdw.t().reshape(3, 3, -1)      # the tool's (3, 3, E)
+    bf = mode == "fullbf16"
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if bf else t
+    xf = x.float()
+    d = _leaky(matmul(xf, rnd(vp.w1)) * vp.s1 + vp.b1)
+    if mode != "pwonly":
+        acc = _taps(_pad(rnd(d)), kdw, h, w, torch.float32)
+        d = rnd(_leaky(acc * vp.s2 + vp.b2))
+    return matmul(d, rnd(vp.w2)) * vp.s3 + vp.b3 + xf
+
+
 def variant_plain(mode: str, x: torch.Tensor,
                   vp: VariantParams) -> torch.Tensor:
     """One variant in plain PyTorch: NHWC (N, H, W, C) -> (N, H, W, C) in
@@ -120,9 +149,8 @@ def variant_plain(mode: str, x: torch.Tensor,
     n, h, w, c = x.shape
     if mode == "copy":
         return x.clone()
-    kdw = vp.kdw.t().reshape(3, 3, -1)      # the tool's (3, 3, E)
     if mode in TAP_MODES:
-        k = kdw[..., :c]
+        k = vp.kdw.t().reshape(3, 3, -1)[..., :c]
         if mode == "dwbf16":
             k, rows = k.to(torch.bfloat16), x
         else:
@@ -130,17 +158,33 @@ def variant_plain(mode: str, x: torch.Tensor,
         acc = _taps(_pad(rows), k, h, w, rows.dtype)
         slope = _SLOPE_BF16 if acc.dtype == torch.bfloat16 else 0.1
         return _leaky(acc, slope).to(x.dtype)
-    bf = mode == "fullbf16"
+    return _block_f32(mode, x, vp).to(x.dtype)
 
-    def rnd(t):
-        return t.to(torch.bfloat16).float() if bf else t
-    xf = x.float()
-    d = _leaky(xf @ rnd(vp.w1) * vp.s1 + vp.b1)
-    if mode != "pwonly":
-        acc = _taps(_pad(rnd(d)), kdw, h, w, torch.float32)
-        d = rnd(_leaky(acc * vp.s2 + vp.b2))
-    y = d @ rnd(vp.w2) * vp.s3 + vp.b3
-    return (y + xf).to(x.dtype)
+
+def tap_smem(rows: int, w: int, c: int, itemsize: int, mode: str) -> int:
+    """Bytes of shared memory a tap-mode CTA takes for a band of ``rows``
+    output rows of width ``w`` (csrc/block_variants.cu ``tap_smem``): the
+    rows and (but for copy) their two halo rows in the storage type, and
+    for dwonly with bf16 storage the same rows again as float32."""
+    halo = 0 if mode == "copy" else 2
+    extra = 4 if mode == "dwonly" and itemsize == 2 else 0
+    return (rows + halo) * w * c * (itemsize + extra)
+
+
+def tap_band(h: int, w: int, c: int, itemsize: int, mode: str) -> int:
+    """The output rows a tap-mode CTA owns: as many whole rows as fit
+    ``TAP_BAND_BYTES`` of staged rows (at least one), spread evenly over
+    the image's bands.  Raises ``ValueError`` where one row and its halo do
+    not fit a CTA's shared memory.  The kernel's tile is (band, w)."""
+    halo = tap_smem(0, w, c, itemsize, mode)
+    row = tap_smem(1, w, c, itemsize, mode) - halo
+    if halo + row > MAX_SMEM:
+        raise ValueError(f"a row of {w} pixels x {c} channels does not fit "
+                         f"a CTA's shared memory in mode {mode}")
+    h = max(h, 1)
+    most = min(h, max(1, (TAP_BAND_BYTES - halo) // row))
+    bands = -(-h // most)
+    return -(-h // bands)
 
 
 def block_variant(mode: str, x: torch.Tensor, vp: VariantParams,
@@ -155,7 +199,7 @@ def block_variant(mode: str, x: torch.Tensor, vp: VariantParams,
         return y if out is None else out.copy_(y)
     _check(mode, x, vp, out)
     n, h, w, c = x.shape
-    th, tw = pick_tile(h, w)
+    th, tw = tile_of(mode, h, w, c, vp.w1.shape[1], x.element_size())
     y = torch.empty_like(x) if out is None else out
     lib = build()
     err = lib.ffcnn_block_variant(
@@ -173,6 +217,22 @@ def block_variant(mode: str, x: torch.Tensor, vp: VariantParams,
 block_variant.launches = 0
 
 
+def tile_of(mode: str, h: int, w: int, c: int, e: int,
+            itemsize: int) -> Tuple[int, int]:
+    """The (th, tw) the kernel takes for ``mode`` on an (h, w, c) map with
+    E = ``e``: ``pick_tile``'s output tile for pwonly, full and fullbf16;
+    (``tap_band``, w), a band of whole rows, for the tap modes.  Raises
+    ``ValueError`` for what the kernel cannot take: C > 128, and in a tap
+    mode C > E (its taps are kdw[:C]), C not a multiple of 8 (it works in
+    8-channel vectors of 16 or 32 bytes) or a row beyond shared memory."""
+    if c > _MAX_C or (mode in TAP_MODES and (c > e or c % 8)):
+        raise ValueError(f"C {c}, E {e}: the kernel takes C <= {_MAX_C}, "
+                         f"and C <= E, C a multiple of 8 for the tap modes")
+    if mode in TAP_MODES:
+        return tap_band(h, w, c, itemsize, mode), w
+    return pick_tile(h, w)
+
+
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -187,9 +247,6 @@ def _check(mode: str, x: torch.Tensor, vp: VariantParams,
                          f"tensor, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
     c, e = x.shape[3], vp.w1.shape[1]
-    if c > _MAX_C or (mode in TAP_MODES and c > e):
-        raise ValueError(f"C {c}, E {e}: the kernel takes C <= {_MAX_C}, "
-                         f"and C <= E for the tap modes")
     shapes = dict(w1=(c, e), s1=(e,), b1=(e,), kdw=(e, 9), s2=(e,),
                   b2=(e,), w2=(e, c), s3=(c,), b3=(c,))
     for name, shape in shapes.items():

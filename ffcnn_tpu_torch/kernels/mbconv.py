@@ -18,6 +18,11 @@ drives it.  It is not K1 in another layout; its numerics are its own:
   (``residual=True`` without ``res`` adds zeros, as the JAX wrapper does);
 * at stride 2, H and W must be even: the JAX kernel fails on odd sizes, and
   here both versions raise ``ValueError``.
+
+The CUDA kernel (``csrc/mbconv.cu``) is the tensor-core block body of
+``csrc/block_round_mma.cuh`` under its K8 policy, on ``pick_tile``'s tiles:
+both products in split TF32 (``mma.sync``, about 2^-21 of each product),
+rounded where this plain version rounds.
 """
 
 from __future__ import annotations
@@ -47,17 +52,15 @@ def _out_size(h: int, w: int, stride: int):
     return h // stride, w // stride
 
 
-def fused_mbconv_plain(x, w1, s1, b1, wd, sd, bd, w2, s2, b2,
-                       res: Optional[torch.Tensor] = None, *,
-                       stride: int = 1, residual: bool = False,
-                       act_mid: bool = True, act_out: bool = False
-                       ) -> torch.Tensor:
-    """K8 in plain PyTorch, with the TPU kernel's rounding points: x (N, H,
-    W, Cin), w1 (Cin, Cmid), wd (3, 3, Cmid), w2 (Cmid, Cout), per-stage
-    scale and bias; returns (N, H/stride, W/stride, Cout) in x's dtype."""
+def _mbconv_f32(x, w1, s1, b1, wd, sd, bd, w2, s2, b2, res, stride,
+                residual, act_mid, act_out, matmul=torch.matmul
+                ) -> torch.Tensor:
+    """K8's block with its rounding points, float32 before the final
+    rounding to x's dtype; ``matmul`` computes the two pointwise products
+    (the tests pass the kernel's product scheme)."""
     n, h, w, _ = x.shape
     oh, ow = _out_size(h, w, stride)
-    h1 = torch.matmul(x.float(), w1.float()) * s1 + b1
+    h1 = matmul(x.float(), w1.float()) * s1 + b1
     h1 = (_leaky(h1) if act_mid else h1).to(x.dtype).float()
     # the zero padding applies to the rounded expand output
     hp = F.pad(h1, (0, 0, 1, 1, 1, 1))
@@ -68,12 +71,24 @@ def fused_mbconv_plain(x, w1, s1, b1, wd, sd, bd, w2, s2, b2,
             acc = acc + hp[:, dy:dy + stride * oh:stride,
                            dx:dx + stride * ow:stride] * wd[dy, dx].float()
     d = _leaky(acc * sd + bd).to(x.dtype).float()
-    y = torch.matmul(d, w2.float()) * s2 + b2
+    y = matmul(d, w2.float()) * s2 + b2
     if act_out:
         y = _leaky(y)
     if residual and res is not None:
         y = y + res.float()
-    return y.to(x.dtype)
+    return y
+
+
+def fused_mbconv_plain(x, w1, s1, b1, wd, sd, bd, w2, s2, b2,
+                       res: Optional[torch.Tensor] = None, *,
+                       stride: int = 1, residual: bool = False,
+                       act_mid: bool = True, act_out: bool = False
+                       ) -> torch.Tensor:
+    """K8 in plain PyTorch, with the TPU kernel's rounding points: x (N, H,
+    W, Cin), w1 (Cin, Cmid), wd (3, 3, Cmid), w2 (Cmid, Cout), per-stage
+    scale and bias; returns (N, H/stride, W/stride, Cout) in x's dtype."""
+    return _mbconv_f32(x, w1, s1, b1, wd, sd, bd, w2, s2, b2, res, stride,
+                       residual, act_mid, act_out).to(x.dtype)
 
 
 def fused_mbconv(x, w1, s1, b1, wd, sd, bd, w2, s2, b2,
