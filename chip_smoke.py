@@ -78,8 +78,10 @@ K9.  Phases, each of which exits non-zero on failure:
      read around it (one launch a case each), its report (each kernel
      against its plain version, the three-conv cuDNN chain and K1/K3, with
      times), then every case again in float32 against the plain versions;
-     last, K8 alone at the tool's configs (20 launches in one CUDA graph,
-     its replays between CUDA events)
+     last, K8 alone at the tool's configs and K9 alone at their five
+     stride-1 configs (20 launches in one CUDA graph, its replays between
+     CUDA events), and K9 alone beside K1 alone at xl's 20 stride-1 region
+     blocks
   8. the probe kernels of tools/, each behind the port of its probe, with
      its launches read around its probe's pass: P1 and P2 (the dense 1x1
      product, ``bench_pw_kernels.py``: one launch each at the tool's
@@ -93,7 +95,8 @@ K9.  Phases, each of which exits non-zero on failure:
      256 in bf16, counted and timed beside the cuDNN chain and the layout
      round trip, and each mode alone in a CUDA graph); P4 and P5
      (``retest_backend_bugs.py``: bit-exact, timed by events and alone, 20
-     launches in one CUDA graph, beside ``x[::2].contiguous()`` both ways)
+     launches in one CUDA graph, beside ``x[::2].contiguous()`` and
+     ``x.index_select(0, rows)`` on P5's row map both ways)
   9. serving (its ``detect_stream`` and server parts run after phase 5,
      before the timings, whose traces torch.profiler's counts must
      precede; its ``memory_stats`` and sync-debug parts run last): on
@@ -226,8 +229,10 @@ source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
 P1-P5 (K1, K3, K7, K8 and K9 also with the cuDNN chain's time at their
 shapes, K7 with its 13x13 time and its cluster size at batch 64, K6, K2,
-P1, P2, P4 and P5 with the kernel's device time alone (P4 beside
-``x[::2].contiguous()``'s, ``library_alone_ms``), K2 with its times and bound
+P1, P2, P4, P5, K8 and K9 with the kernel's device time alone (P4 beside
+``x[::2].contiguous()``'s and P5 beside ``index_select``'s,
+``library_alone_ms``; K9 also at xl's 20 stride-1 blocks beside K1), K2
+with its times and bound
 at K 1,500 too and in union IoU at K 128, 2,048 and 8,400; K1-K7's
 launches are their wrappers' counts over phase 4's first detect on the
 region, cascade and mega paths, which builds the bucket; K1, K3 and K4
@@ -1026,6 +1031,7 @@ def probe_phase(dev, counters) -> list:
     from ffcnn_tpu_torch import retest_backend_bugs as rb
     from ffcnn_tpu_torch.kernels import block_fused as bf
     from ffcnn_tpu_torch.kernels import block_variants as bv
+    from ffcnn_tpu_torch.kernels import mosaic_probes as mp
     from ffcnn_tpu_torch.kernels import pw_matmul as pw
 
     def only(tag, counts, key, n):
@@ -1138,22 +1144,28 @@ def probe_phase(dev, counters) -> list:
         launches[key] = only(f"{key} {probe.name}", counts, key, 1)
         err[key] = check_kernel(f"{key} {probe.name} {tuple(x.shape)}", y,
                                 probe.plain(x), EXACT, 8)
+        # the library call of the same function: P4 a strided copy, P5 a
+        # gather of the rows of its row map (made once, outside the timing)
+        if key == "P4":
+            library = lambda: x[::2].contiguous()
+        else:
+            rows = mp.dynslice_rows(x.shape[0] // 2, 3, dev)
+            library = lambda: x.index_select(0, rows)
+        check_kernel(f"{key} {probe.name} against the library call", y,
+                     library(), EXACT, 8)
         # by events (host time between the launches included), then alone:
         # 20 launches in one CUDA graph, its replays between CUDA events
-        library = (lambda: x[::2].contiguous()) if key == "P4" else None
         t = times[key] = dict(
             ms=cuda_ms(lambda: probe.run(x), 200),
             plain=cuda_ms(lambda: probe.plain(x), 200),
-            library=None if library is None else cuda_ms(library, 200),
+            library=cuda_ms(library, 200),
             alone=bb.graph_launch_ms(lambda: probe.run(x)),
-            library_alone=(None if library is None
-                           else bb.graph_launch_ms(library)),
+            library_alone=bb.graph_launch_ms(library),
             work=bb.Work(2 * y.numel() * y.element_size()))
         log(f"[8] {key} {probe.name}: kernel {t['ms']:.4f} ms, alone "
-            f"{t['alone']:.5f} ms; plain {t['plain']:.4f} ms"
-            + ("" if library is None else
-               f"; x[::2].contiguous() {t['library']:.4f} ms, alone "
-               f"{t['library_alone']:.5f} ms"))
+            f"{t['alone']:.5f} ms; plain {t['plain']:.4f} ms; "
+            f"{'x[::2].contiguous()' if key == 'P4' else 'index_select'} "
+            f"{t['library']:.4f} ms, alone {t['library_alone']:.5f} ms")
 
     return [
         kernel_entry(name, "pw_matmul.cu", f"tools/bench_pw_kernels.py:{line}",
@@ -1175,8 +1187,7 @@ def probe_phase(dev, counters) -> list:
                       err[key], times[key]["ms"], times[key]["plain"],
                       times[key]["work"], times[key]["library"],
                       kernel_alone_ms=times[key]["alone"],
-                      **({} if times[key]["library_alone"] is None else
-                         {"library_alone_ms": times[key]["library_alone"]}))
+                      library_alone_ms=times[key]["library_alone"])
          for name, key, line in (("strided_rows", "P4", 73),
                                  ("dynslice_carry", "P5", 92))]
 
@@ -3747,12 +3758,15 @@ def main() -> int:
             f"{bench[k]['ms']:.4f} ms (bound {bench[k]['work'].bound()[0]:.4f}"
             f" ms), cuDNN chain {bench[k]['chain_ms']:.4f} ms, plain "
             f"{bench[k]['plain_ms']:.4f} ms")
-    # K8 alone: each config's launches in a CUDA graph, its replays timed
-    k8_alone = [bb.graph_launch_ms(lambda: bb.run_k8(c)) for c, _ in part_a]
-    bench["8"]["alone"] = sum(k8_alone)
-    log(f"[7] K8 the tool's {len(part_a)} configs alone (CUDA-graph "
-        f"replays): {bench['8']['alone']:.4f} ms (" + ", ".join(
-            f"{v:.4f}" for v in k8_alone) + ")")
+    # K8 and K9 alone: each config's launches in a CUDA graph, its replays
+    # timed
+    for k, run in (("8", bb.run_k8), ("9", bb.run_k9)):
+        alone = [bb.graph_launch_ms(lambda: run(c)) for c, _ in part_a
+                 if k == "8" or c.k9 is not None]
+        bench[k]["alone"] = sum(alone)
+        log(f"[7] K{k} the tool's {len(alone)} configs alone (CUDA-graph "
+            f"replays): {bench[k]['alone']:.4f} ms (" + ", ".join(
+                f"{v:.4f}" for v in alone) + ")")
     part_b = [r for c, r in zip(cases, rows) if c.part == "b"]
     # the cuDNN chain at the region path's blocks: K1's and K3's yardstick
     chain_b = {s: sum(r["ms_chain"] for r in part_b if r["stride"] == s)
@@ -3767,6 +3781,15 @@ def main() -> int:
             f"{sum(r['ms_block'] for r in rs):.4f} ms, cuDNN chain "
             f"{sum(r['ms_chain'] for r in rs):.4f} ms, plain "
             f"{sum(r['ms_plain' + k] for r in rs):.4f} ms")
+    # K9 alone beside K1 alone at xl's stride-1 blocks
+    xl9 = [(bb.graph_launch_ms(lambda: bb.run_k9(c)),
+            bb.graph_launch_ms(lambda: bb.run_block(c)))
+           for c in cases if c.part == "b" and c.k9 is not None]
+    bench["9"]["xl_alone"] = sum(v for v, _ in xl9)
+    bench["9"]["xl_k1_alone"] = sum(v for _, v in xl9)
+    log(f"[7] K9 xl's {len(xl9)} stride-1 region blocks alone (CUDA-graph "
+        f"replays): {bench['9']['xl_alone']:.4f} ms, K1 alone "
+        f"{bench['9']['xl_k1_alone']:.4f} ms")
 
     # the work of every kernel's timed call, for its bound
     def blocks_work(down):
@@ -3831,7 +3854,10 @@ def main() -> int:
               kernel_alone_ms=bench["8"]["alone"]),
         entry("mbconv_cs", "K9", "mbconv_cs.cu", "csblock_pallas.py:59",
               bench_counts["K9"], bench["9"]["ms"], bench["9"]["plain_ms"],
-              bench["9"]["work"], cudnn_chain_ms=bench["9"]["chain_ms"]),
+              bench["9"]["work"], cudnn_chain_ms=bench["9"]["chain_ms"],
+              kernel_alone_ms=bench["9"]["alone"],
+              xl_alone_ms=bench["9"]["xl_alone"],
+              xl_k1_alone_ms=bench["9"]["xl_k1_alone"]),
     ]
 
     # 8. the probe kernels P1-P5 behind the ports of their probes

@@ -1,6 +1,7 @@
-"""K8 and P3 alone on the card: the two kernels on the tensor-core block body
-with rounding points (``csrc/block_round_mma.cuh``) and P3's tap modes, at
-the shapes of the block bench and the small-C bisection:
+"""K8, K9 and P3 alone on the card: the three kernels on the tensor-core
+block body with rounding points (``csrc/block_round_mma.cuh``) and P3's
+tap modes, at the shapes of the block bench and the small-C bisection, and
+P5 beside ``index_select``:
 
     python -m ffcnn_tpu_torch.bench_round
 
@@ -15,13 +16,20 @@ Rows:
 * K8 (``kernels/mbconv.py``) at ``bench_block``'s seven configs (bf16,
   batch 256, the tool's draws) and at xl's 24 region blocks (bf16, batch
   64), the latter beside K1/K3 on the same blocks;
+* K9 (``kernels/mbconv_cs.py``) at the five stride-1 configs and xl's 20
+  stride-1 region blocks, the latter beside K1;
 * P3 (``kernels/block_variants.py``) in each of its seven modes at
-  ``bisect_smallc``'s four geometries (bf16, batch 256).
+  ``bisect_smallc``'s four geometries (bf16, batch 256);
+* P5 (``kernels/mosaic_probes.py``) on the sweep's input, beside
+  ``x.index_select(0, rows)`` (rows: its row map, taken from the plain
+  version, so that any tree's package serves).
 
-Each is timed alone: 20 launches in one CUDA graph, replayed between CUDA
+First each source it times is built alone, one ``nvcc`` at a time, and
+its seconds reported (about 0 where the tree had it built).  Then each
+kernel is timed alone: 20 launches in one CUDA graph, replayed between CUDA
 events (``bench_block.graph_launch_ms``); P3 also as ``bisect_smallc``
 times it (a chain of 20 launches between CUDA events).  It checks nothing:
-``chip_smoke.py`` phases 7 and 8 hold both kernels against their plain
+``chip_smoke.py`` phases 7 and 8 hold the kernels against their plain
 versions.  The last line is one JSON object: the card, the tree, and the
 sums and rows.
 """
@@ -32,6 +40,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 TREE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P3_BATCH = 256
@@ -52,34 +61,52 @@ def main(argv=None) -> int:
     import ffcnn_tpu_torch as pt
     from ffcnn_tpu_torch import bench_block as bb
     from ffcnn_tpu_torch import bisect_smallc as bs
+    from ffcnn_tpu_torch import retest_backend_bugs as rb
+    from ffcnn_tpu_torch.kernels import _build
     from ffcnn_tpu_torch.kernels import block_variants as bv
+    from ffcnn_tpu_torch.kernels import mosaic_probes as mp
     if not torch.cuda.is_available():
         raise SystemExit("bench_round needs a CUDA card")
     dev = torch.device("cuda")
     log = lambda m: print(m, flush=True)
     result = {"device": torch.cuda.get_device_name(0),
               "tree": os.path.dirname(os.path.dirname(
-                  os.path.abspath(pt.__file__)))}
-    # K8: the tool's configs, then xl's region blocks beside K1/K3
+                  os.path.abspath(pt.__file__))), "build_s": {}}
+    for name in ("mbconv", "mbconv_cs", "block_fused", "block_down",
+                 "block_variants", "mosaic_probes"):
+        t0 = time.perf_counter()
+        _build.build_all([name])
+        result["build_s"][name] = time.perf_counter() - t0
+    log("built alone, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in result["build_s"].items()))
+    # K8: the tool's configs, then xl's region blocks beside K1/K3; K9:
+    # their stride-1 blocks, xl's beside K1
     for part, cases in (("a", bb.cases_configs(dev)),
                         ("b", bb.cases_xl(dev))):
-        rows = []
-        for c in cases:
-            r = {"name": c.name,
-                 "ms": bb.graph_launch_ms(lambda: bb.run_k8(c)),
-                 "bound_ms": c.work8().bound()[0]}
-            if c.block is not None:
-                r["k1k3_ms"] = bb.graph_launch_ms(lambda: bb.run_block(c))
-            rows.append(r)
-            log(f"K8 {c.name}: alone {r['ms']:.4f} ms (bound "
-                f"{r['bound_ms']:.4f})"
-                + (f", K1/K3 {r['k1k3_ms']:.4f}" if "k1k3_ms" in r else ""))
-        sums = {k: sum(r[k] for r in rows) for k in rows[0]
-                if k != "name"}
-        result["k8_" + part] = {**sums, "rows": rows}
-        log(f"K8 part ({part}), {len(rows)} blocks: alone {sums['ms']:.4f} "
-            f"ms (bound {sums['bound_ms']:.4f})"
-            + (f", K1/K3 {sums['k1k3_ms']:.4f}" if "k1k3_ms" in sums else ""))
+        for key, run, work in (("k8", bb.run_k8, "work8"),
+                               ("k9", bb.run_k9, "work9")):
+            rows = []
+            for c in cases:
+                if key == "k9" and c.k9 is None:
+                    continue
+                r = {"name": c.name,
+                     "ms": bb.graph_launch_ms(lambda: run(c)),
+                     "bound_ms": getattr(c, work)().bound()[0]}
+                if c.block is not None:
+                    r["k1k3_ms"] = bb.graph_launch_ms(
+                        lambda: bb.run_block(c))
+                rows.append(r)
+                log(f"{key.upper()} {c.name}: alone {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f})"
+                    + (f", K1/K3 {r['k1k3_ms']:.4f}" if "k1k3_ms" in r
+                       else ""))
+            sums = {k: sum(r[k] for r in rows) for k in rows[0]
+                    if k != "name"}
+            result[f"{key}_{part}"] = {**sums, "rows": rows}
+            log(f"{key.upper()} part ({part}), {len(rows)} blocks: alone "
+                f"{sums['ms']:.4f} ms (bound {sums['bound_ms']:.4f})"
+                + (f", K1/K3 {sums['k1k3_ms']:.4f}" if "k1k3_ms" in sums
+                   else ""))
         del cases
 
     # P3: each mode alone and chained, the bisection's geometries
@@ -107,6 +134,19 @@ def main(argv=None) -> int:
             f"chained {r['chain_ms']:.4f} ms (bound {r['bound_ms']:.4f})")
     log(f"P3 all modes: alone {sum(r['alone_ms'] for r in p3.values()):.4f}"
         f" ms, chained {sum(r['chain_ms'] for r in p3.values()):.4f} ms")
+
+    # P5 on the sweep's input, beside index_select on its row map
+    probe = next(p for p in rb.PROBES if p.kernel == "P5")
+    x = probe.make_input(dev)
+    rows = mp.dynslice_carry_plain(
+        torch.arange(x.shape[0], dtype=torch.float32, device=dev)[:, None]
+    )[:, 0].long()
+    result["p5"] = {
+        "ms": bb.graph_launch_ms(lambda: probe.run(x)),
+        "index_select_ms": bb.graph_launch_ms(
+            lambda: x.index_select(0, rows))}
+    log(f"P5 {tuple(x.shape)}: alone {result['p5']['ms']:.5f} ms, "
+        f"index_select alone {result['p5']['index_select_ms']:.5f} ms")
     print(json.dumps(result))
     return 0
 

@@ -4,18 +4,22 @@
 //   y = act_r( act3( (act2( dw3x3_S( zpad( act1(x @ w1 * s1 + b1) ) ) * s2
 //                      + b2 ) @ w2) * s3 + b3 ) + x )   (residual: S == 1)
 //
-// K1 and K3 (block_fused.cu, block_down.cu) are the tensor-core kernel of
-// block_mma.cuh, and the chained kernels K4 and K5 (block_chain.cuh) run
-// the same product code (tf32_mma.cuh); the block bench's K8 and K9
-// (mbconv.cu, mbconv_cs.cu) and the probe P3 (block_variants.cu) build on
-// the float32 chunk scheme whose constants live here:
-// a CTA of kThreads owns a tile of at most kMaxPix output pixels (an input
-// halo of at most max_halo<S>() pixels) and kOG output channels, and walks
-// E in chunks of kEC channels, one per lane, expanding kHaloPass halo
-// pixels per pass.  The dw zero padding applies to the expand OUTPUT: halo
-// pixels outside the image are set to 0 after the expand epilogue (pw of a
-// zero pixel is act1(b1), not 0).  Math is float32 throughout; the input is
-// upcast on load and the output cast once at the store.
+// Every block kernel runs its pointwise products on the tensor cores:
+// K1 and K3 (block_fused.cu, block_down.cu) on block_mma.cuh, the chained
+// K4 and K5 on block_chain.cuh, and the block bench's K8 and K9 (mbconv.cu,
+// mbconv_cs.cu) with P3's pwonly and fullbf16 (block_variants.cu) on the
+// body with rounding points, block_round_mma.cuh; all of them through
+// tf32_mma.cuh, which includes this file, as the int8 conv (conv_int8.cu)
+// does.  What they share from here: a CTA of kThreads owns a tile of at
+// most kMaxPix output pixels (an input halo of at most max_halo<S>()
+// pixels) and kOG output channels, within kMaxSmem of shared memory; the
+// activations by id (act), the storage conversions and the int8
+// boundaries.  The dw zero padding applies to the expand OUTPUT: halo
+// pixels outside the image are set to 0 after the expand epilogue (pw of
+// a zero pixel is act1(b1), not 0).  kEC, kHaloPass, kQPT and kPPT are the
+// constants of the first, float32-FMA chunk scheme (E in 32-channel
+// chunks, one a lane, kHaloPass halo pixels a pass), which no kernel
+// reads any more.
 
 #pragma once
 

@@ -14,14 +14,19 @@
 //
 // Bound on this card: bytes (each input byte read once, each output byte
 // written once), and at the probes' shapes (16 x 128) the launch itself.
-// P4 moves 16-bit values one a thread, neighbouring threads on
-// neighbouring columns, so a row's loads and stores coalesce.  P5 keeps
-// each column's carry in shared memory (one thread a column) and moves it
-// in place: the first half takes acc[s:s+seg] (reading ahead of what it
-// writes, s >= 0), then the second half copies the first.
+// Both are index-mapped copies, a thread an element (P5: four columns, one
+// 16-byte run, where the rows allow), neighbouring threads on neighbouring
+// columns, so a row's loads and stores coalesce.  P5 composes its steps
+// into one row map: output row r after step i is row min(i, seg) + r % seg
+// of the carry before it, so walking the steps backwards from r gives the
+// input row it copies.  Steps past seg all start at seg, and that map is
+// idempotent, so they fold into one: at most seg + 1 steps a thread, in
+// registers, with no shared memory and no barrier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace probes {
 
@@ -38,23 +43,28 @@ __global__ void strided_rows_kernel(const uint16_t* __restrict__ x,
   }
 }
 
+// the input row that output row r of P5 copies
+__device__ __forceinline__ int dynslice_src(int r, int seg, int steps) {
+  if (steps > seg) r = seg + r % seg;
+  for (int i = min(steps, seg) - 1; i >= 0; --i) r = i + r % seg;
+  return r;
+}
+
+// V columns a thread (V = 4: float4 runs, cols a multiple of 4)
+template <int V>
 __global__ void dynslice_carry_kernel(const float* __restrict__ x,
                                       float* __restrict__ y, int seg,
                                       int cols, int steps) {
-  extern __shared__ float buf[];  // [2*seg][kThreads]: this CTA's columns
-  const int t = threadIdx.x, c = blockIdx.x * kThreads + t;
-  if (c >= cols) return;  // each thread owns its column: no barrier needed
-  float* col = buf + t;  // row r of this column at col[r * kThreads]
-  for (int r = 0; r < 2 * seg; ++r)
-    col[r * kThreads] = x[(size_t)r * cols + c];
-  for (int i = 0; i < steps; ++i) {
-    const int s = min(i, seg);
-    for (int r = 0; r < seg; ++r) col[r * kThreads] = col[(s + r) * kThreads];
-    for (int r = 0; r < seg; ++r)
-      col[(seg + r) * kThreads] = col[r * kThreads];
+  using Vec = std::conditional_t<V == 4, float4, float>;
+  const int vcols = cols / V;
+  const size_t total = (size_t)2 * seg * vcols;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / vcols), c = (int)(i - (size_t)r * vcols);
+    const int src = dynslice_src(r, seg, steps);
+    reinterpret_cast<Vec*>(y)[i] =
+        reinterpret_cast<const Vec*>(x)[(size_t)src * vcols + c];
   }
-  for (int r = 0; r < 2 * seg; ++r)
-    y[(size_t)r * cols + c] = col[r * kThreads];
 }
 
 }  // namespace probes
@@ -77,18 +87,28 @@ int ffcnn_strided_rows(const void* x, void* y, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
-// x and y (2*seg, cols) float32, contiguous; 2*seg*128*4 bytes of shared
-// memory a CTA, so seg <= 48.
+// x and y (2*seg, cols) float32, contiguous; seg >= 1, 2*seg rows within
+// an int.
 int ffcnn_dynslice_carry(const void* x, void* y, int seg, int cols,
                          int steps, void* stream) {
   using namespace probes;
-  if (seg < 1 || seg > 48 || cols < 0 || steps < 0)
+  if (seg < 1 || seg > (1 << 30) - 1 || cols < 0 || steps < 0)
     return (int)cudaErrorInvalidValue;
   if (cols == 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * 2 * seg * kThreads;
-  dynslice_carry_kernel<<<(cols + kThreads - 1) / kThreads, kThreads, smem,
-                          (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), seg, cols, steps);
+  const bool v4 = cols % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                  (uintptr_t)y % 16 == 0;
+  const size_t total = (size_t)2 * seg * (v4 ? cols / 4 : cols);
+  const size_t want = (total + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);  // a grid-stride loop
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  if (v4)
+    dynslice_carry_kernel<4><<<blocks, kThreads, 0, s>>>(xf, yf, seg, cols,
+                                                         steps);
+  else
+    dynslice_carry_kernel<1><<<blocks, kThreads, 0, s>>>(xf, yf, seg, cols,
+                                                         steps);
   return (int)cudaGetLastError();
 }
 

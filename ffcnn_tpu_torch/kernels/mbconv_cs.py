@@ -15,6 +15,13 @@ Replaces ``ffcnn_tpu/kernels/csblock_pallas.py::_cs_kernel`` (launched by
 * ``act_mid``, ``act_dw`` and ``act_out`` take the TPU kernel's codes,
   ``LEAKY`` (1) or ``LINEAR`` (0; any other code is linear too);
 * ``res_cs`` is an external (Cout, S) tensor added after ``act_out``.
+
+The CUDA kernel (``csrc/mbconv_cs.cu``) is the tensor-core block body of
+``csrc/block_round_mma.cuh`` (K8's) under its channels-first policy, on
+``pick_tile``'s tiles, rounded where this plain version rounds: in bf16
+both products are one ``mma.sync`` m16n8k16 bf16 pass (every operand a
+bf16 value: exact products, float32 sums), in float32 3xTF32 (about 2^-21
+of each product).
 """
 
 from __future__ import annotations
@@ -55,17 +62,16 @@ def _images(s: int, h: int, w: int) -> int:
     return s // (h * w)
 
 
-def fused_mbconv_cs_plain(x_cs, w1, s1, b1, wd, sd, bd, w2, s2, b2,
-                          res_cs: Optional[torch.Tensor] = None, *, H: int,
-                          W: int, act_mid: int = LEAKY, act_dw: int = LEAKY,
-                          act_out: int = LINEAR) -> torch.Tensor:
-    """K9 in plain PyTorch, with the TPU kernel's rounding points: x_cs
-    (Cin, S), w1 (Cmid, Cin), wd (3, 3, Cmid), w2 (Cout, Cmid), per-stage
-    scale and bias (C,); returns (Cout, S) in x_cs's dtype."""
+def _mbconv_cs_f32(x_cs, w1, s1, b1, wd, sd, bd, w2, s2, b2, res_cs, H, W,
+                   act_mid, act_dw, act_out, matmul=torch.matmul
+                   ) -> torch.Tensor:
+    """K9's block with its rounding points, float32 before the final
+    rounding to x_cs's dtype; ``matmul`` computes the two pointwise
+    products (the tests pass the kernel's product scheme)."""
     cin, s = x_cs.shape
     n = _images(s, H, W)
     dt = x_cs.dtype
-    mid = torch.matmul(w1.to(dt).float(), x_cs.float())
+    mid = matmul(w1.to(dt).float(), x_cs.float())
     mid = _act(mid * s1.float()[:, None] + b1.float()[:, None], act_mid)
     # the depthwise stage on the (Cmid, N, H, W) view of the float32 mid
     m4 = torch.nn.functional.pad(mid.reshape(-1, n, H, W), (1, 1, 1, 1))
@@ -77,11 +83,22 @@ def fused_mbconv_cs_plain(x_cs, w1, s1, b1, wd, sd, bd, w2, s2, b2,
                 * wd[dy, dx].float()[:, None, None, None]
     d = acc.reshape(-1, s) * sd.float()[:, None] + bd.float()[:, None]
     d = _act(d, act_dw).to(dt).float()
-    y = torch.matmul(w2.to(dt).float(), d)
+    y = matmul(w2.to(dt).float(), d)
     y = _act(y * s2.float()[:, None] + b2.float()[:, None], act_out)
     if res_cs is not None:
         y = y + res_cs.float()
-    return y.to(dt)
+    return y
+
+
+def fused_mbconv_cs_plain(x_cs, w1, s1, b1, wd, sd, bd, w2, s2, b2,
+                          res_cs: Optional[torch.Tensor] = None, *, H: int,
+                          W: int, act_mid: int = LEAKY, act_dw: int = LEAKY,
+                          act_out: int = LINEAR) -> torch.Tensor:
+    """K9 in plain PyTorch, with the TPU kernel's rounding points: x_cs
+    (Cin, S), w1 (Cmid, Cin), wd (3, 3, Cmid), w2 (Cout, Cmid), per-stage
+    scale and bias (C,); returns (Cout, S) in x_cs's dtype."""
+    return _mbconv_cs_f32(x_cs, w1, s1, b1, wd, sd, bd, w2, s2, b2, res_cs,
+                          H, W, act_mid, act_dw, act_out).to(x_cs.dtype)
 
 
 def _act_id(code: int) -> int:

@@ -7,7 +7,9 @@ Replaces the ``pallas_call``s of ``tools/retest_backend_bugs.py``'s probes
 ``MOSAIC_STRIDED_16`` (P4) and ``MOSAIC_DYNSLICE_CARRY`` (P5), which no
 package path runs: the port of the sweep's two Pallas probes,
 ``ffcnn_tpu_torch/retest_backend_bugs.py``, drives them.  Both are copies,
-so kernel and plain version agree bit for bit.
+so kernel and plain version agree bit for bit.  P5's kernel copies each
+output row from the input row that ``dynslice_rows`` names: its steps
+composed into one row map, computed by each thread.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 from . import _build
 
-_MAX_SEG = 48      # csrc/mosaic_probes.cu: 2*seg rows of a CTA's columns
+_MAX_SEG = 2**30 - 1   # csrc/mosaic_probes.cu: 2*seg rows within an int
+_MAX_COLS = 2**31 - 1
 
 
 def strided_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -71,24 +74,48 @@ def dynslice_carry_plain(x: torch.Tensor, steps: int = 3) -> torch.Tensor:
     return acc
 
 
+def src_row(r: int, seg: int, steps: int) -> int:
+    """The input row that output row ``r`` of P5 copies, as each thread of
+    the kernel computes it: the steps walked backwards from ``r`` (output
+    row r after step i is row min(i, seg) + r % seg of the carry before
+    it), the steps past seg folded into one (they all start at seg, and
+    that map is idempotent)."""
+    if steps > seg:
+        r = seg + r % seg
+    for i in range(min(steps, seg) - 1, -1, -1):
+        r = i + r % seg
+    return r
+
+
+def dynslice_rows(seg: int, steps: int = 3,
+                  device="cpu") -> torch.Tensor:
+    """P5's row map, (2*seg,) int64: ``x.index_select(0, rows)`` is
+    ``dynslice_carry(x, steps)`` (the library call P5 is timed beside)."""
+    return torch.tensor([src_row(r, seg, steps) for r in range(2 * seg)],
+                        dtype=torch.int64, device=device)
+
+
 def dynslice_carry(x: torch.Tensor, steps: int = 3) -> torch.Tensor:
-    """P5 on a float32 x (2*seg, C), the carry in shared memory.
+    """P5 on a float32 x (2*seg, C): one copy, each output row from the
+    input row of ``src_row``.
 
     CPU tensors take ``dynslice_carry_plain``; CUDA tensors launch the
-    kernel (seg <= 48)."""
+    kernel."""
     if x.device.type == "cpu":
         return dynslice_carry_plain(x, steps)
     seg = _segment(x)
     if (x.device.type != "cuda" or x.dtype != torch.float32
-            or not x.is_contiguous() or seg > _MAX_SEG or steps < 0):
+            or not x.is_contiguous() or seg > _MAX_SEG
+            or x.shape[1] > _MAX_COLS or steps < 0):
         raise ValueError(f"x must be a contiguous float32 CUDA tensor of at "
-                         f"most {2 * _MAX_SEG} rows and steps >= 0, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}, steps "
-                         f"{steps}")
+                         f"most {2 * _MAX_SEG} rows and {_MAX_COLS} columns "
+                         f"and steps >= 0, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}, steps {steps}")
     y = torch.empty_like(x)
     lib = build()
     err = lib.ffcnn_dynslice_carry(x.data_ptr(), y.data_ptr(), seg,
-                                   x.shape[1], steps, _build.stream_ptr())
+                                   x.shape[1], min(steps, seg + 1),
+                                   _build.stream_ptr())
     dynslice_carry.launches += 1
     if err:
         raise RuntimeError("dynslice_carry launch failed: "

@@ -19,6 +19,9 @@ from ffcnn_tpu.kernels import block_fused as jbf
 from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph.build import params_from_numpy
 from ffcnn_tpu_torch.kernels import block_fused as tbf
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

@@ -24,6 +24,9 @@ from ffcnn_tpu_torch.darknet import parse_cfg
 from ffcnn_tpu_torch.darknet.weights import load_weights, synth_weights_bytes
 from ffcnn_tpu_torch.graph.build import params_from_numpy
 from ffcnn_tpu_torch.kernels import block_fused as bf
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

@@ -1,23 +1,29 @@
 """The tensor-core block body with rounding points
-(``csrc/block_round_mma.cuh``) on the CPU: K8 (``csrc/mbconv.cu``) and
-P3's pwonly and fullbf16 (``csrc/block_variants.cu``) run their pointwise
-products on the tensor cores, float32 weights split into TF32 big = tf32(w) (nearest, ties away
+(``csrc/block_round_mma.cuh``) on the CPU: K8 (``csrc/mbconv.cu``), K9
+(``csrc/mbconv_cs.cu``) and P3's pwonly and fullbf16
+(``csrc/block_variants.cu``) run their pointwise products on the tensor
+cores, float32 weights split into TF32 big = tf32(w) (nearest, ties away
 from zero, as ``cvt.rna.tf32.f32``) and small = tf32(w - big), an operand
 that is a bf16 value taken whole (it is exact in TF32), and fullbf16 with
 bf16 storage as one bf16 m16n8k16 pass (bf16 operands, exact products,
-float32 sums).  The products are emulated in plain torch at the policy's
-rounding points (the plain versions' own code, ``_mbconv_f32`` and
-``_block_f32``, with the emulated product in place of ``torch.matmul``),
+float32 sums), as K9 in bf16 storage runs both its products.  The products are emulated in plain torch at the policy's
+rounding points (the plain versions' own code, ``_mbconv_f32``,
+``_mbconv_cs_f32`` and ``_block_f32``, with the emulated product in place
+of ``torch.matmul``),
 and the emulation holds the plain versions within a quarter of the
 tolerance ``chip_smoke.py`` holds the kernels to (before the final
 rounding to the storage type, which both do alike; after it, within the
 whole tolerance): K8 at the block bench's
 seven configs (H and W divided by 5, batch 2) and at every geometry of
-xl's 24 region blocks (batch 2), P3 at the bisection's four geometries
-(batch 2; the 160x160 map cut to 40x40).  Also pinned: the instance tables
-and the shared memory of the body's layout for every K8 case of the bench
-and every P3 geometry, and the tap modes' band contract."""
+xl's 24 region blocks (batch 2), K9 at the five stride-1 configs (the
+same cut), every geometry of xl's 20 stride-1 blocks and one linear
+depthwise, P3 at the bisection's four geometries (batch 2; the 160x160 map
+cut to 40x40).  Also pinned: the instance tables and the shared memory of
+the body's layout for every K8 and K9 case of the bench and every P3
+geometry, and the tap modes' band contract."""
 
+import dataclasses
+import functools
 import os
 import re
 
@@ -32,6 +38,10 @@ from ffcnn_tpu_torch.darknet import parse_cfg
 from ffcnn_tpu_torch.kernels import block_fused as bf
 from ffcnn_tpu_torch.kernels import block_variants as bv
 from ffcnn_tpu_torch.kernels import mbconv as k8
+from ffcnn_tpu_torch.kernels import mbconv_cs as k9
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "ffcnn_tpu_torch", "csrc")
@@ -85,6 +95,7 @@ def test_tf32_split_of_a_bf16_value_is_whole():
 
 
 # ------------------------------------------------------------------- K8
+@functools.cache
 def _xl_geometries():
     """One bench case for each distinct (H, W, C, E, P, stride) of xl's
     region blocks, batch 2 (the bench's part (b) draws and weights)."""
@@ -152,6 +163,71 @@ def test_k8_one_tf32_pass_misses_the_float32_tolerance(k8_cases):
     assert min(errs) > TOL["float32"], errs
 
 
+# ------------------------------------------------------------------- K9
+@pytest.fixture(scope="module")
+def k9_cases():
+    """The five stride-1 configs (H and W divided by 5, batch 2), one case
+    for each geometry of xl's 20 stride-1 blocks (batch 2), and the 40x40
+    config again with a linear depthwise."""
+    cases = [c for c in bb.cases_configs(torch.device("cpu"), 2, 5)
+             if c.k9 is not None]
+    cases += [c for c in _xl_geometries() if c.k9 is not None]
+    weights, kw = cases[2].k9
+    cases.append(dataclasses.replace(
+        cases[2], k9=(weights, {**kw, "act_dw": k9.LINEAR})))
+    return cases
+
+
+K9_IDS = ([f"config{i}" for i in range(5)] + [f"xl{i}" for i in range(8)]
+          + ["config2_linear_dw"])
+
+
+def _k9_emulated(c, dtype, matmul):
+    """(emulated, plain before its final rounding, plain), as
+    ``_k8_emulated``."""
+    weights, kw = c.k9
+    x = c.x_cs.to(dtype)
+    res = None if c.res_cs is None else c.res_cs.to(dtype)
+    args = (x, *weights, res, kw["H"], kw["W"], kw["act_mid"], kw["act_dw"],
+            kw["act_out"])
+    return (k9._mbconv_cs_f32(*args, matmul), k9._mbconv_cs_f32(*args),
+            k9.fused_mbconv_cs_plain(x, *weights, res, **kw))
+
+
+def test_k9_cases_cover_the_bench(k9_cases):
+    """The five stride-1 configs, the eight geometries of xl's 20 stride-1
+    blocks, and a linear depthwise."""
+    assert len(k9_cases) == len(K9_IDS)
+    assert all(c.stride == 1 for c in k9_cases)
+    assert {c.k9[1]["act_dw"] for c in k9_cases} == {k9.LEAKY, k9.LINEAR}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("index", range(len(K9_IDS)), ids=K9_IDS)
+def test_k9_emulation_meets_a_quarter_of_the_tolerance(k9_cases, index,
+                                                       dtype):
+    """bf16 storage: one m16n8k16 pass a product (``mm_bf16`` asserts that
+    every operand, x, the weights and the rounded depthwise output, is a
+    bf16 value, so the products are exact); float32: 3xTF32.  Held before
+    the final rounding to x's dtype, then the rounded output within the
+    whole tolerance, as K8."""
+    mm = mm_bf16 if dtype == torch.bfloat16 else mm_tf32
+    got, want, plain = _k9_emulated(k9_cases[index], dtype, mm)
+    tol = TOL[str(dtype)[6:]]
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(want.to(dtype), plain)
+    assert rel(got, want) <= tol / 4
+    assert rel(got.to(dtype), plain) <= tol
+
+
+def test_k9_one_tf32_pass_misses_the_float32_tolerance(k9_cases):
+    """As for K8: one TF32 pass a product is not enough in float32."""
+    errs = [rel(*_k9_emulated(c, torch.float32, mm_1xtf32)[:2])
+            for c in k9_cases]
+    assert min(errs) > TOL["float32"], errs
+
+
 # ------------------------------------------------------------------- P3
 P3_GEOMS = [(label, min(h, 40), min(w, 40), c, e)
             for label, h, w, c, e in bs.GEOMS]
@@ -195,8 +271,9 @@ def _cuh_table(name):
     return tuple(int(v) for v in m.group(1).split(","))
 
 
-K8_NJ, P3_NJ, K8_ACTS = (_cuh_table(n) for n in ("kK8Nj", "kP3Nj",
-                                                 "kK8Acts"))
+K8_NJ, K9_NJ, P3_NJ, K8_ACTS, K9_ACTS = (
+    _cuh_table(n) for n in ("kK8Nj", "kK9Nj", "kP3Nj", "kK8Acts",
+                            "kK9Acts"))
 
 
 def _ld_a(k):
@@ -207,13 +284,15 @@ def _ld_b(n):
     return (n + 7) // 16 * 16 + 8
 
 
-def round_smem(c, p, th, tw, stride=1, dw=True, m16=False):
+def round_smem(c, p, th, tw, stride=1, dw=True, m16=False, cs=False):
     """Bytes of shared memory the body takes, as ``smem_floats`` in
     block_round_mma.cuh lays it out: the halo (16-row slabs; C padded to
     the K step, 8, or 16 in the bf16 form; without the depthwise stage the
     tile's own pixels), the expand output (with the depthwise stage), the
     projection's A operand big and small, the output pixels' tap offsets
-    and two chunk buffers (w1, w2 and 13 x 32 vectors)."""
+    and two chunk buffers (w1, w2 and 13 x 32 vectors; under ``cs`` K9's
+    weight rows, bf16 in the bf16 form), and under ``cs`` at least the
+    channel-major output tile."""
     chunk = 32
     cpk = -(-c // (16 if m16 else 8)) * (16 if m16 else 8)
     pn = -(-min(p, 128) // 8) * 8
@@ -226,9 +305,14 @@ def round_smem(c, p, th, tw, stride=1, dw=True, m16=False):
     ld_d = _ld_b(chunk) if m16 else _ld_a(chunk)
     ld_w1 = _ld_a(chunk) if m16 else _ld_b(chunk)
     ld_w2 = _ld_a(pn) if m16 else _ld_b(pn)
-    return 4 * (-(-nq // 16) * 16 * ld_x + (nq * (chunk + 8) if dw else 0)
-                + 2 * 64 * ld_d + 64
-                + 2 * (cpk * ld_w1 + chunk * ld_w2 + 13 * chunk))
+    if cs:   # [32][ld(cpk)] and [pn][ld(32)], half a float an element in bf16
+        ld = _ld_b if m16 else _ld_a
+        weights = (chunk * ld(cpk) + pn * ld(chunk)) // (2 if m16 else 1)
+    else:
+        weights = cpk * ld_w1 + chunk * ld_w2
+    body = (-(-nq // 16) * 16 * ld_x + (nq * (chunk + 8) if dw else 0)
+            + 2 * 64 * ld_d + 64 + 2 * (weights + 13 * chunk))
+    return 4 * max(body, pn * _ld_a(th * tw) if cs else 0)
 
 
 def instance(table, p):
@@ -255,9 +339,30 @@ def _k8_shapes():
     return out
 
 
+def _k9_shapes():
+    """(H, W, C, E, P, acts) of every K9 case of the block bench: the
+    tool's five stride-1 configs and xl's 20 stride-1 region blocks at
+    320x320, acts as (expand, depthwise, project)."""
+    out = [(h, w, c, e, p, (LEAKY, LEAKY, LINEAR))
+           for _, h, w, c, e, p, s, _ in bb.CONFIGS if s == 1]
+    ir = parse_cfg(bb.XL, 320, 320)
+    for run in bf.plan_runs(ir, min_channels=8, allow_down=True):
+        for b in run.blocks:
+            if b.down:
+                continue
+            blob = ir.blobs[b.start]
+            acts = tuple(ir.layers[b.start + k].activation for k in range(3))
+            out.append((blob.h, blob.w, blob.c, ir.layers[b.start].fn,
+                        ir.layers[b.start + 2].fn, acts))
+    return out
+
+
 def test_the_instance_tables():
     assert K8_NJ == (1, 2, 4, 8) and P3_NJ == (1, 2, 8)
+    assert K9_NJ == (1, 2, 3, 6)
     assert K8_ACTS == (LEAKY, LINEAR)
+    assert K9_ACTS == (LEAKY, LEAKY, LINEAR)
+    assert "constexpr int kNjMax = (kOG / 8 + 1) / 2;" in open(CUH).read()
     assert "constexpr int kChunk = 32;" in open(
         os.path.join(CSRC, "tf32_mma.cuh")).read()
     assert instance(K8_NJ, 48) == 4 and instance(P3_NJ, 48) == 8
@@ -274,6 +379,33 @@ def test_every_k8_case_has_an_instance_and_fits():
         assert instance(K8_NJ, p) is not None
         th, tw = bf.pick_tile(h // s, w // s, s)
         assert round_smem(c, p, th, tw, s) <= bv.MAX_SMEM, (h, w, c, p, s)
+
+
+@pytest.mark.parametrize("m16", [False, True], ids=["tf32", "bf16"])
+def test_every_k9_case_has_an_instance_and_fits(m16):
+    """The bench's 25 K9 cases in either storage: the activations of the
+    compiled instances, an n8 instance of kK9Nj (the tiles need 1, 2, 3 or
+    6), and pick_tile's tile within a CTA's shared memory in K9's layout."""
+    shapes = _k9_shapes()
+    assert len(shapes) == 25
+    needs = set()
+    for h, w, c, e, p, acts in shapes:
+        assert tuple(acts) == K9_ACTS, (h, w, c, e, p, acts)
+        needs.add((-(-min(p, 128) // 8) + 1) // 2)
+        assert instance(K9_NJ, p) is not None, p
+        th, tw = bf.pick_tile(h, w)
+        assert round_smem(c, p, th, tw, m16=m16, cs=True) <= bv.MAX_SMEM
+    assert needs == set(K9_NJ)
+
+
+def test_round_smem_of_k9():
+    """xl's widest K9 block takes less than K8's layout of it (bf16 weight
+    rows); the 160x160 C8 P4 config is held up by its output tile."""
+    th, tw = bf.pick_tile(10, 10)
+    assert round_smem(96, 96, th, tw, m16=True, cs=True) < round_smem(
+        96, 96, th, tw, m16=True)
+    th, tw = bf.pick_tile(160, 160)
+    assert round_smem(8, 4, th, tw, cs=True) >= 4 * 8 * _ld_a(th * tw)
 
 
 @pytest.mark.parametrize("m16", [False, True], ids=["tf32", "bf16"])

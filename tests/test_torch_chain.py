@@ -32,6 +32,9 @@ from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import block_fused as tbf
 from ffcnn_tpu_torch.kernels import conv0_fused as tc0
 from ffcnn_tpu_torch.kernels import head_fused as thf
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

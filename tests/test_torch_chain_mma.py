@@ -25,6 +25,9 @@ from ffcnn_tpu_torch.darknet.weights import load_weights, synth_weights_bytes
 from ffcnn_tpu_torch.graph.build import params_from_numpy
 from ffcnn_tpu_torch.kernels import block_fused as bf
 from test_torch_block_mma import act_instance, mm_1xtf32, mm_3xtf32, tf32
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "ffcnn_tpu_torch", "csrc")

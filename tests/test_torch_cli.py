@@ -22,6 +22,9 @@ from ffcnn_tpu_torch import cli as tcli
 from ffcnn_tpu_torch.darknet.cfg import parse_cfg
 from ffcnn_tpu_torch.darknet.weights import synth_weights_bytes
 from ffcnn_tpu_torch.imageio.bmp import bmp_save
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

@@ -26,6 +26,9 @@ from ffcnn_tpu.ops import preprocess as jpre
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import conv_int8 as tci
 from ffcnn_tpu_torch.ops import conv as tconv
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

@@ -18,6 +18,9 @@ import torch
 import ffcnn_tpu_torch as pt
 from ffcnn_tpu_torch import export as ex
 from ffcnn_tpu_torch import serve
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

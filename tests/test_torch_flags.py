@@ -20,6 +20,9 @@ from ffcnn_tpu.kernels import block_fused as jbf
 from ffcnn_tpu.ops import preprocess as jpre
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.ops.preprocess import letterbox_uint8
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 XL = os.path.join(REPO, "models", "yolo-fastest-xl.cfg")

@@ -40,6 +40,9 @@ from ffcnn_tpu_torch.ops import yolo as tyolo
 
 from test_model_zoo import SIZES, TIE_PRONE
 from test_random_graphs import SIZE as RSIZE, _gen_cfg
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

@@ -16,6 +16,9 @@ import torch
 
 from ffcnn_tpu_torch.darknet import parse_cfg
 from ffcnn_tpu_torch.kernels import head_fused as hf
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "ffcnn_tpu_torch", "csrc", "head_fused.cu")

@@ -25,6 +25,9 @@ from ffcnn_tpu_torch.darknet import cfg as tcfg
 from ffcnn_tpu_torch.darknet import weights as tweights
 from ffcnn_tpu_torch.imageio import bmp as tbmp
 from ffcnn_tpu_torch.imageio import loader as tloader
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))
@@ -285,3 +288,22 @@ def test_capture_holds_the_collector_off(monkeypatch):
             assert not gc.isenabled()
             raise ValueError
     assert gc.isenabled() and modes == ["thread_local"] * 2
+
+
+def test_cap_threads_gives_a_worker_its_share(monkeypatch):
+    """Under xdist a worker's torch pool takes max(1, cores // workers)
+    threads; outside xdist the pool is left as it is."""
+    import torch
+    from ffcnn_tpu_torch import testing
+    before = torch.get_num_threads()
+    monkeypatch.setattr(testing.os, "sched_getaffinity",
+                        lambda pid: set(range(8)), raising=False)
+    try:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+        assert testing.cap_threads() == 1 == torch.get_num_threads()
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "2")
+        assert testing.cap_threads() == 4 == torch.get_num_threads()
+        monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+        assert testing.cap_threads() == 4 == torch.get_num_threads()
+    finally:
+        torch.set_num_threads(before)

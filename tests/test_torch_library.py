@@ -15,6 +15,9 @@ from ffcnn_tpu_torch.kernels import conv_int8 as ci
 from ffcnn_tpu_torch.kernels import head_fused as hf
 from ffcnn_tpu_torch.kernels import nms
 from ffcnn_tpu_torch.kernels import ops
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 RNG = np.random.RandomState(16)
 # the wrapper whose ``launches`` each op's CUDA implementation counts

@@ -25,6 +25,9 @@ from ffcnn_tpu.kernels import csblock_pallas as jk9
 from ffcnn_tpu_torch import bench_block as bb
 from ffcnn_tpu_torch.kernels import mbconv as tk8
 from ffcnn_tpu_torch.kernels import mbconv_cs as tk9
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 

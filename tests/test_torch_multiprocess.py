@@ -30,6 +30,11 @@ MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")
 LOCAL_N = 2
 TOPK = 2048                  # micro's every candidate at 64x64: no K growth
 
+if __name__ != "__main__":   # run as a worker, the file finds REPO in _worker
+    from ffcnn_tpu_torch.testing import cap_threads
+
+    cap_threads()
+
 
 def _micro_params():
     from ffcnn_tpu_torch import parse_cfg, synth_weights_bytes

@@ -27,6 +27,9 @@ from ffcnn_tpu.imageio import loader as jloader
 from ffcnn_tpu_torch.imageio import bmp as tbmp
 from ffcnn_tpu_torch.imageio import loader as tloader
 from ffcnn_tpu_torch.imageio import native
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BMP = os.path.join(REPO, "tests", "fixtures", "test320.bmp")

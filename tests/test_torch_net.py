@@ -22,6 +22,9 @@ from ffcnn_tpu.imageio.bmp import bmp_load
 from ffcnn_tpu.kernels import block_fused as jbf
 from ffcnn_tpu.ops import preprocess as jpre
 from ffcnn_tpu_torch.graph import build as tbuild
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

@@ -13,6 +13,9 @@ from ffcnn_tpu.kernels.nms_pallas import nms_keep_mask as jax_pallas_keep
 from ffcnn_tpu.ops import nms as jnms
 from ffcnn_tpu_torch.kernels.nms import keep_mask_plain, nms_keep_mask
 from ffcnn_tpu_torch.ops import nms as tnms
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def _candidates(seed, n=3, m=96, density=0.7, classes=3):

@@ -23,6 +23,9 @@ from ffcnn_tpu_torch.ops import activations as tact
 from ffcnn_tpu_torch.ops import conv as tconv
 from ffcnn_tpu_torch.ops import pool as tpool
 from ffcnn_tpu_torch.ops import preprocess as tpre
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 MICRO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "models", "ffcnn-micro.cfg")

@@ -30,6 +30,9 @@ from ffcnn_tpu_torch.graph.build import params_from_numpy
 from ffcnn_tpu_torch.parallel import dp as tdp
 from ffcnn_tpu_torch.parallel import mesh as tmesh
 from ffcnn_tpu_torch.quant import plan_from_numpy
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

@@ -41,6 +41,9 @@ from ffcnn_tpu_torch.kernels import block_fused as bf
 from ffcnn_tpu_torch.kernels import block_variants as bv
 from ffcnn_tpu_torch.kernels import mosaic_probes as mp
 from ffcnn_tpu_torch.kernels import pw_matmul as pw
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
@@ -339,6 +342,61 @@ def test_dynslice_carry_clamps_as_jax(steps):
     want = lax.fori_loop(0, steps, body, jnp.asarray(x))
     got = mp.dynslice_carry(torch.from_numpy(x), steps)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("segs", [(1, 16), (17, 32), (33, 48), (49, 64)],
+                         ids=lambda r: f"seg{r[0]}-{r[1]}")
+def test_dynslice_rows_match_the_step_by_step_plain(segs):
+    """P5's kernel copies each output row from the row of its closed-form
+    map (``src_row``, the steps composed backwards, those past seg folded
+    into one): it equals the step-by-step plain version for every seg and
+    every step count up to 2*seg + 2, and the wrapper's fold of the steps
+    (``min(steps, seg + 1)``) changes no row."""
+    for seg in range(segs[0], segs[1] + 1):
+        x = torch.arange(2 * seg, dtype=torch.float32)[:, None]
+        for steps in range(2 * seg + 3):
+            want = mp.dynslice_carry_plain(x, steps)[:, 0].long()
+            assert torch.equal(mp.dynslice_rows(seg, steps), want), \
+                (seg, steps)
+            assert torch.equal(mp.dynslice_rows(seg, min(steps, seg + 1)),
+                               want), (seg, steps)
+
+
+def test_dynslice_rows_match_pallas():
+    """The row map on the sweep's input against the Pallas probe itself:
+    ``x.index_select(0, rows)`` (the library call P5 is timed beside) is
+    its output bit for bit."""
+    x = jnp.arange(16 * 128, dtype=jnp.float32).reshape(16, 128)
+    want = pl.pallas_call(_carry_kern, out_shape=jax.ShapeDtypeStruct(
+        (16, 128), jnp.float32), interpret=True)(x)
+    tx = torch.from_numpy(np.asarray(x))
+    got = tx.index_select(0, mp.dynslice_rows(8, 3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dynslice_carry_limits():
+    """No shared memory, so no seg limit of 48 any more: the kernel takes
+    any seg whose 2*seg rows fit an int, the wrapper mirrors that, and
+    what it refuses (another device, dtype, a negative step count) it
+    refuses before any launch."""
+    src = open(os.path.join(REPO, "ffcnn_tpu_torch", "csrc",
+                            "mosaic_probes.cu")).read()
+    body = src[src.index("dynslice_carry_kernel"):]
+    assert "__shared__" not in body and "__syncthreads" not in body
+    assert "seg < 1 || seg > (1 << 30) - 1" in src
+    assert mp._MAX_SEG == 2**30 - 1 and mp._MAX_COLS == 2**31 - 1
+    wide = torch.empty((200, 8), device="meta")   # seg 100 > the old 48
+    with pytest.raises(ValueError, match=f"at most {2 * mp._MAX_SEG} rows"):
+        mp.dynslice_carry(wide)
+    with pytest.raises(ValueError, match="steps >= 0"):
+        mp.dynslice_carry(wide, -1)
+    with pytest.raises(ValueError, match=r"\(2\*seg, C\)"):
+        mp.dynslice_carry(torch.empty((3, 8), device="meta"))
+    assert mp.dynslice_carry.launches == 0
+    # on the CPU a wide carry takes the plain version
+    x = torch.randn(200, 3)
+    assert torch.equal(mp.dynslice_carry(x, 5),
+                       x.index_select(0, mp.dynslice_rows(100, 5)))
 
 
 def test_strided_rows_odd_count():

@@ -20,6 +20,9 @@ from ffcnn_tpu.darknet import parse_cfg as jparse
 from ffcnn_tpu_torch import profiling as tprof
 from ffcnn_tpu_torch.darknet import parse_cfg as tparse
 from ffcnn_tpu_torch.darknet.weights import synth_weights_bytes
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(REPO, "models", "*.cfg")))

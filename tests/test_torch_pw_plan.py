@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from ffcnn_tpu_torch.kernels import pw_matmul as pw
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "ffcnn_tpu_torch", "csrc", "pw_matmul.cu")

@@ -21,6 +21,9 @@ from ffcnn_tpu_torch.darknet import parse_cfg as tparse
 from ffcnn_tpu_torch.darknet.ir import LayerType
 from ffcnn_tpu_torch.kernels.block_fused import plan_runs
 from ffcnn_tpu_torch.kernels.head_fused import plan_head_runs
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = ["ffcnn-micro", "yolo-fastest-xl", "yolov3-tiny", "yolov4-tiny"]

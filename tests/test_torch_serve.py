@@ -27,6 +27,9 @@ from ffcnn_tpu.imageio.bmp import bmp_save
 from ffcnn_tpu_torch import serve
 from ffcnn_tpu_torch.serve import (DetectorService, MicroBatcher, Overloaded,
                                    make_server, parse_geometry)
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

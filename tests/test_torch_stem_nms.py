@@ -34,6 +34,9 @@ from ffcnn_tpu_torch.darknet import parse_cfg as tparse_cfg
 from ffcnn_tpu_torch.graph import build as tbuild
 from ffcnn_tpu_torch.kernels import conv0_fused as tc0
 from ffcnn_tpu_torch.kernels.nms import keep_mask_plain, nms_keep_mask
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "ffcnn_tpu_torch", "csrc")

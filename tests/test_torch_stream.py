@@ -24,6 +24,9 @@ from ffcnn_tpu.ops import pool as jpool
 from ffcnn_tpu_torch.darknet import cache as tcache
 from ffcnn_tpu_torch.ops import activations as tact
 from ffcnn_tpu_torch.ops import pool as tpool
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = os.path.join(REPO, "models", "ffcnn-micro.cfg")

@@ -40,6 +40,9 @@ from ffcnn_tpu_torch.kernels import nms as tknms
 from ffcnn_tpu_torch.ops import nms as tnms
 from ffcnn_tpu_torch.ops import yolo as tyolo
 from ffcnn_tpu_torch.serve import DetectorService, make_server
+from ffcnn_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
