@@ -96,7 +96,11 @@ K9.  Phases, each of which exits non-zero on failure:
      round trip, and each mode alone in a CUDA graph); P4 and P5
      (``retest_backend_bugs.py``: bit-exact, timed by events and alone, 20
      launches in one CUDA graph, beside ``x[::2].contiguous()`` and
-     ``x.index_select(0, rows)`` on P5's row map both ways)
+     ``x.index_select(0, rows)`` on P5's row map both ways); P4 also at
+     (65,536, 128), where bytes matter, timed alone beside the strided
+     copy, and on its 2-byte path (an odd R, C % 8 != 0, an unaligned
+     view), each launch's width, block and grid as the kernel reports them
+     against ``mosaic_probes.strided_plan``
   9. serving (its ``detect_stream`` and server parts run after phase 5,
      before the timings, whose traces torch.profiler's counts must
      precede; its ``memory_stats`` and sync-debug parts run last): on
@@ -119,7 +123,8 @@ K9.  Phases, each of which exits non-zero on failure:
      region stem bit for bit with the dense one, ``batch`` over three BMPs
      against ``Net.detect``; the cost of a layer range to the eager path;
      a 1 GiB copy's rate; then the port's bench
-     (``ffcnn_tpu_torch/bench.py``, ``--batches 64,256 --windows 3``)
+     (``ffcnn_tpu_torch/bench.py``, ``--batches 64,256 --windows 3
+     --iters 10``)
      with no flag and with the region flags, each printing its JSON line
  11. YOLOv8n at 640x640 (``ffcnn_tpu_torch/yolov8.py``: a state dict from
      ``synthesize_state_dict(80, "n", seed=0)``, converted with its heads'
@@ -224,6 +229,31 @@ K9.  Phases, each of which exits non-zero on failure:
      it, its img/s beside the loader's and ``detect_device``'s ms a chunk;
      ``Net.load`` of xl from the weights file, median of 3.
 
+ 16. the rest of the Darknet zoo through ``Net``: yolov3-tiny, yolov4-tiny,
+     yolov3 and yolov4, each at its cfg's 416x416 with weights from
+     ``synth_weights_bytes(seed 42, obj_bias 2.0)``, in a process of its
+     own (this script with ``--zoo``, which also runs the phase alone)
+     started once the build has ended: parity on the card (K grown a
+     bucket a rung, past K2's 8,192 staged candidates on yolov3 and
+     yolov4) against the CPU on two seeded frames and the letterboxed
+     fixture, by detections (yolov4-tiny and yolov4, whose synthetic
+     scores tie: their candidates and the card's tail on the CPU's, the
+     ties logged), each replay bit for bit with the eager card path; fast
+     mode (K2 alone, once a forward; a replay's kernels equal to an eager
+     run's; heads and detections against the CPU on one frame); fast under
+     ``FFCNN_CONV0_INT8=1`` (the u8 path once a forward, the Net's stem
+     against its plain version, mish within C0Q_MISH_ULPS); int8
+     (calibration card vs CPU, every distinct unfused int8 conv shape at
+     batch 4 against its plain version with its path, the int8 Net under
+     one plan against the CPU).  Then its timings: each model's fast
+     ``memory_stats`` at batch 64 and 256, its bucket's ``detect_device``
+     at batch 64 in fast, parity and int8 mode (device time by events,
+     host enqueue time); for yolov4 also at batch 1 and the eager pipeline
+     beside it (host CPU and device time by torch.profiler), and its
+     ``profile_layers`` at batch 64 with the ten largest rows; last the
+     port's bench once on yolov4 (``--parity-gate candidates --batches 64
+     --windows 3 --iters 10``), its JSON line printed.  It logs its
+     seconds against its 150 s budget.
 Before the last line comes one JSON object with every kernel's name,
 source, launches, error, time, plain time and bound (the least time an
 H100 could take for the same work, ``bench_block.Work``), K1-K9 and
@@ -249,6 +279,7 @@ device.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -350,6 +381,17 @@ MBCONV_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # and depthwise outputs to bf16, so it takes MBCONV_TOL's 2^-6 in both
 # storages.  P4 and P5 are copies: bit-exact.
 EXACT = {"float32": 0.0, "bfloat16": 0.0}
+# P4 beside the sweep's (16, 128): a shape where bytes matter (8 MiB read,
+# the even rows of 16 MiB, and 8 MiB written), and the 2-byte path's cases (label, rows, cols,
+# offset in elements of a contiguous view into a larger buffer): an odd R,
+# a C that is not a multiple of 8, an unaligned view; and an odd R on the
+# 16-byte path.  At P4_LARGE the graph's 20 launches each read and write
+# buffers of their own (``rotated``): 480 MiB in all, far past the H100's
+# 50 MB L2, so each launch reads and writes HBM, as its bound assumes
+P4_LARGE = (65536, 128)
+P4_CASES = (("odd R", 17, 130, 0), ("C % 8 != 0", 16, 130, 0),
+            ("unaligned view", 16, 128, 1), ("odd R, 16-byte runs", 17, 128,
+                                             0))
 P3_ITERS, P3_BATCH, P3_CHECK_BATCH = 20, 256, 64
 # Phase 9: the server's load (the fixture and seeded frames, each sent
 # SERVE_REQUESTS / SERVE_FRAMES times) and detect_stream's depths
@@ -361,8 +403,9 @@ PROFILE_ITERS = 10
 # written, the chunk ``cli batch`` decodes at a time, the timed repeats of
 # a loader (after one warm-up) and of ``Net.load``
 CODEC_FRAMES, CODEC_CHUNK, LOADER_REPS, NET_LOAD_REPS = 256, 64, 10, 3
-# seconds between a trace's window opening and the traced call (``traced``)
-TRACE_SETTLE_S = 0.2
+# seconds between a trace's window opening and the traced call, and the
+# small device ops launched then, before it (``traced``)
+TRACE_SETTLE_S, TRACE_SPACER_OPS = 0.2, 1000
 # attempts of a replay check whose eager trace lost device events
 # (``check_replay``)
 TRACE_TRIES = 3
@@ -530,7 +573,10 @@ def traced(fn):
     after the trace's window opens: late in a run the profiler still
     dropped the device events of a trace's first milliseconds (most of
     an eager batch-1 forward, its last kernels kept), as if the card's
-    timestamps fell before the window's start."""
+    timestamps fell before the window's start.  In a fresh process too
+    (phase 16) it dropped a short eager forward's first two layers, so
+    TRACE_SPACER_OPS small device ops go first, for it to drop instead
+    (none of them is a path kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     rows = []
@@ -541,6 +587,9 @@ def traced(fn):
         torch.ones(1 << 20, device="cuda").sum().item()
         prof.step()
         time.sleep(TRACE_SETTLE_S)
+        spacer = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_SPACER_OPS):
+            spacer.add_(1)
         out = fn()
         torch.cuda.synchronize()
         prof.step()
@@ -785,14 +834,16 @@ def log_device_rows() -> None:
 
 
 def check_against_cpu(tag: str, net, cpu_net, frames, dets,
-                      phase: int = 4) -> None:
+                      phase: int = 4, cpu_heads=None) -> None:
     """The card's heads and detections against the same Net on the CPU,
-    on the first four frames (``dets``: the card's detections of all)."""
+    on the first four frames (``dets``: the card's detections of all).
+    ``cpu_heads``: the CPU's heads of those frames, already computed."""
     import torch
     from ffcnn_tpu_torch.ops.yolo import decode_heads
     few = frames[:4]
     hg = net.forward_heads(torch.from_numpy(few).to("cuda"))
-    hc = cpu_net.forward_heads(torch.from_numpy(few))
+    hc = cpu_heads if cpu_heads is not None else cpu_net.forward_heads(
+        torch.from_numpy(few))
     for i, (g, c) in enumerate(zip(hg, hc)):
         g, c = g.float().cpu(), c.float()
         scale = c.abs().max().item()
@@ -830,7 +881,7 @@ def bucket_of(net, frames, topk=None):
 
 
 def check_replay(tag: str, net, counters, frames, first,
-                 want=None) -> None:
+                 want=None, phase: int = 4) -> None:
     """A second ``detect`` of ``frames`` (N, H, W, 3), a replay of the
     bucket the first built: the kernels the card ran in it (torch.profiler)
     are one forward's (WANT_COUNTS) and one K2, as many as one eager run of
@@ -839,17 +890,20 @@ def check_replay(tag: str, net, counters, frames, first,
     counts in the replay.  Whether it equals the first's (``first``, a
     replay too) bit for bit is reported.  ``want``: one forward's launches
     (default WANT_COUNTS of the tag).  Both traces are taken again, up to
-    TRACE_TRIES times in all, only where the eager trace kept fewer device
-    events of a kernel than the same run's wrappers counted launches: then
+    TRACE_TRIES times in all, only where either trace kept fewer device
+    events of a kernel than the eager run's wrappers counted launches: then
     torch.profiler lost events (late in a run it once kept an eager int8
-    forward's first ten layers alone), and the attempt shows nothing of
-    the replay.  Any other disagreement fails at once."""
+    forward's first ten layers alone; in phase 16 the replay's trace of a
+    forward at 416x416 once kept no event of its first kernel, the stem,
+    where the eager trace before it, taken again, kept it), and the
+    attempt shows nothing of the replay.  Any other disagreement fails at
+    once, and the last attempt's fails whatever it is."""
     import torch
     want = want or WANT_COUNTS[tag.replace("416", "")]
     xb = torch.from_numpy(frames).to("cuda")
     for i in range(TRACE_TRIES):
         lost = replay_attempt(tag, net, counters, frames, xb, first, want,
-                              last=i == TRACE_TRIES - 1)
+                              last=i == TRACE_TRIES - 1, phase=phase)
         if not lost:
             return
         log(f"    (the eager trace lost device events, traced / launched "
@@ -857,15 +911,16 @@ def check_replay(tag: str, net, counters, frames, first,
 
 
 def replay_attempt(tag, net, counters, frames, xb, first, want,
-                   last: bool) -> dict:
+                   last: bool, phase: int = 4) -> dict:
     """One attempt of ``check_replay``: both traces, the check.  Returns
-    {} where it holds; where it does not, the kernels whose eager trace
-    kept fewer events than the wrappers launched (traced, launched), if
-    there are any and ``last`` is false; else raises."""
+    {} where it holds; where it does not, the kernels of which either trace
+    kept fewer events than the eager run's wrappers launched (the fewer
+    traced, launched), if there are any and ``last`` is false; else
+    raises."""
     dets, ran, wrapped = kernel_events(counters, lambda: net.detect(frames))
     _, eager_ran, eager_wrapped = kernel_events(
         counters, lambda: bucket_of(net, xb).run(xb))
-    log(f"[4] {tag} bucket batch {len(frames)} at {frames.shape[2]}x"
+    log(f"[{phase}] {tag} bucket batch {len(frames)} at {frames.shape[2]}x"
         f"{frames.shape[1]}: kernels a replay ran "
         + " ".join(f"{k} {v}" for k, v in ran.items() if v)
         + "; an eager run's " + " ".join(
@@ -880,8 +935,9 @@ def replay_attempt(tag, net, counters, frames, xb, first, want,
     if ok:
         return {}
     log_device_rows()
-    lost = {k: (eager_ran[k], eager_wrapped[k]) for k in KERNEL_SYMBOLS
-            if eager_ran[k] < eager_wrapped[k]}
+    lost = {k: (min(eager_ran[k], ran[k]), eager_wrapped[k])
+            for k in KERNEL_SYMBOLS
+            if min(eager_ran[k], ran[k]) < eager_wrapped[k]}
     if lost and not last:
         return lost
     raise AssertionError(f"{tag}: the bucket's replay did not run the "
@@ -1019,6 +1075,77 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work,
             "library_ms": library_ms, **more}
 
 
+def p4_path(mp, label, x, y) -> None:
+    """P4's launch, as the kernel reported it, against the Python mirror
+    (``mosaic_probes.strided_plan``) of the same call; raises where they
+    differ."""
+    from ffcnn_tpu_torch.kernels import _build
+    want = mp.strided_plan(*x.shape, x.data_ptr(), y.data_ptr(),
+                           _build.sm_count(x.device))
+    got = mp.strided_rows.plan
+    log(f"[8] P4 {label} {tuple(x.shape)}: {got.vec} column(s) a thread, "
+        f"block {got.block}, grid {got.grid}; the mirror's "
+        f"{'the same' if got == want else want}")
+    if got != want:
+        raise AssertionError(f"P4 {label}: launched {got}, the mirror says "
+                             f"{want}")
+
+
+def rotated(fn, xs):
+    """A call of ``fn`` on the next of ``xs`` in turn, each output kept
+    alive: ``len(xs)`` calls captured in one CUDA graph read and write
+    buffers of their own, none of which the L2 still holds from the call
+    before (``P4_LARGE``)."""
+    import itertools
+    it, keep = itertools.cycle(xs), []
+    return lambda: keep.append(fn(next(it)))
+
+
+def p4_large(mp, bb, dev) -> dict:
+    """P4 off the sweep's shape: the 2-byte path's cases (P4_CASES) and
+    the 16-byte path at P4_LARGE, each bit for bit against the plain
+    version and its launch against the mirror; then at P4_LARGE the kernel
+    alone (20 launches in one CUDA graph, each on its own input and output,
+    ``rotated``: from HBM) beside ``x[::2].contiguous()`` alone the same
+    way, the plain version by events, and its bound (bytes over the HBM
+    rate).  Returns the ``kernels`` entry's extra keys."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 4)
+    for label, r, c, off in P4_CASES:
+        base = torch.randn(r * c + off, generator=gen).to(dev, torch.bfloat16)
+        x = base[off:].view(r, c)
+        y = mp.strided_rows(x)
+        p4_path(mp, label, x, y)
+        check_kernel(f"P4 {label} {tuple(x.shape)}", y,
+                     mp.strided_rows_plain(x), EXACT, 8)
+        if (mp.strided_rows.plan.vec == 8) != (c % 8 == 0 and off == 0):
+            raise AssertionError(f"P4 {label} took the wrong path")
+    x = torch.randn(P4_LARGE, generator=gen).to(dev, torch.bfloat16)
+    y = mp.strided_rows(x)
+    p4_path(mp, "large", x, y)
+    check_kernel(f"P4 {P4_LARGE}", y, mp.strided_rows_plain(x), EXACT, 8)
+    check_kernel(f"P4 {P4_LARGE} against x[::2].contiguous()", y,
+                 x[::2].contiguous(), EXACT, 8)
+    xs = [x.clone() for _ in range(20)]
+    tag = "x".join(map(str, P4_LARGE))
+    t = {f"kernel_alone_ms_{tag}": bb.graph_launch_ms(
+             rotated(mp.strided_rows, xs)),
+         f"library_alone_ms_{tag}": bb.graph_launch_ms(
+             rotated(lambda v: v[::2].contiguous(), xs)),
+         f"plain_ms_{tag}": cuda_ms(lambda: mp.strided_rows_plain(x), 20),
+         f"bound_ms_{tag}": bb.Work(2 * y.numel() * y.element_size()
+                                    ).bound()[0],
+         f"path_{tag}": mp.strided_rows.plan._asdict()}
+    del xs
+    log(f"[8] P4 {P4_LARGE} bf16, each launch from HBM: kernel alone "
+        f"{t[f'kernel_alone_ms_{tag}']:.5f} ms "
+        f"({t[f'bound_ms_{tag}'] / t[f'kernel_alone_ms_{tag}']:.1%} of its "
+        f"bound's rate), x[::2].contiguous() alone "
+        f"{t[f'library_alone_ms_{tag}']:.5f} ms, plain "
+        f"{t[f'plain_ms_{tag}']:.4f} ms, bound {t[f'bound_ms_{tag}']:.5f} ms")
+    return t
+
+
 def probe_phase(dev, counters) -> list:
     """Phase 8: the probe kernels P1-P5 behind the ports of their probes.
     Each kernel's launches are read around its probe's pass, each is held
@@ -1147,6 +1274,7 @@ def probe_phase(dev, counters) -> list:
         # the library call of the same function: P4 a strided copy, P5 a
         # gather of the rows of its row map (made once, outside the timing)
         if key == "P4":
+            p4_path(mp, "the sweep's input", x, y)
             library = lambda: x[::2].contiguous()
         else:
             rows = mp.dynslice_rows(x.shape[0] // 2, 3, dev)
@@ -1165,7 +1293,9 @@ def probe_phase(dev, counters) -> list:
         log(f"[8] {key} {probe.name}: kernel {t['ms']:.4f} ms, alone "
             f"{t['alone']:.5f} ms; plain {t['plain']:.4f} ms; "
             f"{'x[::2].contiguous()' if key == 'P4' else 'index_select'} "
-            f"{t['library']:.4f} ms, alone {t['library_alone']:.5f} ms")
+            f"{t['library']:.4f} ms, alone {t['library_alone']:.5f} ms; "
+            f"bound {t['work'].bound()[0]:.7f} ms")
+    times["P4"]["more"] = p4_large(mp, bb, dev)
 
     return [
         kernel_entry(name, "pw_matmul.cu", f"tools/bench_pw_kernels.py:{line}",
@@ -1187,7 +1317,8 @@ def probe_phase(dev, counters) -> list:
                       err[key], times[key]["ms"], times[key]["plain"],
                       times[key]["work"], times[key]["library"],
                       kernel_alone_ms=times[key]["alone"],
-                      library_alone_ms=times[key]["library_alone"])
+                      library_alone_ms=times[key]["library_alone"],
+                      **times[key].get("more", {}))
          for name, key, line in (("strided_rows", "P4", 73),
                                  ("dynslice_carry", "P5", 92))]
 
@@ -1549,13 +1680,15 @@ def copy_rate(dev) -> None:
 
 
 def bench_phase() -> None:
-    """Phase 10, the port's bench, short: ``--batches 64,256 --windows 3``
+    """Phase 10, the port's bench, short: ``--batches 64,256 --windows 3
+    --iters 10`` (10 calls a window, not 30, since phase 16 joined the run)
     with no flag, then with the region flags; each prints its JSON line."""
     from ffcnn_tpu_torch import bench
     for tag, flags in (("default", {}), ("region", REGION_FLAGS)):
         t0 = time.perf_counter()
         with environ(flags):
-            row = bench.main(["--batches", "64,256", "--windows", "3"])
+            row = bench.main(["--batches", "64,256", "--windows", "3",
+                              "--iters", "10"])
         log(f"[10] bench {tag} ({time.perf_counter() - t0:.1f} s): "
             f"{row['value']:.1f} img/s at batch {row['batch']}, mfu "
             f"{row['mfu']:.4%}, parity {row['parity_img_s']:.1f}, stream "
@@ -2024,7 +2157,7 @@ def int8_work(x, cvp, y):
     return nbytes, ops if cvp.groups == 1 else 0, ops if cvp.groups > 1 else 0
 
 
-def check_codes(label, got, want, pre=None) -> int:
+def check_codes(label, got, want, pre=None, phase: int = 12) -> int:
     """int8 codes of a kernel against its plain version: equal, or one
     apart where ``pre`` (the plain version's value before rounding) lies
     within INT8_TIE of a tie.  Returns the largest difference."""
@@ -2036,7 +2169,7 @@ def check_codes(label, got, want, pre=None) -> int:
         f = pre[d > 0].float()
         ties = bool(((f - f.floor() - 0.5).abs() <= INT8_TIE).all())
     ok = err <= 1 and (n == 0 or pre is not None) and ties
-    log(f"[12] {label}: codes differing {n} of {d.numel()} (max {err}"
+    log(f"[{phase}] {label}: codes differing {n} of {d.numel()} (max {err}"
         + (", each at a tie" if n and ties else "") + f") "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2055,7 +2188,7 @@ def routed(ci, fn):
     return out, took[0]
 
 
-def int8_conv_check(ci, label, x, cvp, batch):
+def int8_conv_check(ci, label, x, cvp, batch, phase: int = 12):
     """The int8 conv on ``x`` against its plain version: the accumulators
     bit for bit, codes by ``check_codes``, float outputs by
     ``check_kernel``; the path the kernel took must be ``ci.route``'s.
@@ -2074,10 +2207,10 @@ def int8_conv_check(ci, label, x, cvp, batch):
     if cvp.inv is not None:
         pre = activate(accp.float() * cvp.eff + cvp.bias, cvp.act) * cvp.inv
         e = check_codes(f"int8 conv {label} batch {batch} ({path}), "
-                        f"accumulators bit for bit", y, yp, pre)
+                        f"accumulators bit for bit", y, yp, pre, phase)
     else:
         e = check_kernel(f"int8 conv {label} batch {batch} ({path}; "
-                         f"accumulators bit for bit)", y, yp, phase=12)
+                         f"accumulators bit for bit)", y, yp, phase=phase)
     return y, e, path
 
 
@@ -2525,7 +2658,7 @@ def ulps(got, want):
     return int((key(got) - key(want)).abs().max())
 
 
-def check_u8(label, got, want, act) -> float:
+def check_u8(label, got, want, act, phase: int = 12) -> float:
     """The u8 path against its plain version: bit for bit, except mish's
     float outputs, within C0Q_MISH_ULPS float32 ulps (a bfloat16 output one
     bf16 ulp, the float32 difference's rounding), the largest logged.
@@ -2542,7 +2675,7 @@ def check_u8(label, got, want, act) -> float:
         lim = C0Q_MISH_ULPS if got.dtype == torch.float32 else 1
         note = f"mish: {u} ulp(s) apart at most, {lim} allowed"
         same = u <= lim and bool(torch.isfinite(got.float()).all())
-    log(f"[12] {label}: max|err| {err:.3e}, {note} "
+    log(f"[{phase}] {label}: max|err| {err:.3e}, {note} "
         f"{'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError(f"{label} disagrees with its plain version")
@@ -2581,7 +2714,7 @@ def u8_bound(x, cp):
     return int8_bound(nbytes, tc_ops=2 * n * oh * ow * f * 27)
 
 
-def u8_cases(ci, label, x, cp) -> float:
+def u8_cases(ci, label, x, cp, phase: int = 12) -> float:
     """The u8 path on ``x`` against its plain version in its three output
     kinds (int32 accumulators, float32, bf16), each launch routed ``u8``.
     Returns the largest float difference."""
@@ -2596,7 +2729,7 @@ def u8_cases(ci, label, x, cp) -> float:
         if path != "u8":
             raise AssertionError(f"{label} took {path}, not u8")
         e = check_u8(f"{label} -> {tuple(got.shape[1:])} {kind} ({path})",
-                     got, want, cp.act)
+                     got, want, cp.act, phase)
         if not raw:
             worst = max(worst, e)
     return worst
@@ -3170,6 +3303,518 @@ def parallel_times(pt, rnet, pnet, p14, frames, dev) -> None:
     log(f"[14] phase 14 timings took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 16: the rest of the Darknet zoo through Net, each model at its
+# cfg's 416x416 (full width and depth) with weights from
+# synth_weights_bytes(seed 42, obj_bias 2.0), in a process of its own
+# (``--zoo``) started once the build has ended, so that its Nets' memory at
+# batch 256 is apart from the other phases': (tag, cfg)
+ZOO = (("yolov3-tiny", "models/yolov3-tiny.cfg"),
+       ("yolov4-tiny", "models/yolov4-tiny.cfg"),
+       ("yolov3", "models/yolov3.cfg"), ("yolov4", "models/yolov4.cfg"))
+# the models whose synthetic scores tie on the CPU, whose parity is held
+# on the pre-NMS candidates and the tail: yolov4 (tests/test_model_zoo.py's
+# TIE_PRONE), and yolov4-tiny, on whose letterboxed fixture greedy NMS kept
+# one of two same-class candidates one float32 ulp apart in score (IoU
+# 0.62) on the card and the other on the CPU, their candidates equal
+# within the gate's tolerances and 1,472 of the CPU's 2,535 live ones
+# within 1e-6 of another's score of their class (an H100 80GB HBM3, 700 W)
+ZOO_TIE_PRONE = {"yolov4-tiny", "yolov4"}
+# each model's unfused int8 convs by the int8 conv's path
+# (``conv_int8.route``; tests/test_torch_zoo.py pins them on the CPU)
+ZOO_INT8_PATHS = {"yolov3-tiny": {"gemm": 9}, "yolov4-tiny": {"gemm": 18},
+                  "yolov3": {"gemm": 71}, "yolov4": {"gemm": 106}}
+# seeded frames a model: the calibration set; the first two are parity's
+# and fast mode's batch, the first alone the CPU's fast and int8 check
+ZOO_FRAMES = 8
+ZOO_INT8_BATCH = 4                  # the int8 conv's shapes checked at it
+# detect_device's rows: (batch, iters); ZOO_PROFILE's, eager and bucket,
+# at both, every other model's bucket at the last
+ZOO_TIMED = ((1, 10), (BATCH, 2))
+ZOO_MEMORY = (BATCH, 256)           # memory_stats batches, fast mode
+ZOO_PROFILE = "yolov4"              # profile_layers, fast, batch 64
+ZOO_BENCH = ["--cfg", os.path.join(REPO, "models", "yolov4.cfg"),
+             "--parity-gate", "candidates", "--batches", "64",
+             "--windows", "3", "--iters", "10"]
+ZOO_PHASE_S = 150                   # the phase's budget, the CPU included
+ZOO_TIMEOUT_S = 900                 # the process's, a hang's guard
+# the window within which two same-class candidate scores of the CPU count
+# as tied (the evidence for the candidates gate)
+ZOO_TIE_WINDOW = 1e-6
+# The int8 conv's codes after a mish epilogue: the card's mish (float32
+# tanhf(log1pf(expf(v)))) may land C0Q_MISH_ULPS float32 ulps from
+# torch's, at most 2^-16 in code units at |code| <= 127, inside INT8_TIE's
+# window around a tie (check_codes).
+
+
+def zoo_model(pt, counters, tag: str, cfg: str) -> dict:
+    """Phase 16, one model's checks on the card against the CPU:
+
+    1. parity (float32, TF32 off; the card's detect grows K a bucket a
+       rung) against the CPU on two seeded frames and the letterboxed
+       fixture: the detections as sets (``pair_parity``), or for a
+       ZOO_TIE_PRONE model the candidates and the card's tail on the
+       CPU's (``bench.parity_candidates``), with the CPU's tied scores
+       logged; each rung's bucket built once (K2 three times a bucket, no
+       other kernel), the replays bit for bit with the eager card path;
+    2. fast: the first detect's launches (K2 alone, once a forward of the
+       bucket's build), a replay's kernels equal to an eager run's, heads
+       and detections held to the CPU on one frame (phase 4's tolerances;
+       the CPU's bf16 forward timed);
+    3. fast under FFCNN_CONV0_INT8=1: the int8 conv's u8 path once a
+       forward (no other path), the replay, the stem's params inside the
+       Net against its plain version on the Net's letterboxed frames
+       (``u8_cases``: bit for bit, mish within C0Q_MISH_ULPS), the CPU;
+    4. int8: ``Net.calibrate`` on the card against the CPU on ZOO_FRAMES
+       seeded frames (blob scales to 1e-5, weight codes 99.9% equal); every
+       distinct unfused int8 conv shape of the plan at batch
+       ZOO_INT8_BATCH against its plain version (``int8_conv_check``:
+       accumulators bit for bit, the path ``route`` names, codes equal or
+       one apart at a tie); the int8 Net under the card's plan, installed
+       on both with ``set_quant_plan``: launches (the int8 conv on each
+       unfused int8 conv by ZOO_INT8_PATHS, K2), the replay, the CPU.
+
+    Returns the card's Nets and what the timings take."""
+    import torch
+    from ffcnn_tpu_torch import quant as tq
+    from ffcnn_tpu_torch.bench import parity_candidates
+    from ffcnn_tpu_torch.darknet.weights import load_weights
+    from ffcnn_tpu_torch.kernels import conv_int8 as ci
+    from ffcnn_tpu_torch.ops.preprocess import letterbox_uint8
+    from ffcnn_tpu_torch.runtime import WARMUP_RUNS
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    path = os.path.join(REPO, cfg)
+    ir = pt.parse_cfg(path)
+    size = ir.blobs[0].w
+    wbytes = pt.synth_weights_bytes(ir, seed=SEED, obj_bias=2.0)
+    params, _ = load_weights(ir, wbytes)
+    frames = np.random.RandomState(SEED + 16).randint(
+        0, 256, (ZOO_FRAMES, size, size, 3), dtype=np.uint8)
+    two, one = frames[:2], frames[:1]
+    fixture = pt.bmp_load(BMP)[None]
+    built = WARMUP_RUNS + 1
+    nothing = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    cpu_s = {}
+
+    def load(mode, device, flags=None, **kw):
+        with environ(flags or {}):
+            return pt.Net(ir, params, mode=mode, device=device, **kw)
+
+    def step(what):
+        log(f"[16] {tag} {what} took {time.perf_counter() - t0:.1f} s so "
+            f"far")
+
+    def on_cpu(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        cpu_s[key] = cpu_s.get(key, 0.0) + time.perf_counter() - t
+        return out
+
+    def launched(what, counts, want):
+        """The wrappers' counts of a call: ``want``'s, every other 0."""
+        log(f"[16] {tag} {what}: launches " + " ".join(
+            f"{k} {v}" for k, v in counts.items() if v))
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"{tag} {what}: launches differ from "
+                                 f"{want}")
+
+    # 1. parity.  The CPU's Net takes the model's candidate count as its
+    # top-k: the detections the card's K growth reaches (once the census
+    # fits, every live candidate is in the top K, in the stable sort's
+    # order), in one CPU forward where the growth would take one a rung
+    pnet = load("parity", "cuda")
+    max_k = pnet._max_candidates()
+    pcpu = load("parity", "cpu", topk=max_k)
+    log(f"[16] {tag} {size}x{size}: {len(ir.layers)} layers, "
+        f"{len(wbytes)} weight bytes, {max_k} candidates at most")
+    for what, batch in (("2 seeded frames", two),
+                        ("the 320x320 fixture, letterboxed", fixture)):
+        pg, counts = counted(counters, lambda: pnet.detect(batch))
+        ks = sorted(k[3] for k in pnet._pipelines
+                    if k[:2] == batch.shape[1:3])
+        launched(f"parity detect {what} (a bucket built a rung of K "
+                 f"{ks})", counts, {"K2": built * len(ks)})
+        check_dets(f"{tag} parity", pg)
+        if not any(pg):
+            raise AssertionError(f"{tag} parity found nothing")
+        if tag in ZOO_TIE_PRONE:
+            out = {}
+            n = on_cpu("parity", lambda: parity_candidates(
+                pnet, pcpu, batch, out=out))
+            cs = out["cpu"]
+            live = cs.scores > 0
+            ties = sum(zoo_ties(cs.scores[i][live[i]],
+                                cs.classes[i][live[i]])
+                       for i in range(len(batch)))
+            try:
+                pair_parity(pg, pcpu._to_detections(out["tail"]), "the CPU")
+                as_sets = "equal"
+            except AssertionError as e:
+                as_sets = f"not equal ({e})"
+            gate = (f"{n} live candidates equal (class, score to "
+                    f"{PARITY_SCORE_TOL}, box to 1e-4 of the range), the "
+                    f"card's tail on the CPU's candidates bit for bit; "
+                    f"{ties} of the CPU's live candidates within "
+                    f"{ZOO_TIE_WINDOW} of another's score of their class; "
+                    f"the detections as sets {as_sets}")
+        else:
+            pc = on_cpu("parity", lambda: pcpu.detect(batch))
+            try:
+                worst, flips = pair_parity(pg, pc, "the CPU")
+            except AssertionError:
+                parity_diff(tag, pnet, pcpu, batch, pg, pc)
+                raise
+            gate = (f"{sum(map(len, pg))} detections equal (class, integer"
+                    f" box), max |score diff| {worst:.2e}, integer flips "
+                    f"within {PARITY_BOX_NOISE} px: {flips}")
+        pe = eager_detect(pnet, batch)
+        log(f"[16] {tag} parity card vs CPU, {what}: {gate}; the card "
+            f"{[len(d) for d in pg]} detections, K reached {ks[-1]}; bit "
+            f"for bit with the eager card path: {pg == pe}")
+        if pg != pe:
+            raise AssertionError(f"{tag} parity: the bucket's replay "
+                                 f"differs from the eager card path")
+
+    step("parity")
+
+    # 2. fast: no block run or head chain on these graphs; K2 alone
+    fnet, fcpu = load("fast", "cuda"), load("fast", "cpu")
+    if fnet._fused_runs or fnet._head_runs:
+        raise AssertionError(f"{tag}: the planners found a run "
+                             f"{fnet._fused_runs} {fnet._head_runs}")
+    dets, counts = counted(counters, lambda: fnet.detect(two))
+    launched("fast detect batch 2, its bucket built in the call", counts,
+             {"K2": built})
+    check_dets(f"{tag} fast", dets)
+    check_replay(f"{tag} fast", fnet, counters, two, dets, nothing, 16)
+    heads = on_cpu("fast", lambda: fcpu.forward_heads(torch.from_numpy(one)))
+    log(f"[16] {tag} fast: the CPU's bf16 forward of one frame took "
+        f"{cpu_s['fast']:.2f} s")
+    check_against_cpu(f"{tag} fast", fnet, fcpu, one, dets[:1], 16, heads)
+
+    step("fast")
+
+    # 3. fast under FFCNN_CONV0_INT8=1: conv-1 on the int8 conv's u8 path
+    flag = {"FFCNN_CONV0_INT8": "1"}
+    qnet, qcpu = load("fast", "cuda", flag), load("fast", "cpu", flag)
+    ci.conv_int8.routes.update(dict.fromkeys(ci.ROUTES, 0))
+    dets, counts = counted(counters, lambda: qnet.detect(two))
+    by_path = {k: v for k, v in ci.conv_int8.routes.items() if v}
+    launched(f"conv-1 int8 detect batch 2 (by path {by_path})", counts,
+             {"K2": built, "conv_int8": built})
+    if by_path != {"u8": built}:
+        raise AssertionError(f"{tag} conv-1 int8 took {by_path}")
+    check_dets(f"{tag} conv-1 int8", dets)
+    check_replay(f"{tag} conv-1 int8", qnet, counters, two, dets,
+                 {**nothing, "conv_int8": 1}, 16)
+    c0q = qnet._folded_all(pt.DEFAULT_MEAN, pt.DEFAULT_NORM)[2]
+    x = letterbox_uint8(torch.from_numpy(two).to(dev), size,
+                        size).contiguous()
+    u8_cases(ci, f"{tag} conv-1 int8, the Net's stem F {c0q.filters} "
+                 f"s{c0q.stride} act {c0q.act} {size}x{size} batch 2", x,
+             c0q, 16)
+    heads = on_cpu("conv-1 int8", lambda: qcpu.forward_heads(
+        torch.from_numpy(one)))
+    check_against_cpu(f"{tag} conv-1 int8", qnet, qcpu, one, dets[:1], 16,
+                      heads)
+    del qcpu, fcpu, pcpu
+    step("conv-1 int8")
+
+    # 4. int8: calibration card vs CPU, the int8 conv at every distinct
+    # unfused shape, the Net under one plan
+    inet, icpu = load("int8", "cuda"), load("int8", "cpu")
+    inet.calibrate(frames)
+    on_cpu("calibrate", lambda: icpu.calibrate(frames))
+    gp, cp = inet.quant, icpu.quant
+    rel = max(abs(gp.blob_scale[b] - s) / s
+              for b, s in cp.blob_scale.items())
+    same = sum(int((gp.weights[li]["wq"].cpu() == q["wq"]).sum())
+               for li, q in cp.weights.items())
+    total = sum(q["wq"].numel() for q in cp.weights.values())
+    log(f"[16] {tag} calibration on {len(frames)} frames, card vs CPU: "
+        f"{len(gp.blob_scale)} int8 blobs, {len(gp.weights)} int8 convs; "
+        f"blob scales max rel diff {rel:.2e}; wq codes equal {same} of "
+        f"{total} ({same / total:.6f})")
+    if sorted(gp.blob_scale) != sorted(cp.blob_scale) or rel > 1e-5 \
+            or same < 0.999 * total or sorted(gp.weights) != \
+            sorted(cp.weights):
+        raise AssertionError(f"{tag} calibration on the card differs from "
+                             f"the CPU")
+    inet.set_quant_plan(gp)
+    icpu.set_quant_plan(gp)
+    step("calibration")
+    convs = tq.unfused_int8(inet)
+    paths = {}
+    for li in convs:
+        b, l = ir.blobs[li], ir.layers[li]
+        p = ci.route(b.c, l.fn, l.fs, l.stride, l.groups)
+        paths[p] = paths.get(p, 0) + 1
+    if paths != ZOO_INT8_PATHS[tag]:
+        raise AssertionError(f"{tag}: unfused int8 convs by path {paths}, "
+                             f"want {ZOO_INT8_PATHS[tag]}")
+    qs = tq.quant_state(gp, ir, torch.bfloat16, dev)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    shapes = tq.conv_shapes(inet, distinct=True)
+    for li, geo in shapes:
+        h, w, c = geo[:3]
+        cvp = qs.convs[li]
+        x = torch.randint(-127, 128, (ZOO_INT8_BATCH, h, w, c),
+                          generator=gen, dtype=torch.int8).to(dev)
+        int8_conv_check(
+            ci, f"{tag} L{li} {cvp.fs}x{cvp.fs} s{cvp.stride} {h}x{w} "
+                f"C{c}->{cvp.filters} act {cvp.act}", x, cvp,
+            ZOO_INT8_BATCH, 16)
+    log(f"[16] {tag} the int8 conv at the plan's {len(shapes)} distinct "
+        f"unfused shapes ({len(convs)} convs, by path {paths}) against its "
+        f"plain version: ok")
+    step("the int8 conv's shapes")
+    ci.conv_int8.routes.update(dict.fromkeys(ci.ROUTES, 0))
+    dets, counts = counted(counters, lambda: inet.detect(one))
+    by_path = {k: v for k, v in ci.conv_int8.routes.items() if v}
+    launched(f"int8 detect batch 1, its bucket built in the call (by path "
+             f"{by_path})", counts,
+             {"K2": built, "conv_int8": len(convs) * built})
+    if by_path != {k: v * built for k, v in paths.items()}:
+        raise AssertionError(f"{tag} int8 took {by_path}")
+    check_dets(f"{tag} int8", dets)
+    check_replay(f"{tag} int8", inet, counters, one, dets,
+                 {**nothing, "conv_int8": len(convs)}, 16)
+    heads = on_cpu("int8", lambda: icpu.forward_heads(torch.from_numpy(one)))
+    check_against_cpu(f"{tag} int8", inet, icpu, one, dets, 16, heads)
+    took = time.perf_counter() - t0
+    log(f"[16] {tag} checks took {took:.1f} s, the CPU's sides "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cpu_s.items()) + " s")
+    return {"nets": {"fast": fnet, "parity": pnet, "int8": inet},
+            "ir": ir, "params": params, "size": size, "frames": frames,
+            "cpu_s": sum(cpu_s.values())}
+
+
+def parity_diff(tag, pnet, pcpu, batch, pg, pc) -> None:
+    """Log where the card's parity detections ``pg`` differ from the CPU's
+    ``pc``: whether the pre-NMS candidates agree (``bench.
+    parity_candidates``) and how many of the CPU's tie; for the first
+    card detections that are not the CPU's, the CPU's detections of that
+    class overlapping it (min-area IoU above NMS's 0.5), with their score
+    gaps (near 0: greedy NMS kept another member of a tied cluster)."""
+    from ffcnn_tpu_torch.bench import parity_candidates
+    out = {}
+    try:
+        n = parity_candidates(pnet, pcpu, batch, out=out)
+        cs = out["cpu"]
+        live = cs.scores > 0
+        ties = sum(zoo_ties(cs.scores[i][live[i]], cs.classes[i][live[i]])
+                   for i in range(len(batch)))
+        log(f"[16] {tag} parity: {n} live candidates equal the CPU's, the "
+            f"card's tail on them bit for bit; {ties} of the CPU's within "
+            f"{ZOO_TIE_WINDOW} of another's score of their class")
+    except AssertionError as e:
+        log(f"[16] {tag} parity: the candidates differ from the CPU's: {e}")
+
+    def iou(a, b):
+        w = min(a[4], b[4]) - max(a[2], b[2])
+        h = min(a[5], b[5]) - max(a[3], b[3])
+        area = min((a[4] - a[2]) * (a[5] - a[3]), (b[4] - b[2]) * (b[5] - b[3]))
+        return w * h / area if w > 0 and h > 0 and area > 0 else 0.0
+    for i, (a, b) in enumerate(zip(pg, pc)):
+        lone = [g for g in a if not any(
+            c.class_id == g.class_id and abs(c.score - g.score)
+            <= PARITY_SCORE_TOL and all(int(u) == int(v) or abs(u - v)
+                                        <= PARITY_BOX_NOISE
+                                        for u, v in zip(g[2:], c[2:]))
+            for c in b)]
+        log(f"[16] {tag} parity image {i}: card {len(a)}, CPU {len(b)} "
+            f"detections, {len(lone)} of the card's not on the CPU")
+        for g in lone[:4]:
+            log(f"    card {tuple(round(v, 4) for v in g)}; the CPU's "
+                f"overlapping: " + ", ".join(
+                    f"{tuple(round(v, 4) for v in c)} (IoU {iou(g, c):.3f}"
+                    f", score gap {c.score - g.score:.3e})"
+                    for c in b if c.class_id == g.class_id
+                    and iou(g, c) > 0.5))
+
+
+def zoo_ties(scores, classes) -> int:
+    """How many of one image's live candidate scores lie within
+    ZOO_TIE_WINDOW of another candidate's score of the same class."""
+    import torch
+    n = 0
+    for c in torch.unique(classes):
+        s = torch.sort(scores[classes == c]).values
+        gap = (s[1:] - s[:-1]) <= ZOO_TIE_WINDOW
+        near = torch.zeros_like(s, dtype=torch.bool)
+        near[1:] |= gap
+        near[:-1] |= gap
+        n += int(near.sum())
+    return n
+
+
+def host_events_ms(fn, iters: int):
+    """(host ms, device ms) a call of ``fn`` over ``iters`` calls after one
+    untimed call: the host's wall time over the calls before the closing
+    synchronise (a bucket's call waits for the card nowhere, so that is
+    the host's time to enqueue it; the card machine's thread CPU clock
+    read 0 over three calls), and the CUDA events' time from the first
+    call's start to the last one's end (a bucket's replays keep the card
+    busy, so that is its device time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    c0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - c0
+    end.record()
+    end.synchronize()
+    return host * 1e3 / iters, start.elapsed_time(end) / iters
+
+
+def zoo_times(pt, zoo, dev, opts) -> None:
+    """Phase 16, its timings, after every model's checks: for each model
+    ``memory_stats`` of a fresh fast Net at ZOO_MEMORY's batches; then
+    ``detect_device`` in fast, parity and int8 mode: the bucket's replay
+    at batch 64, its device time by CUDA events and its host enqueue time
+    (``host_events_ms``); for ZOO_PROFILE also at batch 1, and the eager
+    pipeline beside it, by events and by torch.profiler (host CPU and
+    device time), and ``Net.profile_layers`` of fast mode at batch 64 with
+    its ten largest rows.  A model's Net drops its buckets after its rows,
+    and the model its Nets after its last.
+
+    ``opts`` (``--zoo``'s flags) bisect a segmentation fault (ROADMAP.md,
+    Queue 3): ``trace_replays`` also times each bucket's replays under
+    torch.profiler; ``keep_buckets`` drops no bucket and no Net;
+    ``recapture`` drops a Net's buckets before its rows, so that every
+    timed graph is captured after the Net before dropped its own."""
+    import gc
+    import torch
+    for tag, z in zoo.items():
+        size = z["size"]
+        mnet = pt.Net(z["ir"], z["params"], mode="fast", device="cuda")
+        for nb in ZOO_MEMORY:
+            m = mnet.memory_stats(batch_size=nb)
+            log(f"[16] {tag} fast memory_stats batch {nb}: " + ", ".join(
+                f"{k} {v / 2**20:.3f} MiB" for k, v in m.items()))
+        del mnet
+        gc.collect()
+        torch.cuda.empty_cache()
+        for mode, net in z["nets"].items():
+            if opts.recapture:
+                net._pipelines.clear()
+            for nb, iters in ZOO_TIMED[0 if tag == ZOO_PROFILE else -1:]:
+                batch = torch.from_numpy(np.resize(
+                    z["frames"], (nb, size, size, 3))).to(dev)
+                net.warmup(batch_sizes=(nb,))
+                bucket = lambda: net.detect_device(batch)
+                bh, bd = host_events_ms(bucket, iters)
+                text = (f"bucket {bd:.3f} ms a call by events ("
+                        f"{nb / bd * 1e3:.1f} img/s), host enqueue "
+                        f"{bh:.3f} ms")
+                if tag == ZOO_PROFILE:
+                    eager = lambda: bucket_of(net, batch).run(batch)
+                    ev = cuda_ms(eager, iters, 1)
+                    eh, ed = profiled_ms(eager, 2)
+                    text += (f"; eager {ev:.3f} ms by events, host CPU "
+                             f"{eh:.3f} ms and device {ed:.3f} ms by "
+                             f"torch.profiler")
+                if opts.trace_replays:
+                    th, td = profiled_ms(bucket, 2)
+                    text += (f"; the bucket by torch.profiler: host CPU "
+                             f"{th:.3f} ms, device {td:.3f} ms")
+                log(f"[16] {tag} {mode} detect batch {nb}: {text}")
+            if tag == ZOO_PROFILE and mode == "fast":
+                rep = net.profile_layers(batch=np.resize(
+                    z["frames"], (BATCH, size, size, 3)), iters=3)
+                for lp in sorted(rep.layers,
+                                 key=lambda lp: -lp.us_per_step)[:10]:
+                    log(f"[16]   row L{lp.index:03d} {lp.type_name:9s} "
+                        f"{lp.desc:40s} {lp.us_per_step:10.1f} us, floor "
+                        f"{rep.floors_us.get(lp.index, 0.0):9.1f} us")
+                log(f"[16] {tag} profile_layers fast batch {BATCH}, 3 "
+                    f"steps on {rep.device}: total {rep.total_us:.1f} us a "
+                    f"step (device), other {rep.other_us:.1f} us, the "
+                    f"bucket's replay {rep.replay_us:.1f} us")
+            if not opts.keep_buckets:
+                net._pipelines.clear()
+        if not opts.keep_buckets:
+            z["nets"].clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def zoo_main(opts) -> int:
+    """Phase 16 in a process of its own (``chip_smoke.py --zoo``, which the
+    whole run starts once the build has ended): every model's checks
+    (``zoo_model``), then the timings (``zoo_times``), then the port's
+    bench once (ZOO_BENCH), its JSON line printed.  ``opts.tags``, where
+    given (``--zoo yolov4``): those models' checks and timings alone, no
+    bench, as a reproducer.  Returns 0, or raises."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import ffcnn_tpu_torch as pt
+        from ffcnn_tpu_torch import bench
+    except ImportError as e:
+        print(f"chip_smoke: the repository is not here ({e})",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    tags = opts.tags.split(",") if opts.tags else None
+    t0 = time.perf_counter()
+    zoo = {tag: zoo_model(pt, counters, tag, cfg) for tag, cfg in ZOO
+           if tags is None or tag in tags}
+    t_checks = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    zoo_times(pt, zoo, dev, opts)
+    t_times = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    if tags is None:
+        row = bench.main(ZOO_BENCH)
+        log(f"[16] bench yolov4 ({time.perf_counter() - t1:.1f} s): "
+            f"{row['value']:.1f} img/s at batch {row['batch']}, parity "
+            f"{row['parity_img_s']:.1f}, int8 {row['int8_img_s']:.1f}, "
+            f"stream {row['stream_host_input_img_s']:.1f}, 640x448 "
+            f"{row['demo_640x448_img_s']:.1f}, batch 1 p50 "
+            f"{row['p50_batch1_ms']:.3f} ms, mfu {row['mfu']:.4%}")
+    t_bench = time.perf_counter() - t1
+    took = time.perf_counter() - t0
+    log(f"[16] phase 16 took {took:.1f} s (checks {t_checks:.1f}, of which "
+        f"the CPU's sides {sum(z['cpu_s'] for z in zoo.values()):.1f}; "
+        f"timings {t_times:.1f}; the bench {t_bench:.1f}); its budget "
+        f"{ZOO_PHASE_S} s {'met' if took <= ZOO_PHASE_S else 'not met'}")
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        raise AssertionError("jax was imported")
+    return 0
+
+
+def kernel_counters() -> dict:
+    """Every kernel's wrapper, whose ``launches`` counts its launches."""
+    from ffcnn_tpu_torch.kernels import block_fused as bf
+    from ffcnn_tpu_torch.kernels import block_variants as bv
+    from ffcnn_tpu_torch.kernels import conv0_fused as c0
+    from ffcnn_tpu_torch.kernels import conv_int8 as ci
+    from ffcnn_tpu_torch.kernels import head_fused as hf
+    from ffcnn_tpu_torch.kernels import mbconv as k8
+    from ffcnn_tpu_torch.kernels import mbconv_cs as k9
+    from ffcnn_tpu_torch.kernels import mosaic_probes as mp
+    from ffcnn_tpu_torch.kernels import nms as knms
+    from ffcnn_tpu_torch.kernels import pw_matmul as pw
+    return {"K1": bf.fused_block, "K2": knms.nms_keep_mask,
+            "K3": bf.fused_down_block, "K4": bf.fused_cascade,
+            "K5": bf.fused_mega, "K6": c0.conv0_cs,
+            "K7": hf.apply_head_run, "K8": k8.fused_mbconv,
+            "K9": k9.fused_mbconv_cs, "P1/P2": pw.pw_matmul,
+            "P3": bv.block_variant, "P4": mp.strided_rows,
+            "P5": mp.dynslice_carry, "conv_int8": ci.conv_int8}
+
+
 def main() -> int:
     import faulthandler
     import torch
@@ -3178,6 +3823,15 @@ def main() -> int:
     faulthandler.enable()
     if sys.argv[1:2] == ["--mp-worker"]:        # one of phase 14's processes
         return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--zoo"]:              # phase 16
+        ap = argparse.ArgumentParser(prog="chip_smoke.py --zoo")
+        ap.add_argument("tags", nargs="?",
+                        help="comma list of models: their checks and "
+                             "timings alone, no bench")
+        for flag in ("--trace-replays", "--keep-buckets", "--recapture"):
+            ap.add_argument(flag, action="store_true",
+                            help="zoo_times' bisection of a fault")
+        return zoo_main(ap.parse_args(sys.argv[2:]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3205,13 +3859,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = {"K1": bf.fused_block, "K2": knms.nms_keep_mask,
-                "K3": bf.fused_down_block, "K4": bf.fused_cascade,
-                "K5": bf.fused_mega, "K6": c0.conv0_cs,
-                "K7": hf.apply_head_run, "K8": k8.fused_mbconv,
-                "K9": k9.fused_mbconv_cs, "P1/P2": pw.pw_matmul,
-                "P3": bv.block_variant, "P4": mp.strided_rows,
-                "P5": mp.dynslice_carry, "conv_int8": ci.conv_int8}
+    counters = kernel_counters()
 
     # 1. the card
     card = card_line()
@@ -3228,6 +3876,16 @@ def main() -> int:
         load()
     log(f"[2] kernels built in {build_s:.1f} s, one nvcc per source in "
         f"parallel: {', '.join(_build.sources())}")
+
+    # 16. the rest of the Darknet zoo, in a process of its own: its Nets at
+    # batch 256 take memory that this process's phases could not then hold
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--zoo"], timeout=ZOO_TIMEOUT_S).returncode
+    log(f"[16] the phase's process exited {rc} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc:
+        raise AssertionError("phase 16 failed")
 
     # the nets of every path, on the card and on the CPU (the same weights)
     wbytes = pt.synth_weights_bytes(pt.parse_cfg(CFG), seed=SEED,

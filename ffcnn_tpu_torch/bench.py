@@ -149,7 +149,8 @@ def parity_gate(cfg, wbytes, device, frames) -> int:
     return n
 
 
-def parity_candidates(net: Net, cpu_net: Net, frames) -> int:
+def parity_candidates(net: Net, cpu_net: Net, frames,
+                      out: Optional[dict] = None) -> int:
     """Parity on ``net``'s device against the CPU for a model whose
     synthetic weights tie scores (tests/test_model_zoo.py's TIE_PRONE: the
     random input's influence washes out over the depth, and greedy NMS
@@ -162,7 +163,9 @@ def parity_candidates(net: Net, cpu_net: Net, frames) -> int:
          candidate count: top-k, the keep mask) on the CPU's candidates
          gives the CPU's result bit for bit.
 
-    Returns the live candidates compared."""
+    Returns the live candidates compared.  ``out``, where given, receives
+    the CPU's candidates (``"cpu"``, ``DecodedBoxes``) and its tail on them
+    (``"tail"``, the ``NMSResult`` its detections come from)."""
     nw, nh = net.ir.blobs[0].w, net.ir.blobs[0].h
     _, _, s1, s2 = letterbox_params(frames.shape[2], frames.shape[1], nw, nh)
     cands = [decode_heads(n.ir, [f.cpu() for f in n.forward_heads(
@@ -188,6 +191,8 @@ def parity_candidates(net: Net, cpu_net: Net, frames) -> int:
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"parity gate: the device's tail on the "
                                  f"CPU's candidates differs in {f}")
+    if out is not None:
+        out.update(cpu=cands[1], tail=want)
     return int(live.sum())
 
 

@@ -7,15 +7,19 @@ Replaces the ``pallas_call``s of ``tools/retest_backend_bugs.py``'s probes
 ``MOSAIC_STRIDED_16`` (P4) and ``MOSAIC_DYNSLICE_CARRY`` (P5), which no
 package path runs: the port of the sweep's two Pallas probes,
 ``ffcnn_tpu_torch/retest_backend_bugs.py``, drives them.  Both are copies,
-so kernel and plain version agree bit for bit.  P5's kernel copies each
-output row from the input row that ``dynslice_rows`` names: its steps
-composed into one row map, computed by each thread.
+so kernel and plain version agree bit for bit.  P4's kernel moves one
+16-byte run (8 columns) a thread where it can, else one element;
+``strided_plan`` mirrors its choice of width, block and grid, and the
+wrapper keeps the launch the kernel reports (``strided_rows.plan``).  P5's
+kernel copies each output row from the input row that ``dynslice_rows``
+names: its steps composed into one row map, computed by each thread.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -23,6 +27,40 @@ from . import _build
 
 _MAX_SEG = 2**30 - 1   # csrc/mosaic_probes.cu: 2*seg rows within an int
 _MAX_COLS = 2**31 - 1
+# csrc/mosaic_probes.cu: P4's threads a CTA, and the threads an SM keeps
+# resident (its grid's cap)
+THREADS, RESIDENT = 128, 2048
+
+
+class StridedPlan(NamedTuple):
+    """One P4 launch: the columns a thread moves (8: a 16-byte run; 1: one
+    element), the block's (x: runs of a row, y: rows) and the grid's (x, y);
+    a grid of (0, 0) launches nothing."""
+    vec: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+
+
+def strided_plan(rows: int, cols: int, x_ptr: int, y_ptr: int,
+                 sms: int) -> StridedPlan:
+    """The launch ``ffcnn_strided_rows`` makes for an (rows, cols) bf16 x at
+    address ``x_ptr`` into y at ``y_ptr`` on a card of ``sms`` SMs: 16-byte
+    runs where cols is a multiple of 8 and both addresses 16-byte aligned,
+    else 2-byte elements; a block of THREADS as (runs, rows), its x the
+    least power of two that covers a row's runs (at most THREADS); a grid
+    over the runs and the bands of rows, its y capped at what the card
+    keeps resident (the CTAs then stride over the bands)."""
+    vec = 8 if cols % 8 == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0 else 1
+    runs, rows_out = cols // vec, -(-rows // 2)
+    bx = 1
+    while bx < runs and bx < THREADS:
+        bx *= 2
+    by = THREADS // bx
+    gx, bands = -(-runs // bx), -(-rows_out // by)
+    gy = 0
+    if gx and bands:
+        gy = min(bands, max(1, sms * (RESIDENT // THREADS) // gx))
+    return StridedPlan(vec, (bx, by), (gx if gy else 0, gy))
 
 
 def strided_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -33,8 +71,9 @@ def strided_rows_plain(x: torch.Tensor) -> torch.Tensor:
 def strided_rows(x: torch.Tensor) -> torch.Tensor:
     """P4: ``x[::2]`` of a 2-D bfloat16 x, (R, C) -> (ceil(R/2), C).
 
-    CPU tensors take ``strided_rows_plain``; CUDA tensors launch the
-    kernel."""
+    CPU tensors take ``strided_rows_plain``; CUDA tensors launch the kernel
+    (none for an empty output), whose launch (``StridedPlan``) is kept in
+    ``strided_rows.plan``."""
     if x.device.type == "cpu":
         return strided_rows_plain(x)
     if (x.device.type != "cuda" or x.dim() != 2 or x.dtype != torch.bfloat16
@@ -44,16 +83,22 @@ def strided_rows(x: torch.Tensor) -> torch.Tensor:
     rows, cols = x.shape
     y = torch.empty(((rows + 1) // 2, cols), dtype=x.dtype, device=x.device)
     lib = build()
+    plan = (ctypes.c_int * 5)()
     err = lib.ffcnn_strided_rows(x.data_ptr(), y.data_ptr(), rows, cols,
+                                 _build.sm_count(x.device), plan,
                                  _build.stream_ptr())
-    strided_rows.launches += 1
     if err:
         raise RuntimeError("strided_rows launch failed: "
                            + lib.ffcnn_probes_error_string(err).decode())
+    strided_rows.plan = StridedPlan(plan[0], (plan[1], plan[2]),
+                                    (plan[3], plan[4]))
+    if plan[4]:
+        strided_rows.launches += 1
     return y
 
 
 strided_rows.launches = 0
+strided_rows.plan = None
 
 
 def _segment(x: torch.Tensor) -> int:
@@ -131,7 +176,7 @@ def build() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' library."""
     lib = _build.load_library("mosaic_probes")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ffcnn_strided_rows.argtypes = [p, p, i, i, p]
+    lib.ffcnn_strided_rows.argtypes = [p, p, i, i, i, ctypes.POINTER(i), p]
     lib.ffcnn_strided_rows.restype = i
     lib.ffcnn_dynslice_carry.argtypes = [p, p, i, i, i, p]
     lib.ffcnn_dynslice_carry.restype = i

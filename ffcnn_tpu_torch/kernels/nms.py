@@ -44,7 +44,13 @@ def keep_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
     k = boxes.shape[1]
     slot = torch.arange(k, device=boxes.device)
     keep = scores > 0                  # only ever cleared: keep => score > 0
+    # an anchor no image keeps suppresses nothing: on the CPU, where the
+    # test is free, the scan skips it (on the card it would wait for the
+    # device at every step)
+    skip = keep.device.type == "cpu"
     for i in range(k):
+        if skip and not bool(keep[:, i].any()):
+            continue
         iou = _iou(boxes[:, i], boxes, iou_kind)
         same = classes == classes[:, i:i + 1]
         keep = keep & ~(keep[:, i:i + 1] & same & (slot > i)[None]

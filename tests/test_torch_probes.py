@@ -405,6 +405,77 @@ def test_strided_rows_odd_count():
     assert torch.equal(mp.strided_rows(x), x[::2])
 
 
+def _p4_launch(plan, rows, cols, x):
+    """P4's kernel as the card runs ``plan``, in numpy: every thread of
+    every CTA, its run from the block indices, its rows striding over the
+    bands; returns y and how often each of its runs was written."""
+    vec, (bx, by), (gx, gy) = plan
+    runs, rows_out = cols // vec, -(-rows // 2)
+    xr = x.reshape(rows, runs, vec)
+    y = np.zeros((rows_out, runs, vec), x.dtype)
+    hits = np.zeros((rows_out, runs), np.int64)
+    for bxi in range(gx):
+        for byi in range(gy):
+            for ty in range(by):
+                for tx in range(bx):
+                    run = bxi * bx + tx
+                    if run >= runs:
+                        continue
+                    for r in range(byi * by + ty, rows_out, gy * by):
+                        y[r, run] = xr[2 * r, run]
+                        hits[r, run] += 1
+    return y.reshape(rows_out, cols), hits
+
+
+# (rows, cols, x's address mod 16, want: columns a thread, block, grid):
+# the sweep's shape (one CTA, one load and one store a thread), an odd R on
+# 16-byte runs, the 2-byte path's odd R, C % 8 != 0 and unaligned view, a
+# row longer than a CTA, and the timed shape past what 132 SMs keep
+# resident (the CTAs stride over its 4,096 bands)
+P4_PLANS = [((16, 128, 0), (8, (16, 8), (1, 1))),
+            ((17, 128, 0), (8, (16, 8), (1, 2))),
+            ((17, 130, 0), (1, (128, 1), (2, 9))),
+            ((16, 130, 0), (1, (128, 1), (2, 8))),
+            ((16, 128, 2), (1, (128, 1), (1, 8))),
+            ((5, 2056, 0), (8, (128, 1), (3, 3))),
+            ((65536, 128, 0), (8, (16, 8), (1, 2112)))]
+
+
+@pytest.mark.parametrize("shape,want", P4_PLANS,
+                         ids=[f"{r}x{c}+{o}" for (r, c, o), _ in P4_PLANS])
+def test_p4_launch_mirror(shape, want):
+    """``strided_plan`` gives the launch that ``ffcnn_strided_rows`` makes
+    (a thread's width, block and grid, on an H100's 132 SMs), and that
+    launch, run thread by thread, writes each run of ``x[::2]`` once."""
+    rows, cols, off = shape
+    plan = mp.strided_plan(rows, cols, 4096 + off, 8192, 132)
+    assert plan == mp.StridedPlan(*want)
+    assert plan.block[0] * plan.block[1] == mp.THREADS
+    if rows * cols > 4096:
+        return
+    x = np.arange(rows * cols, dtype=np.int32)
+    y, hits = _p4_launch(plan, rows, cols, x)
+    np.testing.assert_array_equal(y, x.reshape(rows, cols)[::2])
+    assert (hits == 1).all()
+
+
+def test_p4_mirror_pins_the_source():
+    """The mirror's constants and choices are the launcher's."""
+    src = open(os.path.join(REPO, "ffcnn_tpu_torch", "csrc",
+                            "mosaic_probes.cu")).read()
+    assert f"constexpr int kThreads = {mp.THREADS};" in src
+    assert f"constexpr int kResident = {mp.RESIDENT};" in src
+    for line in ("cols % 8 == 0 && (uintptr_t)x % 16 == 0",
+                 "(uintptr_t)y % 16 == 0",
+                 "while (bx < runs && bx < kThreads) bx *= 2;",
+                 "const int resident = sms * (kResident / kThreads) / gx;",
+                 "strided_rows_kernel<uint4>", "strided_rows_kernel<uint16_t>"):
+        assert line in src, line
+    # an empty output launches nothing
+    assert mp.strided_plan(0, 128, 0, 0, 132).grid == (0, 0)
+    assert mp.strided_plan(16, 0, 0, 0, 132).grid == (0, 0)
+
+
 # -------------------------------------------------------------- the CLIs
 def test_bench_pw_kernels_runs_on_the_cpu(capsys):
     r = tbp.main(["--device", "cpu", "--batch", "2", "--hw", "16"])
