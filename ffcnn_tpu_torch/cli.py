@@ -252,13 +252,16 @@ def cmd_export(args) -> int:
         else:
             net.calibrate(np.stack([bmp_load(p) for p in args.calib]))
     size = None if args.size == 0 else (args.size, args.size)
+    platforms = args.platforms.split(",") if args.platforms else None
     batches = [int(b) for b in str(args.batch).split(",")]
     for b in batches:
         stem, ext = os.path.splitext(args.out)
         out = args.out if len(batches) == 1 else f"{stem}.b{b}{ext}"
-        n = net.export(out, batch_size=b, image_size=size)
+        n = net.export(out, batch_size=b, image_size=size,
+                       platforms=platforms)
         print(f"wrote {out}: {n} bytes (batch {b}, device "
-              f"{net.device.type})")
+              f"{net.device.type}, platforms "
+              f"{','.join(platforms or [net.device.type])})")
     return 0
 
 
@@ -366,6 +369,9 @@ def main(argv=None) -> int:
                     help="BMP frames to calibrate an int8 plan on")
     pe.add_argument("--quant-plan", default=None,
                     help="a saved int8 plan (quant.save_plan's npz)")
+    pe.add_argument("--platforms", default=None,
+                    help="comma list of cuda, cpu: a program each in the "
+                         "one file (default the --device's)")
     _add_model_args(pe)
     pe.set_defaults(mode="fast")
 

@@ -15,20 +15,43 @@ Every kernel the pipeline launches is an ``ffcnn::`` op, so the program
 holds each as one node (the sidecar lists them, as JAX's lists its
 custom-call targets); the kernels build from ``csrc/`` at their first
 launch, as for a ``Net``.  Top-k and the flags a ``Net`` read are sealed
-into the program: there is no K-growth retry, and saturation warns.
+into the program: there is no K-growth retry, and saturation warns.  A conv
+that the float32 knobs force (``FFCNN_HEAD_F32``, ``FFCNN_F32_STAGES``) is
+the op ``ffcnn::conv2d_f32``, which turns cuDNN's TF32 off on the card
+itself, so a program keeps that precision.
 
-On the card ``ArtifactNet`` captures each artifact as one CUDA graph and
-replays it, the port's counterpart of XLA's compiled call.  An artifact
-exported on the card refuses to load where there is no card.
+Platforms (``platforms=``, JAX's argument): ``"cuda"`` and ``"cpu"``.  One
+platform (the default: the Net's device) is one ``torch.export.save`` file.
+Several are one file holding a program each, keyed by platform: an
+uncompressed zip of ``<platform>.pt2`` members, each a
+``torch.export.save`` archive, beside an index (``BUNDLE_INDEX``).
+``torch.export``'s own multi-program archive (``package_pt2``) is not used:
+its reader materialises every program on the device it was traced on, so a
+host with no card could not open a file that also holds a card program.
+Each program is traced on its own device (the other one through
+``Net.replica``): the pipeline chooses between launch and plain version,
+and prepares the kernels' device buffers, as it traces.  So a ``"cuda"``
+program is exported only where there is a card; JAX lowers for a TPU from
+a host without one, the port cannot.  The sidecar records each platform's
+golden-probe detections, taken from that platform's own run.
+
+``load_exported(path, device=None)`` runs the program of the card where
+there is one and the file has it, else the CPU's; a device asked for that
+the file lacks raises, naming the platforms it has.  On the card
+``ArtifactNet`` captures each artifact as one CUDA graph and replays it,
+the port's counterpart of XLA's compiled call.  An artifact exported for
+the card alone refuses to load where there is no card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import threading
 import warnings
+import zipfile
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +71,10 @@ PROBE_SCORE_ATOL = 0.05
 PROBE_BOX_ATOL = 3.0
 # the program's own record of how it runs, inside the .pt2
 _EXTRA = "ffcnn_meta.json"
+# the platforms an artifact may hold a program for, and the index member of
+# a file that holds several
+PLATFORMS = ("cuda", "cpu")
+BUNDLE_INDEX = "ffcnn_platforms.json"
 
 
 def meta_path(path: str) -> str:
@@ -100,49 +127,102 @@ def _custom_ops(ep) -> list:
                    and str(n.target).startswith(_ops.NAMESPACE + ".")})
 
 
-def export_net(net, path: str, *, batch_size: int = 1,
-               image_size: Optional[Tuple[int, int]] = None,
-               mean=None, norm=None) -> int:
-    """Write ``net``'s pipeline for one (batch, H, W) bucket to ``path``
-    (``torch.export.save``) and its sidecar beside it; returns the
-    artifact's size in bytes.  ``image_size``: (H, W) of the incoming
-    images (default the net's input size).
+def _platforms(platforms, default: str) -> Tuple[str, ...]:
+    """``platforms`` checked: names from ``PLATFORMS``, each once (default
+    ``(default,)``); a ``"cuda"`` program needs the card."""
+    if platforms is None:
+        return (default,)
+    plats = (platforms,) if isinstance(platforms, str) else tuple(platforms)
+    bad = [p for p in plats if p not in PLATFORMS]
+    if bad or not plats or len(set(plats)) != len(plats):
+        raise ValueError(f"platforms {list(plats)}: the port exports for "
+                         f"each of {list(PLATFORMS)} at most once "
+                         f"(unknown: {bad})")
+    if "cuda" in plats and not torch.cuda.is_available():
+        raise RuntimeError(
+            "exporting for 'cuda' needs the card: the program is traced on "
+            "it and holds the kernels' prepared device buffers; this "
+            "process has no CUDA device")
+    return plats
 
-    The sidecar also bakes a GOLDEN PROBE: a deterministic frame and the
-    detections this Net gives on it now.  Loaders (``ArtifactNet``,
-    ``serve --artifact``) replay it at warmup and refuse readiness on a
-    mismatch, so a stale or mismatched artifact fails on its semantics, not
-    only on its shapes."""
-    from .net import DEFAULT_MEAN, DEFAULT_NORM
 
-    if net.mode == "int8" and net.quant is None:
-        raise RuntimeError("int8 mode: call calibrate(images) (or "
-                           "set_quant_plan) before exporting")
-    if net.device.type == "cuda" and net._f32_layers:
-        raise NotImplementedError(
-            "FFCNN_HEAD_F32 / FFCNN_F32_STAGES switch cuDNN's TF32 off conv "
-            "by conv as the pipeline runs; an exported program does not "
-            "record that switch")
-    net_w, net_h = net.ir.blobs[0].w, net.ir.blobs[0].h
-    img_h, img_w = image_size or (net_h, net_w)
-    pipe = net._pipeline_for(img_h, img_w,
-                             mean if mean is not None else DEFAULT_MEAN,
-                             norm if norm is not None else DEFAULT_NORM)
+def _trace(net, batch_size: int, img_h: int, img_w: int, mean, norm):
+    """``net``'s bucket traced on its device: (the exported program, the
+    golden probe's detections there)."""
+    pipe = net._pipeline_for(img_h, img_w, mean, norm)
     probe = torch.from_numpy(_probe_batch(batch_size, img_h, img_w)
                              ).to(net.device)
-    with torch.no_grad():
+    with torch.no_grad(), tf32(net.mode != "parity"):
         # the eager run first: it gives the probe's detections and fills
         # the pipeline's per-geometry caches with real tensors, which the
         # trace then bakes in as constants
         expected = _det_rows(pipe.run(probe))
         ep = torch.export.export(_Program(pipe), (probe,), strict=False)
-    mode = {"device": net.device.type, "mode": net.mode}
-    torch.export.save(ep, path, extra_files={_EXTRA: json.dumps(mode)})
+    return ep, expected
+
+
+def save_programs(path: str, programs: dict, mode: str) -> None:
+    """Write ``{platform: exported program}`` to ``path``: one program as
+    ``torch.export.save`` writes it, several as one uncompressed zip of
+    ``<platform>.pt2`` members beside ``BUNDLE_INDEX``.  Each program
+    records its device and ``mode`` inside it."""
+    def extra(plat):
+        return {_EXTRA: json.dumps({"device": plat, "mode": mode})}
+    if len(programs) == 1:
+        ((plat, ep),) = programs.items()
+        torch.export.save(ep, path, extra_files=extra(plat))
+        return
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        zf.writestr(BUNDLE_INDEX, json.dumps(
+            {"format": FORMAT, "platforms": list(programs), "mode": mode}))
+        for plat, ep in programs.items():
+            buf = io.BytesIO()
+            torch.export.save(ep, buf, extra_files=extra(plat))
+            zf.writestr(f"{plat}.pt2", buf.getvalue())
+
+
+def export_net(net, path: str, *, batch_size: int = 1,
+               image_size: Optional[Tuple[int, int]] = None,
+               mean=None, norm=None,
+               platforms: Optional[Sequence[str]] = None) -> int:
+    """Write ``net``'s pipeline for one (batch, H, W) bucket to ``path`` and
+    its sidecar beside it; returns the artifact's size in bytes.
+    ``image_size``: (H, W) of the incoming images (default the net's input
+    size).  ``platforms``: ``"cuda"`` and/or ``"cpu"``, a program each
+    (default the net's device); another device's program is traced on
+    ``net.replica`` there.
+
+    The sidecar also bakes a GOLDEN PROBE: a deterministic frame and the
+    detections this Net gives on it now, on each platform.  Loaders
+    (``ArtifactNet``, ``serve --artifact``) replay it at warmup and refuse
+    readiness on a mismatch, so a stale or mismatched artifact fails on its
+    semantics, not only on its shapes."""
+    from .net import DEFAULT_MEAN, DEFAULT_NORM
+
+    plats = _platforms(platforms, net.device.type)
+    if net.mode == "int8" and net.quant is None:
+        raise RuntimeError("int8 mode: call calibrate(images) (or "
+                           "set_quant_plan) before exporting")
+    net_w, net_h = net.ir.blobs[0].w, net.ir.blobs[0].h
+    img_h, img_w = image_size or (net_h, net_w)
+    mean = mean if mean is not None else DEFAULT_MEAN
+    norm = norm if norm is not None else DEFAULT_NORM
+    programs, expected = {}, {}
+    for plat in plats:
+        pnet = net if plat == net.device.type else net.replica(plat)
+        programs[plat], expected[plat] = _trace(pnet, batch_size, img_h,
+                                                img_w, mean, norm)
+    save_programs(path, programs, net.mode)
     with open(meta_path(path), "w") as f:
         json.dump({"format": FORMAT, "torch_version": torch.__version__,
-                   **mode, "custom_ops": _custom_ops(ep),
+                   "device": plats[0], "mode": net.mode,
+                   "platforms": list(plats),
+                   "custom_ops": sorted({op for ep in programs.values()
+                                         for op in _custom_ops(ep)}),
                    "kernel_hash": _build.source_hash(),
-                   "probe": {"seed": PROBE_SEED, "expected": expected}},
+                   "probe": {"seed": PROBE_SEED,
+                             "expected": expected[plats[0]],
+                             "expected_by_platform": expected}},
                   f, indent=1)
     return os.path.getsize(path)
 
@@ -153,12 +233,14 @@ class ExportedNet:
     program on a uint8 batch of exactly the exported (N, H, W, 3) shape
     (one artifact per bucket) and returns an ``NMSResult`` on the
     artifact's device.  ``meta`` is the sidecar dict, or None for a bare
-    artifact."""
+    artifact; ``platforms`` those the file holds a program for, ``device``
+    the one loaded."""
     program: torch.nn.Module
     in_shape: Tuple[int, ...]
     device: torch.device
     mode: str
     meta: Optional[dict] = None
+    platforms: Tuple[str, ...] = ()
 
     def run(self, x: torch.Tensor) -> NMSResult:
         """The program on a checked uint8 tensor on its device, under its
@@ -175,35 +257,87 @@ class ExportedNet:
         return self.run(x.to(self.device))
 
 
-def load_exported(path: str) -> ExportedNet:
-    """Load an ``export_net`` artifact.  Needs this module, the ``ffcnn::``
-    ops and torch: no cfg, no weights file, no graph builder.  The sidecar
-    is read when present (probe verification happens in
+def choose_platform(platforms: Sequence[str], device=None,
+                    cuda: Optional[bool] = None, name: str = "artifact"
+                    ) -> str:
+    """The platform whose program ``load_exported`` runs: ``device``'s
+    where given, else the card's where there is one (``cuda``, default
+    ``torch.cuda.is_available()``) and the file has it, else the CPU's.
+    Raises, naming ``platforms``, where the file has no such program or
+    the card is asked for and absent: never another device's program."""
+    cuda = torch.cuda.is_available() if cuda is None else cuda
+    plats = tuple(platforms)
+    if device is None:
+        for plat in ("cuda", "cpu") if cuda else ("cpu",):
+            if plat in plats:
+                return plat
+        raise RuntimeError(f"{name} was exported on the card (platforms "
+                           f"{list(plats)}); this process has no CUDA "
+                           f"device")
+    want = torch.device(device).type
+    if want not in plats:
+        raise ValueError(f"{name} holds no program for {want!r}: its "
+                         f"platforms are {list(plats)}")
+    if want == "cuda" and not cuda:
+        raise RuntimeError(f"{name}: 'cuda' asked for, but this process has "
+                           f"no CUDA device")
+    return want
+
+
+def _bundle_platforms(path: str) -> Optional[Tuple[str, ...]]:
+    """The platforms of a file that holds several programs, or None for a
+    one-program file."""
+    if not zipfile.is_zipfile(path):
+        return None
+    with zipfile.ZipFile(path) as zf:
+        if BUNDLE_INDEX not in zf.namelist():
+            return None
+        return tuple(json.loads(zf.read(BUNDLE_INDEX))["platforms"])
+
+
+def load_exported(path: str, device=None) -> ExportedNet:
+    """Load an ``export_net`` artifact: the program of ``device`` (a
+    ``choose_platform`` choice where None).  Needs this module, the
+    ``ffcnn::`` ops and torch: no cfg, no weights file, no graph builder.
+    The sidecar is read when present (probe verification happens in
     ``verify_artifact`` and ``ArtifactNet.warmup``, not here: loading stays
-    cheap).  An artifact exported on the card refuses to load where there
-    is no card."""
+    cheap)."""
     meta = None
     if os.path.exists(meta_path(path)):
         with open(meta_path(path)) as f:
             meta = json.load(f)
-    if meta and meta.get("device") == "cuda" \
-            and not torch.cuda.is_available():
-        raise RuntimeError(f"{path} was exported on the card; this process "
-                           f"has no CUDA device")
+    # a one-program file holds its sidecar's device's program
+    bundle = _bundle_platforms(path)
+    plats = bundle or ((meta["device"],) if meta and "device" in meta
+                       else None)
+    plat = choose_platform(plats, device, name=path) if plats else None
     extra = {_EXTRA: ""}
+    src = path
+    if bundle:
+        with zipfile.ZipFile(path) as zf:
+            src = io.BytesIO(zf.read(f"{plat}.pt2"))
     try:
-        ep = torch.export.load(path, extra_files=extra)
+        with warnings.catch_warnings():
+            # torch reads the constants into read-only buffers; a program
+            # never writes its constants
+            warnings.filterwarnings(
+                "ignore", message="The given buffer is not writable")
+            ep = torch.export.load(src, extra_files=extra)
     except RuntimeError as e:
         if "CUDA" in str(e) and not torch.cuda.is_available():
             raise RuntimeError(f"{path} needs a CUDA device: {e}") from e
         raise
     info = json.loads(extra[_EXTRA]) if extra[_EXTRA] else {}
+    if plats is None:                       # a bare one-program file
+        plats = (info.get("device", "cpu"),)
+        plat = choose_platform(plats, device, name=path)
     (spec,) = [n.meta["val"] for n in ep.graph.nodes
                if n.op == "placeholder"
                and n.name in ep.graph_signature.user_inputs]
     return ExportedNet(program=ep.module(), in_shape=tuple(spec.shape),
-                       device=torch.device(info.get("device", "cpu")),
-                       mode=info.get("mode", "fast"), meta=meta)
+                       device=torch.device(plat),
+                       mode=info.get("mode", "fast"), meta=meta,
+                       platforms=plats)
 
 
 def verify_artifact(art: ExportedNet, name: str = "artifact") -> None:
@@ -219,7 +353,9 @@ def verify_artifact(art: ExportedNet, name: str = "artifact") -> None:
     n, h, w, _ = art.in_shape
     probe = _probe_batch(n, h, w, art.meta["probe"].get("seed", PROBE_SEED))
     got = to_detections(art.call(probe))
-    want = art.meta["probe"]["expected"]
+    # the loaded platform's own detections at export
+    want = art.meta["probe"].get("expected_by_platform", {}).get(
+        art.device.type, art.meta["probe"]["expected"])
     for i, (g_dets, w_dets) in enumerate(zip(got, want)):
         ok = len(g_dets) == len(w_dets) and all(
             g.class_id == wd[0]
@@ -248,7 +384,9 @@ class ArtifactNet:
     (the micro-batcher pads to powers of two, so export matching buckets:
     1, 2, ..., max_batch).  On the card each artifact is captured as one
     CUDA graph at its first call (``warmup`` captures them all) and
-    replayed after, as a ``Net`` bucket is."""
+    replayed after, as a ``Net`` bucket is.  Each artifact runs the
+    program ``load_exported`` chooses: the card's where there is a card and
+    the file has it, else the CPU's."""
 
     def __init__(self, paths: Sequence[str]):
         if not paths:
@@ -371,5 +509,6 @@ class ArtifactNet:
         for (h, w), sizes in sorted(self._buckets.items()):
             for n, art in sizes:
                 lines.append(f"  {h}x{w} batch {n:4d}  device "
-                             f"{art.device.type}  mode {art.mode}")
+                             f"{art.device.type}  mode {art.mode}  "
+                             f"platforms {','.join(art.platforms)}")
         return "\n".join(lines) + "\n"

@@ -24,7 +24,6 @@ through the int8 conv kernel (``kernels/conv_int8.py``).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -38,7 +37,7 @@ from ..kernels.conv0_fused import conv0_cs
 from ..kernels.conv_int8 import conv_int8
 from ..kernels.head_fused import apply_head_run
 from ..ops.activations import activate
-from ..ops.conv import conv2d_fused
+from ..ops.conv import conv2d_f32, conv2d_fused
 from ..ops.pool import avgpool2d, maxpool2d, upsample_nearest
 from ..quant import quant_state, quantize
 
@@ -140,17 +139,6 @@ def live_blobs(ir: NetIR, cut: int) -> List[int]:
                   if bi <= cut and any(li >= cut for li in users))
 
 
-@contextlib.contextmanager
-def _cudnn_tf32(allow: bool):
-    """cuDNN's TF32 switch set for the block, then restored."""
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = old
-
-
 def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
                      input_dtype: Optional[torch.dtype] = None,
                      blob_hook=None, fused_runs=None, fused_params=None,
@@ -206,11 +194,13 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
 
     ``f32_layers``: a set of layer indices computed in float32, as JAX's
     ``run_layer`` computes them: a conv in the set casts its input to
-    float32 (its output blob stays float32; on the card with cuDNN's TF32
-    off), a shortcut in the set adds in float32 and keeps the sum float32,
-    and a conv outside the set casts its input back to the blob dtype, so
-    a forced stage stays local to that stage.  The caller drops the fused
-    runs that overlap the set (``net.Net`` does).
+    float32 (its output blob stays float32) and runs as one op,
+    ``ops.conv.conv2d_f32`` (on the card cuDNN's TF32 off inside it, so an
+    exported program keeps that precision), a shortcut in the set adds in
+    float32 and keeps the sum float32, and a conv outside the set casts
+    its input back to the blob dtype, so a forced stage stays local to
+    that stage.  The caller drops the fused runs that overlap the set
+    (``net.Net`` does).
 
     ``quant``: an int8 plan (``quant.QuantPlan``), as the JAX builder runs
     it: a blob the plan marks int8 is stored as int8 codes at its scale; a
@@ -351,11 +341,11 @@ def forward_features(ir: NetIR, params: Params, x: Optional[torch.Tensor], *,
             inp = deq(li, inp)
             if f32_layers is not None:
                 inp = inp.to(torch.float32 if forced else float_dtype)
-            with (_cudnn_tf32(False) if forced and inp.is_cuda
-                  else contextlib.nullcontext()):
-                y = conv2d_fused(inp, p["weights"], p["scale"], p["bias"],
-                                 stride=layer.stride, pad=layer.pad,
-                                 groups=layer.groups, act=layer.activation)
+            # a forced conv is one op that holds its precision
+            y = (conv2d_f32 if forced else conv2d_fused)(
+                inp, p["weights"], p["scale"], p["bias"],
+                stride=layer.stride, pad=layer.pad, groups=layer.groups,
+                act=layer.activation)
             return store(li + 1, y) if is_q(li + 1) else y
         if t == LayerType.MAXPOOL:
             # max commutes with a shared positive scale

@@ -11,10 +11,16 @@ builder, no ``net.py`` and no cfg parser.
     ffcnn::head_run          K7  kernels/head_fused.py   csrc/head_fused.cu
     ffcnn::nms_keep_mask     K2  kernels/nms.py          csrc/nms.cu
     ffcnn::conv_int8             kernels/conv_int8.py    csrc/conv_int8.cu
+
+One more op carries no kernel of the port, only a precision: a conv that
+the float32 knobs force, cuDNN with TF32 off (``PRECISION_OPS``).
+
+    ffcnn::conv2d_f32            ops/conv.py             (cuDNN)
 """
 
 from __future__ import annotations
 
+from ..ops import conv as _conv
 from . import block_fused, conv0_fused, conv_int8, head_fused, nms
 from ._library import NAMESPACE
 
@@ -27,4 +33,6 @@ OPS = {"fused_block": block_fused.FUSED_BLOCK_OP,
        "nms_keep_mask": nms.NMS_OP,
        "conv_int8": conv_int8.CONV_INT8_OP}
 
-__all__ = ["NAMESPACE", "OPS"]
+PRECISION_OPS = {"conv2d_f32": _conv.CONV2D_F32_OP}
+
+__all__ = ["NAMESPACE", "OPS", "PRECISION_OPS"]

@@ -52,7 +52,8 @@ in float32 and supersedes the fused head chains (K7);
 ``FFCNN_F32_STAGES=20`` (a comma list of widths) computes every conv and
 shortcut whose output has that width in float32, stage-locally, and drops
 every fused run (K1/K3/K4/K5, K7) that overlaps a forced layer.  The two
-compose by union.  A forced conv on the card runs with cuDNN's TF32 off.
+compose by union.  A forced conv is one op, ``ffcnn::conv2d_f32``, which on
+the card runs with cuDNN's TF32 off (so an exported program keeps it).
 ``FFCNN_CONV0_INT8=1`` (read once, when a fast or int8 Net is built; parity
 mode ignores it, as JAX does) runs conv-1 straight off the uint8 pixels
 through the int8 conv's uint8 mode on the folded path, before the stem
@@ -60,7 +61,8 @@ kernel, which it displaces.  A parity Net refuses
 ``FFCNN_PARITY_PRECISION=high`` (JAX's 3-pass bf16 convs; TF32 would be a
 different rounding, not the same one).
 
-``export`` writes a bucket as a ``torch.export`` artifact (``export.py``).
+``export`` writes a bucket as a ``torch.export`` artifact (``export.py``),
+for the card, the CPU or both (``platforms``).
 
 YOLOv8 graphs (``[yolov8]`` heads, from ``yolov8.py``'s converter) decode
 by ``decode_head_v8``; a graph with no ``[yolo]`` head skips the
@@ -740,16 +742,18 @@ class Net:
 
     # ----------------------------------------------------------------- export
     def export(self, path: str, *, batch_size: int = 1, image_size=None,
-               mean=None, norm=None) -> int:
+               mean=None, norm=None, platforms=None) -> int:
         """Write this Net's whole pixels-to-boxes pipeline for one (batch,
         H, W) bucket as a self-contained ``torch.export`` artifact (weights
         baked in as constants) with its ``.meta.json`` sidecar, as
-        ``ffcnn_tpu/net.py::Net.export`` does; load it with
-        ``export.load_exported`` or ``export.ArtifactNet``.  Returns the
-        bytes written."""
+        ``ffcnn_tpu/net.py::Net.export`` does: a program for each of
+        ``platforms`` (``"cuda"``, ``"cpu"``; default this Net's device);
+        load it with ``export.load_exported`` or ``export.ArtifactNet``.
+        Returns the bytes written."""
         from .export import export_net
         return export_net(self, path, batch_size=batch_size,
-                          image_size=image_size, mean=mean, norm=norm)
+                          image_size=image_size, mean=mean, norm=norm,
+                          platforms=platforms)
 
 
 def load(cfg_path: str, weights=None, *, input_w: int = 0, input_h: int = 0,

@@ -16,6 +16,13 @@ whose 10-bit mantissa holds bf16's 7), so the result is the float32
 accumulation the JAX package asks of the MXU.  Float32 inputs compute at
 whatever precision the caller set for cuDNN: parity mode turns TF32 off
 (``net.Net``), mirroring ``Precision.HIGHEST``.
+
+``conv2d_f32`` is a conv that the float32 knobs force (``FFCNN_HEAD_F32``,
+``FFCNN_F32_STAGES``): ``conv2d_fused`` in float32 as one ``ffcnn::`` op,
+whose CUDA implementation turns cuDNN's TF32 off around the call.  The
+precision is then part of the op, so a ``torch.export`` program (which
+records no process-wide switch) keeps it.  It launches no kernel of the
+port: the JAX package leaves this conv to XLA.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _library
 from .activations import activate
 
 
@@ -44,6 +52,48 @@ def conv2d_fused(x: torch.Tensor, weights: torch.Tensor, scale: torch.Tensor,
     y = y.permute(0, 2, 3, 1)      # back to NHWC, no copy
     y = y * scale.float() + bias.float()
     return activate(y, act).to(x.dtype).contiguous()
+
+
+def _out_shape(x, weights, stride, pad):
+    n, h, w, _ = x.shape
+    fn, _, fs, _ = weights.shape
+    return (n, (h + 2 * pad - fs) // stride + 1,
+            (w + 2 * pad - fs) // stride + 1, fn)
+
+
+def _conv2d_f32_cpu(x, weights, scale, bias, stride, pad, groups, act):
+    return conv2d_fused(x, weights, scale, bias, stride=stride, pad=pad,
+                        groups=groups, act=act)
+
+
+def _conv2d_f32_cuda(x, weights, scale, bias, stride, pad, groups, act):
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _conv2d_f32_cpu(x, weights, scale, bias, stride, pad, groups,
+                               act)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+CONV2D_F32_OP = _library.define(
+    "conv2d_f32(Tensor x, Tensor weights, Tensor scale, Tensor bias, "
+    "int stride, int pad, int groups, int act) -> Tensor",
+    cpu=_conv2d_f32_cpu, cuda=_conv2d_f32_cuda,
+    fake=lambda x, w, s, b, stride, pad, groups, act: x.new_empty(
+        _out_shape(x, w, stride, pad), dtype=torch.float32))
+
+
+def conv2d_f32(x: torch.Tensor, weights: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor, *, stride: int, pad: int, groups: int,
+               act: int) -> torch.Tensor:
+    """``conv2d_fused`` on a float32 ``x`` at full float32 precision,
+    through ``ffcnn::conv2d_f32``: on the card cuDNN's TF32 is off for the
+    call, whatever the caller set; on the CPU it is ``conv2d_fused``."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"conv2d_f32 takes a float32 x, got {x.dtype}")
+    return CONV2D_F32_OP(x, weights, scale, bias, int(stride), int(pad),
+                         int(groups), int(act))
 
 
 def conv0_int8_from_u8(x_u8: torch.Tensor, weights, scale, bias, *,
